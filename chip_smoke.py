@@ -1,0 +1,470 @@
+"""Drive the tidb_tpu_torch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+1. Prints the card (name and power limit as nvidia-smi reports them) and
+   builds every hand-written kernel from csrc/ (one nvcc per source, all
+   started together).
+2. Holds K1 (the CUDA grouped-sum kernel) bit-exact against its plain
+   PyTorch version at its edge shapes.
+3. Generates TPC-H lineitem at scale factor 1 (6,001,215 rows, the
+   specification's column domains, from --seed), splits it at the middle
+   handle into two regions of one 4,194,304-row device block each, and runs
+   the five fixture DAGs (COUNT(*), Q6, Q1, the Q10 TopN and the 160-bucket
+   grouped sum) through gpu_engine.execute_dag on both regions. Every
+   result must equal the port's CPU path row for row, and the merged
+   partial results must equal an independent numpy oracle exactly. K1's
+   launch count must rise during the band query and not during Q1.
+4. Holds K1 against its plain version on the exact inputs the main path
+   gave it and times kernel, plain version and one ``index_add_`` call.
+5. Prints the ``{"kernels": [...]}`` line, then, last, the
+   ``{"ok": true, "device": {...}}`` line.
+
+Any failed check raises, so the script exits non-zero and prints no result
+line. It imports torch and the port only.
+"""
+
+from __future__ import annotations
+
+import argparse
+import datetime as dt
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from decimal import Decimal
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor-core peak, the nearest table rate for int64 adds
+SF1_ROWS = 6_001_215
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, reps: int = 25, warm: int = 3) -> float:
+    """Median device time of one call (CUDA events around each call)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+# -- K1 ----------------------------------------------------------------------
+
+
+def _k1_synthetic(n_pad: int, B: int, L: int, seed: int):
+    """seg with ~10% dead rows (both seg >= B and seg < 0), L lanes with
+    values at ±(2^45 - 1) mixed in, the last lane int32."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vmax = (1 << 45) - 1
+    seg = torch.randint(0, B, (n_pad,), generator=g, device=dev, dtype=torch.int32)
+    u = torch.rand(n_pad, generator=g, device=dev)
+    seg = torch.where(u < 0.05, B + (seg % 7), seg)
+    seg = torch.where((u >= 0.05) & (u < 0.1), -1 - (seg % 7), seg)
+    pairs = []
+    for k in range(L):
+        if k == L - 1:
+            v = torch.randint(-(1 << 30), 1 << 30, (n_pad,), generator=g, device=dev, dtype=torch.int32)
+        else:
+            v = torch.randint(-vmax, vmax + 1, (n_pad,), generator=g, device=dev, dtype=torch.int64)
+            r = torch.rand(n_pad, generator=g, device=dev)
+            v = torch.where(r < 0.05, vmax, torch.where(r > 0.95, -vmax, v))
+        pairs.append((v, torch.rand(n_pad, generator=g, device=dev) < 0.8))
+    return seg, pairs
+
+
+def _k1_err(seg, pairs, B: int, n_pad: int) -> int:
+    import torch
+
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    c, s = gs.grouped_sums(seg, pairs, B, n_pad, device=seg.device)
+    pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad)
+    torch.cuda.synchronize()
+    err = max(int((c - pc).abs().max()), int((s - ps).abs().max()))
+    if err != 0:
+        raise AssertionError(f"K1 disagrees with its plain version at B={B} n_pad={n_pad} L={len(pairs)}: {err}")
+    return err
+
+
+def _k1_bound(seg, pairs, B: int):
+    """(bound_ms, bound_by) for this input: seg read for every row, each
+    lane's weight for every live row and its value for every weighted live
+    row, both outputs written once; int64 adds at the non-tensor peak."""
+    live = (seg >= 0) & (seg < B)
+    nbytes = seg.numel() * 4 + 2 * B * len(pairs) * 8
+    ops = 0
+    for v, w in pairs:
+        nl = int(live.sum())
+        nw = int((live & w).sum())
+        nbytes += nl + nw * v.element_size()
+        ops += 2 * nw
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _k1_timings(seg, pairs, B: int, n_pad: int) -> dict:
+    import torch
+
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    dev = seg.device
+    L = len(pairs)
+    # the library yardstick: one index_add_ of [w*v, w] rows into B+1 buckets
+    # (dead rows to the extra one); its operands are built outside the timing
+    seg_c = torch.where((seg >= 0) & (seg < B), seg, B).to(torch.int64)
+    src = torch.stack(
+        [x for v, w in pairs for x in (torch.where(w, v.to(torch.int64), 0), w.to(torch.int64))], dim=1
+    )
+    out = torch.zeros(B + 1, 2 * L, dtype=torch.int64, device=dev)
+
+    def library():
+        out.zero_()
+        out.index_add_(0, seg_c, src)
+
+    library()
+    lib_c = out[:B, 1::2]
+    lib_s = out[:B, 0::2]
+    pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad)
+    if not (torch.equal(lib_c, pc) and torch.equal(lib_s, ps)):
+        raise AssertionError("index_add_ yardstick disagrees with the plain version")
+    ms = _time_ms(lambda: gs.grouped_sums(seg, pairs, B, n_pad, device=dev))
+    plain_ms = _time_ms(lambda: gs.grouped_sums_plain(seg, pairs, B, n_pad))
+    library_ms = _time_ms(library)
+    bound_ms, bound_by = _k1_bound(seg, pairs, B)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# -- TPC-H lineitem at SF1 -----------------------------------------------------
+
+RETURNFLAGS = [b"A", b"N", b"R"]
+LINESTATUS = [b"F", b"O"]
+SHIPMODES = [b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL", b"FOB"]
+SHIPINSTRUCTS = [b"DELIVER IN PERSON", b"COLLECT COD", b"NONE", b"TAKE BACK RETURN"]
+
+
+def _days(d: dt.date) -> int:
+    return (d - dt.date(1970, 1, 1)).days
+
+
+def lineitem_sf1(seed: int, n: int = SF1_ROWS) -> dict:
+    """The nine lineitem columns the fixture DAGs read, in TPC-H §4.2.3's
+    domains: quantity 1..50; extendedprice = quantity * retailprice(partkey)
+    over SF1's 200,000 parts; discount 0.00..0.10; tax 0.00..0.08; order
+    date uniform in [1992-01-01, 1998-08-02], ship date 1..121 days later,
+    receipt date 1..30 after that; returnflag R/A if received by 1995-06-17
+    else N; linestatus O if shipped after 1995-06-17 else F. Each row draws
+    its own order date (the order table is not generated). Decimals are
+    scaled integers (DECIMAL(12,2)), dates are days since 1970-01-01,
+    strings are codes into the lists above."""
+    rng = np.random.default_rng(seed)
+    qty = rng.integers(1, 51, n)
+    partkey = rng.integers(1, 200_001, n)
+    retail = 90_000 + (partkey // 10) % 20_001 + 100 * (partkey % 1000)  # cents
+    orderdate = rng.integers(_days(dt.date(1992, 1, 1)), _days(dt.date(1998, 8, 2)) + 1, n)
+    ship = orderdate + rng.integers(1, 122, n)
+    receipt = ship + rng.integers(1, 31, n)
+    current = _days(dt.date(1995, 6, 17))
+    rf = np.where(receipt <= current, np.where(rng.random(n) < 0.5, 2, 0), 1).astype(np.int32)
+    return {
+        0: qty.astype(np.int64) * 100,
+        1: (qty * retail).astype(np.int64),
+        2: rng.integers(0, 11, n).astype(np.int64),
+        3: rng.integers(0, 9, n).astype(np.int64),
+        4: rf,
+        5: (ship > current).astype(np.int32),
+        6: ship.astype(np.int64),
+        7: rng.integers(0, len(SHIPMODES), n).astype(np.int32),
+        8: rng.integers(0, len(SHIPINSTRUCTS), n).astype(np.int32),
+    }
+
+
+def make_regions(cols: dict, table_id: int):
+    """Two regions split at the middle handle (handles 1..n), sharing one
+    ColumnCache so string codes agree; → [(region, ranges)]."""
+    from tidb_tpu_torch.copr.carry import region_from_arrays
+    from tidb_tpu_torch.kv import tablecodec
+
+    n = len(cols[0])
+    handles = np.arange(1, n + 1, dtype=np.int64)
+    mid = n // 2
+    dicts = {4: RETURNFLAGS, 5: LINESTATUS, 7: SHIPMODES, 8: SHIPINSTRUCTS}
+    full = tablecodec.record_range(table_id)
+    split = tablecodec.record_key(table_id, int(handles[mid]))
+    out = []
+    cache = None
+    for lo, hi, start, end in ((0, mid, full.start, split), (mid, n, split, full.end)):
+        sl = {s: (c[lo:hi], np.ones(hi - lo, bool)) for s, c in cols.items()}
+        r = region_from_arrays(handles[lo:hi], sl, dicts, table_id, (start, end), cache=cache)
+        cache = r.cache
+        out.append((r, [tablecodec.KeyRange(start, end)]))
+    return out
+
+
+# -- the oracle -----------------------------------------------------------------
+
+
+def _dec(x: int, scale: int) -> Decimal:
+    return Decimal(int(x)).scaleb(-scale)
+
+
+def merge_partials(name: str, per_region: list[list[tuple]], n_keys: int):
+    """Merge the regions' partial results the way the root executor does:
+    COUNT/SUM lanes add per group; TopN candidates re-sort and cut."""
+    if name == "q10":
+        # region 0 holds the lower handles: (-price, region, position) is the
+        # host engine's stable order over the whole table
+        cand = [(-r[0], ri, i, r) for ri, rows in enumerate(per_region) for i, r in enumerate(rows)]
+        return [c[3] for c in sorted(cand, key=lambda c: c[:3])[:20]]
+    acc: dict = {}
+    for rows in per_region:
+        for r in rows:
+            key = r[len(r) - n_keys :]
+            vals = r[: len(r) - n_keys]
+            cur = acc.get(key)
+            if cur is None:
+                acc[key] = list(vals)
+                continue
+            for i, v in enumerate(vals):
+                if v is not None:
+                    cur[i] = v if cur[i] is None else cur[i] + v
+    return {k: tuple(v) for k, v in acc.items()}
+
+
+def oracle(name: str, c: dict):
+    """The query's answer from the generated arrays, in numpy."""
+    qty, price, disc, tax, rf, ls, ship, mode, instr = (c[i] for i in range(9))
+    if name == "count":
+        return {(): (len(qty),)}
+    if name == "q6":
+        m = (ship >= _days(dt.date(1994, 1, 1))) & (ship < _days(dt.date(1995, 1, 1)))
+        m &= (disc >= 5) & (disc <= 7) & (qty < 2400)
+        return {(): (_dec(int((price[m] * disc[m]).sum()), 4),)}
+    if name == "q1":
+        out = {}
+        m0 = ship <= _days(dt.date(1998, 9, 2))
+        for fi, f in enumerate(RETURNFLAGS):
+            for si, s in enumerate(LINESTATUS):
+                m = m0 & (rf == fi) & (ls == si)
+                cnt = int(m.sum())
+                if not cnt:
+                    continue
+                sq, sp, sd = int(qty[m].sum()), int(price[m].sum()), int(disc[m].sum())
+                dp = price[m] * (100 - disc[m])
+                out[(f.decode(), s.decode())] = (
+                    _dec(sq, 2), _dec(sp, 2), _dec(int(dp.sum()), 4), _dec(int((dp * (100 + tax[m])).sum()), 6),
+                    cnt, _dec(sq, 2), cnt, _dec(sp, 2), cnt, _dec(sd, 2), cnt,
+                )
+        return out
+    if name == "q10":
+        m = ship >= _days(dt.date(1994, 1, 1))
+        idx = np.nonzero(m)[0]
+        top = idx[np.argsort(-price[idx], kind="stable")[:20]]
+        return [(_dec(price[i], 2), RETURNFLAGS[rf[i]].decode(), dt.date(1970, 1, 1) + dt.timedelta(days=int(ship[i]))) for i in top]
+    if name == "band":
+        key = (mode.astype(np.int64) * len(SHIPINSTRUCTS) + instr) * len(RETURNFLAGS) + rf
+        nb = len(SHIPMODES) * len(SHIPINSTRUCTS) * len(RETURNFLAGS)
+        cnt = np.bincount(key, minlength=nb)
+        out = {}
+        order = np.argsort(key, kind="stable")
+        bounds = np.searchsorted(key[order], np.arange(nb + 1))
+        for b in range(nb):
+            if not cnt[b]:
+                continue
+            rows = order[bounds[b] : bounds[b + 1]]
+            mi, rest = divmod(b, len(SHIPINSTRUCTS) * len(RETURNFLAGS))
+            ii, fi = divmod(rest, len(RETURNFLAGS))
+            out[(SHIPMODES[mi].decode(), SHIPINSTRUCTS[ii].decode(), RETURNFLAGS[fi].decode())] = (
+                int(cnt[b]), _dec(int(qty[rows].sum()), 2), _dec(int(price[rows].sum()), 2),
+            )
+        return out
+    raise KeyError(name)
+
+
+# -- main ------------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from tidb_tpu_torch import native
+    except ImportError as e:
+        print(f"chip_smoke: the tidb_tpu_torch package is not beside this script ({e})", file=sys.stderr)
+        return 2
+    from tidb_tpu_torch.copr import carry, gpu_engine
+    from tidb_tpu_torch.ops import dag_kernel
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    t_start = time.perf_counter()
+    card = _card_line()
+    kind = torch.cuda.get_device_name(0)
+    print(card)  # name, power limit: nvidia-smi's own line
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
+    build_s, reports = native.build_all()
+    print(f"kernel build: {build_s:.3f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    # 2. K1 against its plain version at the edges
+    max_err = 0
+    for n_pad, B, L in ((1024, 65, 3), (1024, 512, 3), (1 << 22, 65, 3), (1 << 22, 160, 3), (1 << 22, 512, 3), (1 << 22, 160, 20)):
+        seg, pairs = _k1_synthetic(n_pad, B, L, args.seed + B + L)
+        max_err = max(max_err, _k1_err(seg, pairs, B, n_pad))
+        print(f"K1 check n_pad={n_pad} B={B} L={L}: bit-exact")
+
+    # 3. the main path
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "bench", "dags")
+    dags = {}
+    for name in ("count", "q6", "q1", "q10", "band"):
+        with open(os.path.join(fixtures, f"{name}.json")) as f:
+            dags[name] = carry.dag_from_pb(json.load(f))
+    table_id = dags["count"].executors[0].table_id
+    t0 = time.perf_counter()
+    cols = lineitem_sf1(args.seed)
+    regions = make_regions(cols, table_id)
+    print(f"data: {SF1_ROWS} rows generated in {time.perf_counter() - t0:.3f} s; regions of "
+          f"{[r.entry.n for r, _ in regions]} rows")
+
+    main_inputs = []
+    real_k1 = dag_kernel.grouped_sums
+
+    def recording_k1(seg, pairs, B, n_pad, device="cuda"):
+        main_inputs.append((seg, pairs, B, n_pad))
+        return real_k1(seg, pairs, B, n_pad, device=device)
+
+    dag_kernel.grouped_sums = recording_k1
+    gs.LAUNCHES = 0
+    results = {}
+    launches_by_query = {}
+    try:
+        for name, dag in dags.items():
+            before = gs.LAUNCHES
+            results[name] = [gpu_engine.execute_dag(r, dag, rg, device="cuda").rows() for r, rg in regions]
+            torch.cuda.synchronize()
+            launches_by_query[name] = gs.LAUNCHES - before
+    finally:
+        dag_kernel.grouped_sums = real_k1
+    main_launches = gs.LAUNCHES  # the kernels line reports this count
+    print(f"main path K1 launches by query: {launches_by_query}")
+    if launches_by_query["band"] < 1 or launches_by_query["q1"] != 0:
+        raise AssertionError(f"K1 must run for the band query and not for Q1: {launches_by_query}")
+    if main_launches < 1:
+        raise AssertionError("the main path never launched K1")
+
+    for name, dag in dags.items():
+        cpu = [gpu_engine.execute_dag(r, dag, rg, device="cpu").rows() for r, rg in regions]
+        if cpu != results[name]:
+            raise AssertionError(f"{name}: card and CPU paths disagree")
+        n_keys = len(dag.executors[-1].group_by) if dag.executors[-1].tp == "aggregation" else 0
+        got = merge_partials(name, results[name], n_keys)
+        want = oracle(name, cols)
+        if got != want:
+            raise AssertionError(f"{name}: merged result disagrees with the numpy oracle:\n{got}\n{want}")
+        print(f"{name}: {[len(r) for r in results[name]]} rows per region; equal to the CPU path and the oracle")
+
+    # warm timings per region task
+    for name, dag in dags.items():
+        for ri, (r, rg) in enumerate(regions):
+            walls = []
+            devs = []
+            for _ in range(10):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                a.record()
+                gpu_engine.execute_dag(r, dag, rg, device="cuda")
+                b.record()
+                b.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                devs.append(a.elapsed_time(b))
+            busy, top = _profile_device(lambda: gpu_engine.execute_dag(r, dag, rg, device="cuda"))
+            wall = statistics.median(walls)
+            idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
+            print(f"query {name} region {ri}: wall_ms median {wall:.3f} min {min(walls):.3f}; "
+                  f"device_span_ms median {statistics.median(devs):.3f}; "
+                  f"device_busy_ms {'not measured' if busy is None else f'{busy:.3f}'}; idle_share {idle}")
+            if ri == 0:
+                for k, ms, calls in top:
+                    print(f"    top kernel {ms:.3f} ms x{calls}: {k[:110]}")
+
+    # 4. K1 on the main path's own inputs
+    seg, pairs, B, n_pad = main_inputs[0]
+    max_err = max(max_err, _k1_err(seg, pairs, B, n_pad))
+    k1 = _k1_timings(seg, pairs, B, n_pad)
+    print(f"K1 main-path input: n_pad={n_pad} B={B} L={len(pairs)} lanes "
+          f"{[str(v.dtype).replace('torch.', '') for v, _ in pairs]}: {json.dumps(k1)}")
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+
+    print(json.dumps({"kernels": [{
+        "name": "grouped_sums",
+        "route": "cuda",
+        "source": "tidb_tpu_torch/csrc/grouped_sums.cu",
+        "replaces": "tidb_tpu/ops/pallas_groupby.py:64",
+        "launches": main_launches,
+        "max_abs_err": max_err,
+        **k1,
+    }]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _profile_device(fn):
+    """(busy ms, [(kernel, ms, calls)] top 3) of one call from
+    torch.profiler: device-side events only (a host op's device total would
+    count its kernels twice); (None, []) when the profiler records no
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [
+        (e.key, e.self_device_time_total / 1e3, e.count)
+        for e in prof.key_averages()
+        if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    if not kernels:
+        return None, []
+    kernels.sort(key=lambda k: -k[1])
+    return sum(k[1] for k in kernels), kernels[:3]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

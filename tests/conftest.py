@@ -45,6 +45,7 @@ def pytest_configure(config):
     # `slow` so they run in the extended lane (see RESILIENCE.md)
     config.addinivalue_line("markers", "chaos: deterministic fault-injection test")
     config.addinivalue_line("markers", "slow: excluded from the tier-1 fast lane")
+    config.addinivalue_line("markers", "gpu: needs a CUDA card; skips inside the test without one")
 
 
 @pytest.fixture

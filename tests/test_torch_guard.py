@@ -1,0 +1,76 @@
+"""The PyTorch port stands alone: importing it loads neither jax nor any
+tidb_tpu module, and its entry points never drop to the CPU unasked.
+
+The import checks run in a subprocess because this test process has
+already imported jax (conftest.py)."""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import tidb_tpu_torch
+import tidb_tpu_torch.copr.gpu_engine
+import tidb_tpu_torch.copr.carry
+import tidb_tpu_torch.ops.grouped_sums
+import tidb_tpu_torch.ops.mxu_groupby
+import tidb_tpu_torch.native
+import chip_smoke
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
+print(json.dumps(bad))
+"""
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_port_imports_no_jax_and_no_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(repo=REPO)],
+        capture_output=True, text=True, timeout=120, cwd=REPO, env=_clean_env(),
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_grouped_sums_default_device_raises_without_a_card(monkeypatch):
+    import torch
+
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    seg = torch.zeros(1024, dtype=torch.int32)
+    pair = [(torch.zeros(1024, dtype=torch.int64), torch.ones(1024, dtype=torch.bool))]
+    with pytest.raises(RuntimeError, match="cuda"):
+        gs.grouped_sums(seg, pair, 65, 1024)
+
+
+def _run_smoke(cwd):
+    return subprocess.run(
+        [sys.executable, "chip_smoke.py"], capture_output=True, text=True, timeout=120, cwd=cwd, env=_clean_env()
+    )
+
+
+def test_chip_smoke_fails_without_a_card_or_without_the_port(tmp_path):
+    import torch
+
+    if not torch.cuda.is_available():
+        out = _run_smoke(REPO)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+    # alone in a directory, without the package beside it
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path / "chip_smoke.py")
+    out = _run_smoke(tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,99 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` (listed
+in ``.gitignore``) and loaded with ctypes. The library's file name carries a
+hash of its source and flags, so an edited source never loads a stale
+build. A failed compile raises with the compiler's output; there is no
+fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+KERNEL_SOURCES = ("grouped_sums",)
+
+_MU = threading.Lock()
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (os.path.join(home, "bin", "nvcc") if home else None, shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's bin/ on PATH")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{tag}.so"
+
+
+def _start(name: str):
+    """(path, Popen or None): start nvcc for ``name`` unless already built.
+    The compiler writes to a private temporary name, renamed into place on
+    success, so concurrent builders never load a half-written library."""
+    out = library_path(name)
+    if out.exists():
+        return out, None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc.tmp = tmp  # type: ignore[attr-defined]
+    return out, proc
+
+
+def _finish(name: str, out: Path, proc) -> str:
+    """Wait for one build; raise with the compiler's output on failure.
+    Returns what the compiler printed (ptxas register and shared-memory
+    report) and keeps it beside the library."""
+    if proc is None:
+        log = out.with_suffix(".log")
+        return log.read_text() if log.exists() else ""
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        proc.tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu (exit {proc.returncode}):\n{text}")
+    out.with_suffix(".log").write_text(text)
+    os.replace(proc.tmp, out)
+    return text
+
+
+def build_all() -> tuple[float, dict[str, str]]:
+    """Compile every kernel source at once (one nvcc per source, all started
+    together). Returns (seconds, {name: compiler report})."""
+    t0 = time.perf_counter()
+    with _MU:
+        started = [(n, *_start(n)) for n in KERNEL_SOURCES]
+        reports = {n: _finish(n, out, proc) for n, out, proc in started}
+    return time.perf_counter() - t0, reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _MU:
+        lib = _LIBS.get(name)
+        if lib is None:
+            out, proc = _start(name)
+            _finish(name, out, proc)
+            lib = ctypes.CDLL(str(out))
+            _LIBS[name] = lib
+        return lib
