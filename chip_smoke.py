@@ -3,10 +3,15 @@
     python3 chip_smoke.py [--seed N]
 
 1. Prints the card (name and power limit as nvidia-smi reports them) and
-   builds every hand-written kernel from csrc/ (one nvcc per source, all
-   started together).
+   builds every hand-written kernel from csrc/, plus K1's stress build (one
+   table copy, the fewest blocks: 65,536 rows per block), one nvcc per
+   library, all started together. Prints each library's register and
+   shared-memory report and the shared-atomic opcodes in its SASS.
 2. Holds K1 (the CUDA grouped-sum kernel) bit-exact against its plain
-   PyTorch version at its edge shapes.
+   PyTorch version at its edge shapes and on adversarial lanes: every live
+   row in one bucket at ±(2^45 - 1) over 7,999,488 rows, int32 lanes at
+   ±(2^31 - 1), constant lanes, lanes sharing one weight tensor, L = 20,
+   B = 65 and 512.
 3. Generates TPC-H lineitem at scale factor 1 (6,001,215 rows, the
    specification's column domains, from --seed), splits it at the middle
    handle into two regions of one 4,194,304-row device block each, and runs
@@ -16,7 +21,9 @@
    partial results must equal an independent numpy oracle exactly. K1's
    launch count must rise during the band query and not during Q1.
 4. Holds K1 against its plain version on the exact inputs the main path
-   gave it and times kernel, plain version and one ``index_add_`` call.
+   gave it and times kernel, plain version and one ``index_add_`` call over
+   the same distinct weight and value columns; on Q1's own grouped-sum
+   input it times K1 beside the int8 dot route that Q1 takes.
 5. Prints the ``{"kernels": [...]}`` line, then, last, the
    ``{"ok": true, "device": {...}}`` line.
 
@@ -30,6 +37,8 @@ import argparse
 import datetime as dt
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -39,8 +48,11 @@ from decimal import Decimal
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor-core peak, the nearest table rate for int64 adds
+FP32_OPS_PER_S = 67e12  # H100 SXM non-tensor-core peak, the nearest table rate for integer adds
 SF1_ROWS = 6_001_215
+# K1's stress build: one table copy and the fewest blocks, so a block's
+# chunk of up to 65,536 rows lands in one set of 32-bit cells
+STRESS_DEFINES = ("K1_REPLICAS=1", "K1_GRID=1")
 
 
 def _card_line() -> str:
@@ -96,13 +108,60 @@ def _k1_synthetic(n_pad: int, B: int, L: int, seed: int):
     return seg, pairs
 
 
-def _k1_err(seg, pairs, B: int, n_pad: int) -> int:
+def _k1_adversarial(n_pad: int, B: int, seed: int, hot: bool = False, extra: int = 0):
+    """(seg, pairs, bounds): lanes as the engine builds them and at their
+    edges. COUNT(*) and occupancy lanes (zeros, bounds (0, 0)); int64 lanes
+    at ±(2^45 - 1) with no bounds; int32 lanes at ±(2^31 - 1), with and
+    without bounds; a constant lane lo == hi != 0 and the same values with
+    no bounds; lanes sharing one weight tensor; ``extra`` more int64 lanes
+    with their own weights. ``hot`` puts every live row in bucket B - 1."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vmax = (1 << 45) - 1
+    i32max = (1 << 31) - 1
+    seg = torch.full((n_pad,), B - 1, dtype=torch.int32, device=dev) if hot else torch.randint(
+        0, B, (n_pad,), generator=g, device=dev, dtype=torch.int32)
+    u = torch.rand(n_pad, generator=g, device=dev)
+    seg = torch.where(u < 0.05, B + 3, torch.where(u < 0.1, -2, seg))
+    mask = torch.rand(n_pad, generator=g, device=dev) < 0.9
+    other = torch.rand(n_pad, generator=g, device=dev) < 0.6
+
+    def edge(vm, dtype):
+        x = torch.where(torch.rand(n_pad, generator=g, device=dev) < 0.5, vm, -vm)
+        return x.to(dtype)
+
+    zero = torch.zeros(n_pad, dtype=torch.int64, device=dev)
+    const = torch.full((n_pad,), -7, dtype=torch.int64, device=dev)
+    e64, i32 = edge(vmax, torch.int64), edge(i32max, torch.int32)
+    lanes = [
+        ((zero, mask), (0, 0)),
+        ((e64, mask), None),
+        ((e64, other), None),
+        ((i32, mask), None),
+        ((i32, mask), (-i32max, i32max)),
+        ((const, other), (-7, -7)),
+        ((const, mask), None),
+        ((zero, mask), (0, 0)),
+    ]
+    for _ in range(extra):
+        lanes.append(((edge(vmax, torch.int64), torch.rand(n_pad, generator=g, device=dev) < 0.7), None))
+    return seg, [p for p, _ in lanes], [b for _, b in lanes]
+
+
+def _k1_err(seg, pairs, B: int, n_pad: int, bounds=None, fn=None) -> int:
+    """Launch K1 (``fn``, a C entry point, or the port's own library) and
+    raise unless it equals the plain version bit for bit."""
     import torch
 
     from tidb_tpu_torch.ops import grouped_sums as gs
 
-    c, s = gs.grouped_sums(seg, pairs, B, n_pad, device=seg.device)
-    pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad)
+    if fn is None:
+        c, s = gs.grouped_sums(seg, pairs, B, n_pad, bounds, device=seg.device)
+    else:
+        c, s = gs.launch(fn, seg, pairs, B, n_pad, bounds)
+    pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad, bounds)
     torch.cuda.synchronize()
     err = max(int((c - pc).abs().max()), int((s - ps).abs().max()))
     if err != 0:
@@ -110,53 +169,167 @@ def _k1_err(seg, pairs, B: int, n_pad: int) -> int:
     return err
 
 
-def _k1_bound(seg, pairs, B: int):
-    """(bound_ms, bound_by) for this input: seg read for every row, each
+def _k1_work_ref(seg, pairs, B: int):
+    """(bytes, adds) under the reference's contract: seg for every row, each
     lane's weight for every live row and its value for every weighted live
-    row, both outputs written once; int64 adds at the non-tensor peak."""
+    row, both outputs once; a count and a sum add per lane and weighted row."""
     live = (seg >= 0) & (seg < B)
+    nl = int(live.sum())
     nbytes = seg.numel() * 4 + 2 * B * len(pairs) * 8
-    ops = 0
+    adds = 0
     for v, w in pairs:
-        nl = int(live.sum())
         nw = int((live & w).sum())
         nbytes += nl + nw * v.element_size()
-        ops += 2 * nw
+        adds += 2 * nw
+    return nbytes, adds
+
+
+def _k1_work(seg, pairs, B: int, bounds):
+    """(bytes, adds) the bounded call needs: seg for every row; each
+    distinct weight column for every live row; each distinct non-constant
+    value slot for every weighted live row; both outputs once; one add per
+    weighted row of each weight column and of each slot."""
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    live = (seg >= 0) & (seg < B)
+    nl = int(live.sum())
+    weights, slots = {}, {}
+    for g in gs.plan(pairs, bounds, B):
+        for w in g.weights:
+            weights[id(w)] = w
+        for v, lo, wcol, _p in g.slots:
+            slots[(id(v), id(g.weights[wcol]), lo)] = (v, g.weights[wcol])
+    nbytes = seg.numel() * 4 + 2 * B * len(pairs) * 8 + nl * len(weights)
+    adds = sum(int((live & w).sum()) for w in weights.values())
+    for v, w in slots.values():
+        nw = int((live & w).sum())
+        nbytes += nw * v.element_size()
+        adds += nw
+    return nbytes, adds
+
+
+def _bound(nbytes: int, adds: int):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    integer adds over the card's non-tensor peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = adds / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _k1_timings(seg, pairs, B: int, n_pad: int) -> dict:
+def _device_ms(fn, match: str = "", reps: int = 20):
+    """Mean device time per call of ``fn``'s kernels whose name holds
+    ``match`` (all kernels if empty), from torch.profiler; None when the
+    profiler records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(
+        e.self_device_time_total
+        for e in prof.key_averages()
+        if getattr(e, "device_type", None) == DeviceType.CUDA and match in e.key
+    )
+    return total / 1e3 / reps if total > 0 else None
+
+
+def _host_ms(fn, reps: int = 50) -> float:
+    """Host time per call of ``fn`` with its launches queued, not waited
+    for: what the wrapper costs the calling thread."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return host
+
+
+def _k1_library(seg, pairs, B: int, bounds):
+    """The library yardstick for the bounded call: one ``index_add_`` into
+    B + 1 buckets (dead rows to the extra one) of the same work the kernel
+    does, one column per distinct weight tensor and one (weight × value)
+    column per distinct non-constant (value, weight) pair. Its operands are
+    built here, outside any timing. → (call, (counts, sums) from its
+    output)."""
+    import torch
+
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    cols, index, lanes = [], {}, []
+
+    def column(key, make):
+        if key not in index:
+            index[key] = len(cols)
+            cols.append(make())
+        return index[key]
+
+    for (v, w), b in zip(pairs, bounds if bounds is not None else [None] * len(pairs)):
+        lo, _hi, constant = gs._lane_bounds(v, b)
+        c = column(id(w), lambda: w.to(torch.int64))
+        s = None if constant else column((id(v), id(w)), lambda: torch.where(w, v.to(torch.int64), 0))
+        lanes.append((c, s, lo))
+    seg_c = torch.where((seg >= 0) & (seg < B), seg, B).to(torch.int64)
+    src = torch.stack(cols, dim=1)
+    out = torch.zeros(B + 1, len(cols), dtype=torch.int64, device=seg.device)
+
+    def call():
+        out.zero_()
+        out.index_add_(0, seg_c, src)
+
+    def result():
+        counts = torch.stack([out[:B, c] for c, _s, _lo in lanes], dim=1)
+        sums = torch.stack([out[:B, c] * lo if s is None else out[:B, s] for c, s, lo in lanes], dim=1)
+        return counts, sums
+
+    return call, result
+
+
+def _k1_timings(seg, pairs, B: int, n_pad: int, bounds) -> dict:
     import torch
 
     from tidb_tpu_torch.ops import grouped_sums as gs
 
     dev = seg.device
-    L = len(pairs)
-    # the library yardstick: one index_add_ of [w*v, w] rows into B+1 buckets
-    # (dead rows to the extra one); its operands are built outside the timing
-    seg_c = torch.where((seg >= 0) & (seg < B), seg, B).to(torch.int64)
-    src = torch.stack(
-        [x for v, w in pairs for x in (torch.where(w, v.to(torch.int64), 0), w.to(torch.int64))], dim=1
-    )
-    out = torch.zeros(B + 1, 2 * L, dtype=torch.int64, device=dev)
-
-    def library():
-        out.zero_()
-        out.index_add_(0, seg_c, src)
-
+    library, library_result = _k1_library(seg, pairs, B, bounds)
     library()
-    lib_c = out[:B, 1::2]
-    lib_s = out[:B, 0::2]
-    pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad)
-    if not (torch.equal(lib_c, pc) and torch.equal(lib_s, ps)):
+    lc, ls = library_result()
+    pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad, bounds)
+    if not (torch.equal(lc, pc) and torch.equal(ls, ps)):
         raise AssertionError("index_add_ yardstick disagrees with the plain version")
-    ms = _time_ms(lambda: gs.grouped_sums(seg, pairs, B, n_pad, device=dev))
-    plain_ms = _time_ms(lambda: gs.grouped_sums_plain(seg, pairs, B, n_pad))
-    library_ms = _time_ms(library)
-    bound_ms, bound_by = _k1_bound(seg, pairs, B)
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    call = lambda: gs.grouped_sums(seg, pairs, B, n_pad, bounds, device=dev)  # noqa: E731
+    return {
+        "ms": _time_ms(call),
+        "device_ms": _device_ms(call, "grouped_sums"),
+        "host_ms": _host_ms(call),
+        "plain_ms": _time_ms(lambda: gs.grouped_sums_plain(seg, pairs, B, n_pad, bounds)),
+        "library_ms": _time_ms(library),
+        **dict(zip(("bound_ms", "bound_by"), _bound(*_k1_work(seg, pairs, B, bounds)))),
+        "ref_contract_bound_ms": _bound(*_k1_work_ref(seg, pairs, B))[0],
+    }
+
+
+def _sass_atomics(lib_path) -> str:
+    """The atomic opcodes in a library's SASS with their counts, or why
+    there are none to show."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    out = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return f"cuobjdump failed: {out.stderr.strip()[:200]}"
+    ops: dict = {}
+    for m in re.finditer(r"\b((?:ATOMS|ATOMG|ATOM|RED|REDG)\.[A-Z0-9_.]+)", out.stdout):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return ", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "no atomics"
 
 
 # -- TPC-H lineitem at SF1 -----------------------------------------------------
@@ -333,12 +506,16 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(card)  # name, power limit: nvidia-smi's own line
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
-    build_s, reports = native.build_all()
-    print(f"kernel build: {build_s:.3f} s")
+    extra = [("grouped_sums", STRESS_DEFINES)]
+    build_s, reports = native.build_all(extra)
+    print(f"kernel build: {build_s:.3f} s ({len(reports)} libraries)")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    for name, defines in [("grouped_sums", ())] + extra:
+        print(f"  {' '.join((name, *defines))}: SASS atomics: {_sass_atomics(native.library_path(name, defines))}")
+    stress = gs.entry(native.load("grouped_sums", STRESS_DEFINES))
 
     # 2. K1 against its plain version at the edges
     max_err = 0
@@ -346,6 +523,15 @@ def main() -> int:
         seg, pairs = _k1_synthetic(n_pad, B, L, args.seed + B + L)
         max_err = max(max_err, _k1_err(seg, pairs, B, n_pad))
         print(f"K1 check n_pad={n_pad} B={B} L={L}: bit-exact")
+    # adversarial lanes, through the port's build and the stress build (one
+    # table copy, the fewest blocks: up to 65,536 rows in one 32-bit cell)
+    for n_pad, B, hot, more in ((7_999_488, 160, True, 0), (7_999_488, 160, False, 0), (131_072, 65, True, 0),
+                                (1 << 20, 65, False, 12), (1 << 20, 512, False, 12), (1 << 20, 512, True, 12)):
+        seg, pairs, bounds = _k1_adversarial(n_pad, B, args.seed + n_pad + B, hot, more)
+        for label, fn in (("port", None), ("stress", stress)):
+            max_err = max(max_err, _k1_err(seg, pairs, B, n_pad, bounds, fn))
+        print(f"K1 adversarial n_pad={n_pad} B={B} L={len(pairs)} one_bucket={hot}: bit-exact (port and stress builds)")
+        del seg, pairs
 
     # 3. the main path
     fixtures = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "bench", "dags")
@@ -360,14 +546,18 @@ def main() -> int:
     print(f"data: {SF1_ROWS} rows generated in {time.perf_counter() - t0:.3f} s; regions of "
           f"{[r.entry.n for r, _ in regions]} rows")
 
-    main_inputs = []
-    real_k1 = dag_kernel.grouped_sums
+    main_inputs, dot_inputs = [], []
+    real_k1, real_dot = dag_kernel.grouped_sums, dag_kernel.grouped_sums_dot
 
-    def recording_k1(seg, pairs, B, n_pad, device="cuda"):
-        main_inputs.append((seg, pairs, B, n_pad))
-        return real_k1(seg, pairs, B, n_pad, device=device)
+    def recording_k1(seg, pairs, B, n_pad, bounds=None, device="cuda"):
+        main_inputs.append((seg, pairs, B, n_pad, bounds))
+        return real_k1(seg, pairs, B, n_pad, bounds, device=device)
 
-    dag_kernel.grouped_sums = recording_k1
+    def recording_dot(seg, pairs, B, n, bounds=None):
+        dot_inputs.append((seg, pairs, B, n, bounds))
+        return real_dot(seg, pairs, B, n, bounds)
+
+    dag_kernel.grouped_sums, dag_kernel.grouped_sums_dot = recording_k1, recording_dot
     gs.LAUNCHES = 0
     results = {}
     launches_by_query = {}
@@ -378,7 +568,7 @@ def main() -> int:
             torch.cuda.synchronize()
             launches_by_query[name] = gs.LAUNCHES - before
     finally:
-        dag_kernel.grouped_sums = real_k1
+        dag_kernel.grouped_sums, dag_kernel.grouped_sums_dot = real_k1, real_dot
     main_launches = gs.LAUNCHES  # the kernels line reports this count
     print(f"main path K1 launches by query: {launches_by_query}")
     if launches_by_query["band"] < 1 or launches_by_query["q1"] != 0:
@@ -423,11 +613,29 @@ def main() -> int:
                     print(f"    top kernel {ms:.3f} ms x{calls}: {k[:110]}")
 
     # 4. K1 on the main path's own inputs
-    seg, pairs, B, n_pad = main_inputs[0]
-    max_err = max(max_err, _k1_err(seg, pairs, B, n_pad))
-    k1 = _k1_timings(seg, pairs, B, n_pad)
+    seg, pairs, B, n_pad, bounds = main_inputs[0]
+    max_err = max(max_err, _k1_err(seg, pairs, B, n_pad, bounds))
+    k1 = _k1_timings(seg, pairs, B, n_pad, bounds)
     print(f"K1 main-path input: n_pad={n_pad} B={B} L={len(pairs)} lanes "
-          f"{[str(v.dtype).replace('torch.', '') for v, _ in pairs]}: {json.dumps(k1)}")
+          f"{[str(v.dtype).replace('torch.', '') for v, _ in pairs]} bounds {bounds} "
+          f"launches per call {len(gs.plan(pairs, bounds, B))}: {json.dumps(k1)}")
+    # K1 on Q1's own grouped-sum input, beside the int8 dot route Q1 takes
+    from tidb_tpu_torch.ops.mxu_groupby import grouped_sums_dot
+
+    qseg, qpairs, qB, qn, qbounds = dot_inputs[0]
+    max_err = max(max_err, _k1_err(qseg, qpairs, qB, qn, qbounds))
+    qc, qs = grouped_sums_dot(qseg, qpairs, qB, qn, qbounds)
+    pc, ps = gs.grouped_sums_plain(qseg, qpairs, qB, qn, qbounds)
+    if not (torch.equal(qc, pc) and torch.equal(qs, ps)):
+        raise AssertionError("the dot route disagrees with K1's plain version on Q1's input")
+    k1_call = lambda: gs.grouped_sums(qseg, qpairs, qB, qn, qbounds, device=qseg.device)  # noqa: E731
+    dot_call = lambda: grouped_sums_dot(qseg, qpairs, qB, qn, qbounds)  # noqa: E731
+    q1 = {
+        "k1_ms": _time_ms(k1_call), "k1_device_ms": _device_ms(k1_call, "grouped_sums"),
+        "dot_ms": _time_ms(dot_call, reps=10), "dot_device_ms": _device_ms(dot_call, reps=5),
+        "bound_ms": _bound(*_k1_work(qseg, qpairs, qB, qbounds))[0],
+    }
+    print(f"Q1 grouped-sum input: n={qn} B={qB} L={len(qpairs)} bounds {qbounds}: {json.dumps(q1)}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{

@@ -36,9 +36,54 @@ def test_k1_kernel_matches_plain_on_card(B, n_pad, L):
     before = gs.LAUNCHES
     c, s = gs.grouped_sums(seg, pairs, B, n_pad, device="cuda")
     torch.cuda.synchronize()
-    assert gs.LAUNCHES == before + -(-L // gs._MAX_LANES)
+    assert gs.LAUNCHES == before + -(-L // 32)  # up to 32 lanes per launch
     pc, ps = gs.grouped_sums_plain(seg, pairs, B, n_pad)
     assert torch.equal(c, pc) and torch.equal(s, ps)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n_pad,B,hot,extra",
+    [(7_999_488, 160, True, 0), (131_072, 65, True, 0), (1 << 20, 65, False, 12), (1 << 20, 512, True, 12)],
+)
+def test_k1_adversarial_lanes_on_card(n_pad, B, hot, extra):
+    """Every live row in one bucket at ±(2^45 - 1) up to the largest n_pad,
+    int32 lanes at ±(2^31 - 1), constant lanes, lanes sharing one weight
+    tensor, L = 20; through the port's build and the stress build (one
+    table copy, the fewest blocks: up to 65,536 rows per 32-bit cell)."""
+    _need_card()
+    from tidb_tpu_torch import native
+
+    seg, pairs, bounds = chip_smoke._k1_adversarial(n_pad, B, seed=n_pad + B, hot=hot, extra=extra)
+    want = gs.grouped_sums_plain(seg, pairs, B, n_pad, bounds)
+    before = gs.LAUNCHES
+    got = gs.grouped_sums(seg, pairs, B, n_pad, bounds, device="cuda")
+    assert gs.LAUNCHES == before + -(-len(pairs) // 32)
+    stressed = gs.launch(gs.entry(native.load("grouped_sums", chip_smoke.STRESS_DEFINES)), seg, pairs, B, n_pad, bounds)
+    torch.cuda.synchronize()
+    for c, s in (got, stressed):
+        assert torch.equal(c, want[0]) and torch.equal(s, want[1])
+
+
+@pytest.mark.gpu
+def test_dot_route_at_the_chunk_edge_on_card():
+    """grouped_sums_dot past its real 2^23-row int32 chunk (a ragged second
+    chunk) equals the plain grouped sum."""
+    _need_card()
+    from tidb_tpu_torch.ops.mxu_groupby import grouped_sums_dot
+
+    n, B = (1 << 23) + (1 << 20), 64
+    g = torch.Generator(device="cuda").manual_seed(7)
+    seg = torch.randint(0, B + 3, (n,), generator=g, device="cuda", dtype=torch.int32)
+    mask = torch.rand(n, generator=g, device="cuda") < 0.9
+    big = torch.randint(-(1 << 40), 1 << 40, (n,), generator=g, device="cuda", dtype=torch.int64)
+    small = torch.randint(0, 256, (n,), generator=g, device="cuda", dtype=torch.int32)
+    pairs = [(torch.zeros(n, dtype=torch.int64, device="cuda"), mask), (big, mask), (small, mask)]
+    bounds = [(0, 0), (-(1 << 40), 1 << 40), (0, 255)]
+    got = grouped_sums_dot(seg, pairs, B, n, bounds)
+    want = gs.grouped_sums_plain(seg, pairs, B, n, bounds)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.gpu

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 KERNEL_SOURCES = ("grouped_sums",)
 
 _MU = threading.Lock()
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -40,22 +40,24 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit's bin/ on PATH")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+def library_path(name: str, defines=()) -> Path:
+    """Where the library for ``csrc/<name>.cu`` built with ``-D``
+    ``defines`` lives."""
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    tag = hashlib.sha1((CSRC / f"{name}.cu").read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 
 
-def _start(name: str):
+def _start(name: str, defines=()):
     """(path, Popen or None): start nvcc for ``name`` unless already built.
     The compiler writes to a private temporary name, renamed into place on
     success, so concurrent builders never load a half-written library."""
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return out, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     proc.tmp = tmp  # type: ignore[attr-defined]
     return out, proc
@@ -77,23 +79,28 @@ def _finish(name: str, out: Path, proc) -> str:
     return text
 
 
-def build_all() -> tuple[float, dict[str, str]]:
-    """Compile every kernel source at once (one nvcc per source, all started
-    together). Returns (seconds, {name: compiler report})."""
+def build_all(extra=()) -> tuple[float, dict[str, str]]:
+    """Compile every kernel source, plus ``extra`` builds given as
+    ``(name, defines)``, at once (one nvcc per library, all started
+    together). Returns (seconds, {name: compiler report}); an extra build's
+    name carries its defines."""
     t0 = time.perf_counter()
+    specs = [(n, ()) for n in KERNEL_SOURCES] + [(n, tuple(d)) for n, d in extra]
     with _MU:
-        started = [(n, *_start(n)) for n in KERNEL_SOURCES]
-        reports = {n: _finish(n, out, proc) for n, out, proc in started}
+        started = [(" ".join((n, *d)), n, *_start(n, d)) for n, d in specs]
+        reports = {label: _finish(n, out, proc) for label, n, out, proc in started}
     return time.perf_counter() - t0, reports
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for ``name`` (see :func:`library_path`), built on
+    first use."""
+    key = (name, tuple(defines))
     with _MU:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            out, proc = _start(name)
+            out, proc = _start(name, defines)
             _finish(name, out, proc)
             lib = ctypes.CDLL(str(out))
-            _LIBS[name] = lib
+            _LIBS[key] = lib
         return lib

@@ -560,7 +560,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                     if route == "dot":
                         counts, sums = grouped_sums_dot(seg32, pairs, B, n, pair_bounds)
                     else:
-                        counts, sums = grouped_sums(seg32, pairs, B, n, device=dev)
+                        counts, sums = grouped_sums(seg32, pairs, B, n, pair_bounds, device=dev)
                     out_data, out_valid, ngroups = _mxu_outputs(
                         counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev
                     )
