@@ -13,13 +13,21 @@
    ±(2^31 - 1), constant lanes, lanes sharing one weight tensor, L = 20,
    B = 65 and 512.
 3. Generates TPC-H lineitem at scale factor 1 (6,001,215 rows, the
-   specification's column domains, from --seed), splits it at the middle
-   handle into two regions of one 4,194,304-row device block each, and runs
-   the five fixture DAGs (COUNT(*), Q6, Q1, the Q10 TopN and the 160-bucket
-   grouped sum) through gpu_engine.execute_dag on both regions. Every
-   result must equal the port's CPU path row for row, and the merged
-   partial results must equal an independent numpy oracle exactly. K1's
-   launch count must rise during the band query and not during Q1.
+   specification's column domains, from --seed) and runs the eight fixture
+   DAGs (COUNT(*), Q6, Q1, the Q10 TopN, the 160-bucket grouped sum, Q18's
+   inner GROUP BY l_orderkey, Q15's revenue view and a grouped MIN/MAX/
+   BIT_OR/BIT_XOR) through gpu_engine.execute_dag in two configurations:
+   two regions split at the middle handle, one 4,194,304-row device block
+   each, and the whole table as one region of two blocks (the reference
+   bench's layout), where each DAG's engine path and aggregation route
+   must be the reference's. Every result must equal the port's CPU path
+   row for row, the merged partial results of each configuration must
+   equal an independent numpy oracle exactly, and the two configurations
+   each other. K1's launch count must rise during the band query and not
+   during Q1 in the two-region run. Prints each task's warm wall, device
+   span, busy time, idle share and concatenation time, each DAG's path,
+   route and agg-cap regrows, and the band query's lex-route busy time
+   beside its K1-route time.
 4. Holds K1 against its plain version on the exact inputs the main path
    gave it and times kernel, plain version and one ``index_add_`` call over
    the same distinct weight and value columns; on Q1's own grouped-sum
@@ -344,16 +352,34 @@ def _days(d: dt.date) -> int:
     return (d - dt.date(1970, 1, 1)).days
 
 
+def lineitem_keys(rng, partkey: np.ndarray, n_supp: int):
+    """(l_orderkey, l_suppkey, l_linenumber) in TPC-H §4.2.3's domains:
+    consecutive orders of 1..7 lines under the spec's sparse order keys
+    (the first 8 of every 32), line numbers 1..7 within an order, and each
+    line's supplier one of its part's four, (partkey + i * (S/4 + (partkey
+    - 1) // S)) mod S + 1 for i in 0..3, with S = ``n_supp`` suppliers."""
+    n = len(partkey)
+    lines = rng.integers(1, 8, n)  # n orders of at least one line cover n rows
+    ends = np.cumsum(lines)
+    order = np.searchsorted(ends, np.arange(n), side="right")
+    orderkey = (order // 8) * 32 + order % 8 + 1
+    linenumber = np.arange(n) - (ends - lines)[order] + 1
+    i = rng.integers(0, 4, n)
+    suppkey = (partkey + i * (n_supp // 4 + (partkey - 1) // n_supp)) % n_supp + 1
+    return orderkey.astype(np.int64), suppkey.astype(np.int64), linenumber.astype(np.int64)
+
+
 def lineitem_sf1(seed: int, n: int = SF1_ROWS) -> dict:
-    """The nine lineitem columns the fixture DAGs read, in TPC-H §4.2.3's
+    """The twelve lineitem columns the fixture DAGs read, in TPC-H §4.2.3's
     domains: quantity 1..50; extendedprice = quantity * retailprice(partkey)
     over SF1's 200,000 parts; discount 0.00..0.10; tax 0.00..0.08; order
     date uniform in [1992-01-01, 1998-08-02], ship date 1..121 days later,
     receipt date 1..30 after that; returnflag R/A if received by 1995-06-17
-    else N; linestatus O if shipped after 1995-06-17 else F. Each row draws
-    its own order date (the order table is not generated). Decimals are
-    scaled integers (DECIMAL(12,2)), dates are days since 1970-01-01,
-    strings are codes into the lists above."""
+    else N; linestatus O if shipped after 1995-06-17 else F; then order
+    key, supplier key (SF1's 10,000 suppliers) and line number
+    (``lineitem_keys``). Each row draws its own order date (the order table
+    is not generated). Decimals are scaled integers (DECIMAL(12,2)), dates
+    are days since 1970-01-01, strings are codes into the lists above."""
     rng = np.random.default_rng(seed)
     qty = rng.integers(1, 51, n)
     partkey = rng.integers(1, 200_001, n)
@@ -363,7 +389,7 @@ def lineitem_sf1(seed: int, n: int = SF1_ROWS) -> dict:
     receipt = ship + rng.integers(1, 31, n)
     current = _days(dt.date(1995, 6, 17))
     rf = np.where(receipt <= current, np.where(rng.random(n) < 0.5, 2, 0), 1).astype(np.int32)
-    return {
+    cols = {
         0: qty.astype(np.int64) * 100,
         1: (qty * retail).astype(np.int64),
         2: rng.integers(0, 11, n).astype(np.int64),
@@ -374,23 +400,27 @@ def lineitem_sf1(seed: int, n: int = SF1_ROWS) -> dict:
         7: rng.integers(0, len(SHIPMODES), n).astype(np.int32),
         8: rng.integers(0, len(SHIPINSTRUCTS), n).astype(np.int32),
     }
+    # drawn after the nine columns above, which keep their values
+    cols[9], cols[10], cols[11] = lineitem_keys(rng, partkey, 10_000)
+    return cols
 
 
-def make_regions(cols: dict, table_id: int):
-    """Two regions split at the middle handle (handles 1..n), sharing one
-    ColumnCache so string codes agree; → [(region, ranges)]."""
+def make_regions(cols: dict, table_id: int, parts: int = 2):
+    """``parts`` regions split at equal handle counts (handles 1..n), sharing
+    one ColumnCache so string codes agree; → [(region, ranges)]. One part
+    is the whole table in one region over the full record range."""
     from tidb_tpu_torch.copr.carry import region_from_arrays
     from tidb_tpu_torch.kv import tablecodec
 
     n = len(cols[0])
     handles = np.arange(1, n + 1, dtype=np.int64)
-    mid = n // 2
+    cuts = [n * i // parts for i in range(parts + 1)]
     dicts = {4: RETURNFLAGS, 5: LINESTATUS, 7: SHIPMODES, 8: SHIPINSTRUCTS}
     full = tablecodec.record_range(table_id)
-    split = tablecodec.record_key(table_id, int(handles[mid]))
+    keys = [full.start] + [tablecodec.record_key(table_id, int(handles[c])) for c in cuts[1:-1]] + [full.end]
     out = []
     cache = None
-    for lo, hi, start, end in ((0, mid, full.start, split), (mid, n, split, full.end)):
+    for lo, hi, start, end in zip(cuts, cuts[1:], keys, keys[1:]):
         sl = {s: (c[lo:hi], np.ones(hi - lo, bool)) for s, c in cols.items()}
         r = region_from_arrays(handles[lo:hi], sl, dicts, table_id, (start, end), cache=cache)
         cache = r.cache
@@ -405,32 +435,59 @@ def _dec(x: int, scale: int) -> Decimal:
     return Decimal(int(x)).scaleb(-scale)
 
 
-def merge_partials(name: str, per_region: list[list[tuple]], n_keys: int):
-    """Merge the regions' partial results the way the root executor does:
-    COUNT/SUM lanes add per group; TopN candidates re-sort and cut."""
+_FOLD = {
+    "count": lambda a, b: a + b,
+    "sum": lambda a, b: a + b,
+    "min": min,
+    "max": max,
+    "bit_and": lambda a, b: a & b,
+    "bit_or": lambda a, b: a | b,
+    "bit_xor": lambda a, b: a ^ b,
+}
+
+
+def merge_partials(name: str, per_region: list[list[tuple]], dag):
+    """Merge partial results of several regions or blocks the way the root
+    executor does: each partial lane folds per group (COUNT/SUM add, MIN/MAX
+    keep the extreme, the bit aggregates fold); TopN candidates re-sort and
+    cut. → {group key: values}, or the TopN's rows."""
+    from tidb_tpu_torch.expression.expr import AggDesc
+
     if name == "q10":
-        # region 0 holds the lower handles: (-price, region, position) is the
-        # host engine's stable order over the whole table
+        # earlier regions hold the lower handles: (-price, region, position)
+        # is the host engine's stable order over the whole table
         cand = [(-r[0], ri, i, r) for ri, rows in enumerate(per_region) for i, r in enumerate(rows)]
         return [c[3] for c in sorted(cand, key=lambda c: c[:3])[:20]]
+    last = dag.executors[-1]
+    n_keys = len(last.group_by)
+    ops = [k for a in last.aggs for k in AggDesc.from_pb(a).partial_kinds]
     acc: dict = {}
     for rows in per_region:
         for r in rows:
-            key = r[len(r) - n_keys :]
-            vals = r[: len(r) - n_keys]
-            cur = acc.get(key)
-            if cur is None:
-                acc[key] = list(vals)
-                continue
-            for i, v in enumerate(vals):
+            key, vals = r[len(r) - n_keys :], r[: len(r) - n_keys]
+            cur = acc.setdefault(key, [None] * len(vals))
+            for i, (op, v) in enumerate(zip(ops, vals)):
                 if v is not None:
-                    cur[i] = v if cur[i] is None else cur[i] + v
+                    cur[i] = v if cur[i] is None else _FOLD[op](cur[i], v)
     return {k: tuple(v) for k, v in acc.items()}
+
+
+def _by_key(key: np.ndarray, *lanes):
+    """(distinct keys, per lane and ufunc its reduction over each key's
+    rows) in numpy: ``lanes`` are (values, ufunc) pairs."""
+    order = np.argsort(key, kind="stable")
+    ks = key[order]
+    starts = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    return ks[starts], [uf.reduceat(v[order], starts) for v, uf in lanes]
+
+
+def _date(days: int) -> dt.date:
+    return dt.date(1970, 1, 1) + dt.timedelta(days=int(days))
 
 
 def oracle(name: str, c: dict):
     """The query's answer from the generated arrays, in numpy."""
-    qty, price, disc, tax, rf, ls, ship, mode, instr = (c[i] for i in range(9))
+    qty, price, disc, tax, rf, ls, ship, mode, instr, okey, skey, line = (c[i] for i in range(12))
     if name == "count":
         return {(): (len(qty),)}
     if name == "q6":
@@ -457,24 +514,34 @@ def oracle(name: str, c: dict):
         m = ship >= _days(dt.date(1994, 1, 1))
         idx = np.nonzero(m)[0]
         top = idx[np.argsort(-price[idx], kind="stable")[:20]]
-        return [(_dec(price[i], 2), RETURNFLAGS[rf[i]].decode(), dt.date(1970, 1, 1) + dt.timedelta(days=int(ship[i]))) for i in top]
+        return [(_dec(price[i], 2), RETURNFLAGS[rf[i]].decode(), _date(ship[i])) for i in top]
     if name == "band":
         key = (mode.astype(np.int64) * len(SHIPINSTRUCTS) + instr) * len(RETURNFLAGS) + rf
-        nb = len(SHIPMODES) * len(SHIPINSTRUCTS) * len(RETURNFLAGS)
-        cnt = np.bincount(key, minlength=nb)
+        keys, (cnt, sq, sp) = _by_key(key, (np.ones_like(qty), np.add), (qty, np.add), (price, np.add))
         out = {}
-        order = np.argsort(key, kind="stable")
-        bounds = np.searchsorted(key[order], np.arange(nb + 1))
-        for b in range(nb):
-            if not cnt[b]:
-                continue
-            rows = order[bounds[b] : bounds[b + 1]]
-            mi, rest = divmod(b, len(SHIPINSTRUCTS) * len(RETURNFLAGS))
+        for b, n_, q_, p_ in zip(keys, cnt, sq, sp):
+            mi, rest = divmod(int(b), len(SHIPINSTRUCTS) * len(RETURNFLAGS))
             ii, fi = divmod(rest, len(RETURNFLAGS))
             out[(SHIPMODES[mi].decode(), SHIPINSTRUCTS[ii].decode(), RETURNFLAGS[fi].decode())] = (
-                int(cnt[b]), _dec(int(qty[rows].sum()), 2), _dec(int(price[rows].sum()), 2),
+                int(n_), _dec(q_, 2), _dec(p_, 2),
             )
         return out
+    if name == "q18sub":
+        keys, (sq,) = _by_key(okey, (qty, np.add))
+        return {(int(k),): (_dec(v, 2),) for k, v in zip(keys, sq)}
+    if name == "q15rev":
+        m = (ship >= _days(dt.date(1996, 1, 1))) & (ship < _days(dt.date(1996, 4, 1)))
+        keys, (rev,) = _by_key(skey[m], (price[m] * (100 - disc[m]), np.add))
+        return {(int(k),): (_dec(v, 4),) for k, v in zip(keys, rev)}
+    if name == "extremes":
+        keys, (cnt, lo, hi, bor, bxor) = _by_key(
+            skey, (np.ones_like(qty), np.add), (price, np.minimum), (ship, np.maximum),
+            (line, np.bitwise_or), (okey, np.bitwise_xor),
+        )
+        return {
+            (int(k),): (int(n_), _dec(p_, 2), _date(d_), int(o_), int(x_))
+            for k, n_, p_, d_, o_, x_ in zip(keys, cnt, lo, hi, bor, bxor)
+        }
     raise KeyError(name)
 
 
@@ -533,18 +600,21 @@ def main() -> int:
         print(f"K1 adversarial n_pad={n_pad} B={B} L={len(pairs)} one_bucket={hot}: bit-exact (port and stress builds)")
         del seg, pairs
 
-    # 3. the main path
+    # 3. the main path, in two configurations of one SF1 lineitem: two
+    # regions of one device block each, and one region of two blocks (the
+    # reference bench's layout: one region per chip)
     fixtures = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "bench", "dags")
     dags = {}
-    for name in ("count", "q6", "q1", "q10", "band"):
+    for name in DAG_NAMES:
         with open(os.path.join(fixtures, f"{name}.json")) as f:
             dags[name] = carry.dag_from_pb(json.load(f))
     table_id = dags["count"].executors[0].table_id
     t0 = time.perf_counter()
     cols = lineitem_sf1(args.seed)
-    regions = make_regions(cols, table_id)
-    print(f"data: {SF1_ROWS} rows generated in {time.perf_counter() - t0:.3f} s; regions of "
-          f"{[r.entry.n for r, _ in regions]} rows")
+    two = make_regions(cols, table_id)
+    one = make_regions(cols, table_id, parts=1)
+    print(f"data: {SF1_ROWS} rows generated in {time.perf_counter() - t0:.3f} s; two regions of "
+          f"{[r.entry.n for r, _ in two]} rows, one region of {one[0][0].entry.n} rows")
 
     main_inputs, dot_inputs = [], []
     real_k1, real_dot = dag_kernel.grouped_sums, dag_kernel.grouped_sums_dot
@@ -558,59 +628,62 @@ def main() -> int:
         return real_dot(seg, pairs, B, n, bounds)
 
     dag_kernel.grouped_sums, dag_kernel.grouped_sums_dot = recording_k1, recording_dot
-    gs.LAUNCHES = 0
-    results = {}
-    launches_by_query = {}
     try:
-        for name, dag in dags.items():
-            before = gs.LAUNCHES
-            results[name] = [gpu_engine.execute_dag(r, dag, rg, device="cuda").rows() for r, rg in regions]
-            torch.cuda.synchronize()
-            launches_by_query[name] = gs.LAUNCHES - before
+        gs.LAUNCHES = 0  # the two-region path: counts from 0 just before it
+        results2, launches_by_query, info2 = _drive(two, dags, gs)
+        main_launches = gs.LAUNCHES  # the kernels line reports this count
     finally:
         dag_kernel.grouped_sums, dag_kernel.grouped_sums_dot = real_k1, real_dot
-    main_launches = gs.LAUNCHES  # the kernels line reports this count
-    print(f"main path K1 launches by query: {launches_by_query}")
+    print(f"two regions: K1 launches by query: {launches_by_query}")
     if launches_by_query["band"] < 1 or launches_by_query["q1"] != 0:
         raise AssertionError(f"K1 must run for the band query and not for Q1: {launches_by_query}")
     if main_launches < 1:
         raise AssertionError("the main path never launched K1")
+    gs.LAUNCHES = 0  # the one-region path: its own counts
+    results1, launches1, info1 = _drive(one, dags, gs)
+    print(f"one region: K1 launches by query: {launches1} (K1 is not on this path: n = 8,388,608 > 8,000,000 rows)")
+    for name in dags:
+        for label, info in (("two regions", info2), ("one region", info1)):
+            print(f"{name} {label}: path {info[name]['path']}; routes {list(info[name]['routes'])}; "
+                  f"agg-cap regrows {info[name]['regrows']}")
+        if (info1[name]["path"], info1[name]["routes"]) != ONE_REGION_ROUTES[name]:
+            raise AssertionError(f"{name}: one region took {info1[name]}, the reference's routing says "
+                                 f"{ONE_REGION_ROUTES[name]}")
 
+    t0 = time.perf_counter()
+    merged = {}
     for name, dag in dags.items():
-        cpu = [gpu_engine.execute_dag(r, dag, rg, device="cpu").rows() for r, rg in regions]
-        if cpu != results[name]:
-            raise AssertionError(f"{name}: card and CPU paths disagree")
-        n_keys = len(dag.executors[-1].group_by) if dag.executors[-1].tp == "aggregation" else 0
-        got = merge_partials(name, results[name], n_keys)
         want = oracle(name, cols)
-        if got != want:
-            raise AssertionError(f"{name}: merged result disagrees with the numpy oracle:\n{got}\n{want}")
-        print(f"{name}: {[len(r) for r in results[name]]} rows per region; equal to the CPU path and the oracle")
+        for label, regions, results in (("two regions", two, results2[name]), ("one region", one, results1[name])):
+            for (r, rg), got in zip(regions, results):
+                if not _same_chunk(gpu_engine.execute_dag(r, dag, rg, device="cpu"), got):
+                    raise AssertionError(f"{name} {label}: card and CPU paths disagree")
+            merged[name, label] = merge_partials(name, [c.rows() for c in results], dag)
+            if merged[name, label] != want:
+                raise AssertionError(f"{name} {label}: merged result disagrees with the numpy oracle")
+        if merged[name, "one region"] != merged[name, "two regions"]:
+            raise AssertionError(f"{name}: one region, merged, disagrees with two regions")
+        print(f"{name}: rows per region {[len(c) for c in results2[name]]} / {[len(c) for c in results1[name]]}; "
+              f"equal to the CPU path and the oracle in both configurations, and to each other merged")
+    print(f"checks: {time.perf_counter() - t0:.1f} s")
 
     # warm timings per region task
+    busy = {}
     for name, dag in dags.items():
-        for ri, (r, rg) in enumerate(regions):
-            walls = []
-            devs = []
-            for _ in range(10):
-                a = torch.cuda.Event(enable_timing=True)
-                b = torch.cuda.Event(enable_timing=True)
-                t0 = time.perf_counter()
-                a.record()
-                gpu_engine.execute_dag(r, dag, rg, device="cuda")
-                b.record()
-                b.synchronize()
-                walls.append((time.perf_counter() - t0) * 1e3)
-                devs.append(a.elapsed_time(b))
-            busy, top = _profile_device(lambda: gpu_engine.execute_dag(r, dag, rg, device="cuda"))
-            wall = statistics.median(walls)
-            idle = "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}"
-            print(f"query {name} region {ri}: wall_ms median {wall:.3f} min {min(walls):.3f}; "
-                  f"device_span_ms median {statistics.median(devs):.3f}; "
-                  f"device_busy_ms {'not measured' if busy is None else f'{busy:.3f}'}; idle_share {idle}")
-            if ri == 0:
-                for k, ms, calls in top:
-                    print(f"    top kernel {ms:.3f} ms x{calls}: {k[:110]}")
+        for label, regions in (("two regions", two), ("one region", one)):
+            for ri, (r, rg) in enumerate(regions):
+                t = _task_timing(gpu_engine, r, dag, rg)
+                busy[name, label, ri] = t["busy"]
+                print(f"query {name} {label} region {ri}: wall_ms median {t['wall']:.3f} min {t['wall_min']:.3f}; "
+                      f"device_span_ms median {t['span']:.3f}; device_busy_ms {_ms(t['busy'])}; "
+                      f"idle_share {t['idle']}; concat_ms {_ms(t['cat'])}"
+                      + ("" if t["cat"] is None or not t["busy"] else f" ({t['cat'] / t['busy']:.3f} of busy)"))
+                if ri == 0:
+                    for k, ms, calls in t["top"]:
+                        print(f"    top kernel {ms:.3f} ms x{calls}: {k[:110]}")
+    print("band device busy ms: one region (lex route, fused) "
+          f"{_ms(busy['band', 'one region', 0])} against two regions (K1 route) "
+          f"{_ms(busy['band', 'two regions', 0])} + {_ms(busy['band', 'two regions', 1])}")
 
     # 4. K1 on the main path's own inputs
     seg, pairs, B, n_pad, bounds = main_inputs[0]
@@ -651,11 +724,95 @@ def main() -> int:
     return 0
 
 
+DAG_NAMES = ("count", "q6", "q1", "q10", "band", "q18sub", "q15rev", "extremes")
+# one SF1 region = two 4,194,304-row blocks: the reference's routing
+# (tidb_tpu/copr/tpu_engine.py:502-521, tidb_tpu/ops/dag_kernel.py:522,775)
+ONE_REGION_ROUTES = {
+    "count": ("fused", ("eqmask",)),
+    "q6": ("fused", ("eqmask",)),
+    "q1": ("blockwise dot", ("dot",)),
+    "q10": ("per-block stacked", ()),
+    "band": ("fused", ("lex",)),
+    "q18sub": ("fused", ("lex",)),
+    "q15rev": ("fused", ("lex",)),
+    "extremes": ("fused", ("lex",)),
+}
+
+
+def _drive(regions, dags, gs):
+    """Every DAG over every region on the card, once. → (Chunks per DAG and
+    region, K1 launches per DAG, the engine's stats per DAG of the first
+    region)."""
+    import torch
+
+    from tidb_tpu_torch.copr import gpu_engine
+
+    results, launches, info = {}, {}, {}
+    for name, dag in dags.items():
+        before = gs.LAUNCHES
+        results[name] = []
+        for ri, (r, rg) in enumerate(regions):
+            stats = {}
+            results[name].append(gpu_engine.execute_dag(r, dag, rg, device="cuda", stats=stats))
+            if ri == 0:
+                info[name] = stats
+        torch.cuda.synchronize()
+        launches[name] = gs.LAUNCHES - before
+    return results, launches, info
+
+
+def _same_chunk(a, b) -> bool:
+    """Row-for-row equality of two Chunks: equal validity, equal data where
+    valid."""
+    if len(a) != len(b) or len(a.columns) != len(b.columns):
+        return False
+    for x, y in zip(a.columns, b.columns):
+        if not np.array_equal(x.validity, y.validity):
+            return False
+        if not np.array_equal(x.data[x.validity], y.data[y.validity]):
+            return False
+    return True
+
+
+def _ms(x) -> str:
+    return "not measured" if x is None else f"{x:.3f}"
+
+
+def _task_timing(gpu_engine, region, dag, ranges, reps: int = 10) -> dict:
+    """Warm wall (host clock around the call, which ends in the copy of the
+    result to the host), device span (CUDA events), device busy time, its
+    concatenation kernels and top kernels (torch.profiler), idle share."""
+    import torch
+
+    walls, spans = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        gpu_engine.execute_dag(region, dag, ranges, device="cuda")
+        b.record()
+        b.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        spans.append(a.elapsed_time(b))
+    kernels = _profile_device(lambda: gpu_engine.execute_dag(region, dag, ranges, device="cuda"))
+    wall = statistics.median(walls)
+    busy = sum(k[1] for k in kernels) if kernels else None
+    return {
+        "wall": wall,
+        "wall_min": min(walls),
+        "span": statistics.median(spans),
+        "busy": busy,
+        "idle": "not measured" if busy is None else f"{max(0.0, 1 - busy / wall):.3f}",
+        "cat": sum(k[1] for k in kernels if "CatArray" in k[0]) if kernels else None,
+        "top": kernels[:3],
+    }
+
+
 def _profile_device(fn):
-    """(busy ms, [(kernel, ms, calls)] top 3) of one call from
-    torch.profiler: device-side events only (a host op's device total would
-    count its kernels twice); (None, []) when the profiler records no
-    device time."""
+    """[(kernel, ms, calls)] of one call from torch.profiler, longest first:
+    device-side events only (a host op's device total would count its
+    kernels twice); [] when the profiler records no device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -668,10 +825,8 @@ def _profile_device(fn):
         for e in prof.key_averages()
         if getattr(e, "device_type", None) == DeviceType.CUDA and e.self_device_time_total > 0
     ]
-    if not kernels:
-        return None, []
     kernels.sort(key=lambda k: -k[1])
-    return sum(k[1] for k in kernels), kernels[:3]
+    return kernels
 
 
 if __name__ == "__main__":

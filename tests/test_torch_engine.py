@@ -1,7 +1,7 @@
 """The PyTorch port's coprocessor engine (tidb_tpu_torch.copr.gpu_engine)
 held against the reference's device and host engines on one region.
 
-A tidb_tpu DB holds a 6,000-row lineitem with the nine columns the five
+A tidb_tpu DB holds a 6,000-row lineitem with the twelve columns the eight
 fixture DAGs read, in one region (n_pad = 8192). The DAGs the reference
 planner sends to ``tpu_engine._execute_dag_device`` are captured (as
 bench.py's ``chip_time`` captures them), the region's decoded arrays are
@@ -24,6 +24,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke
 import tidb_tpu
 from tidb_tpu.copr import host_engine, tpu_engine
 from tidb_tpu.copr.colcache import cache_for
@@ -40,7 +41,8 @@ SCHEMA = """CREATE TABLE lineitem (
     l_quantity DECIMAL(12,2), l_extendedprice DECIMAL(12,2),
     l_discount DECIMAL(12,2), l_tax DECIMAL(12,2),
     l_returnflag VARCHAR(1), l_linestatus VARCHAR(1), l_shipdate DATE,
-    l_shipmode VARCHAR(10), l_shipinstruct VARCHAR(25))"""
+    l_shipmode VARCHAR(10), l_shipinstruct VARCHAR(25),
+    l_orderkey INT, l_suppkey INT, l_linenumber INT)"""
 
 QUERIES = {
     "count": "SELECT COUNT(*) FROM lineitem",
@@ -61,6 +63,15 @@ QUERIES = {
     "band": """SELECT l_shipmode, l_shipinstruct, l_returnflag, COUNT(*),
     SUM(l_quantity), SUM(l_extendedprice)
   FROM lineitem GROUP BY l_shipmode, l_shipinstruct, l_returnflag""",
+    # TPC-H Q18's inner aggregation (its HAVING runs at the root)
+    "q18sub": "SELECT l_orderkey, SUM(l_quantity) FROM lineitem GROUP BY l_orderkey",
+    # TPC-H Q15's revenue view
+    "q15rev": """SELECT l_suppkey, SUM(l_extendedprice * (1 - l_discount)) FROM lineitem
+  WHERE l_shipdate >= DATE '1996-01-01' AND l_shipdate < DATE '1996-04-01'
+  GROUP BY l_suppkey""",
+    # grouped order statistics and bit aggregates: the lex-sort path only
+    "extremes": """SELECT l_suppkey, COUNT(*), MIN(l_extendedprice), MAX(l_shipdate),
+    BIT_OR(l_linenumber), BIT_XOR(l_orderkey) FROM lineitem GROUP BY l_suppkey""",
 }
 # a scan → selection DAG: rows-kind output, compacted in handle order
 ROWS_QUERY = "SELECT l_extendedprice, l_shipmode, l_shipdate FROM lineitem WHERE l_discount < 0.02"
@@ -87,16 +98,22 @@ def _lineitem_db(n=6000, seed=0):
         np.array(SHIPMODES, dtype="S10")[rng.integers(0, 7, n)],
         np.array(SHIPINSTRUCTS, dtype="S25")[rng.integers(0, 4, n)],
     ]
+    # drawn after the nine columns above, which keep their values; 100
+    # suppliers (TPC-H's S at scale factor 0.01) so each has many lines
+    cols += chip_smoke.lineitem_keys(rng, rng.integers(1, 2001, n), 100)
     bulk_load(db, "lineitem", cols)
     return db
 
 
-def _capture(db):
-    """{name: (dag, region, ranges, read_ts)} as the SQL layer sends them."""
+def _capture(db, queries=None):
+    """{name: (dag, region, ranges, read_ts)} as the SQL layer sends them,
+    for ``queries`` ({name: sql}; the fixture queries and the rows query
+    when None)."""
     s = db.session()
     s.execute("SET tidb_isolation_read_engines = 'tpu'")
     out = {}
-    for name, sql in list(QUERIES.items()) + [("rows", ROWS_QUERY)]:
+    items = list(QUERIES.items()) + [("rows", ROWS_QUERY)] if queries is None else list(queries.items())
+    for name, sql in items:
         got = {}
 
         def cap(store, dag, region, ranges, read_ts, warn=None):
@@ -247,9 +264,6 @@ def test_partial_ranges_mask_rows(setup, name):
 def test_large_rows_buffer_moves_only_live_rows():
     """A selection over a region padded past 65,536 rows: the engine reads
     the meta row first and copies only the live slice to the host."""
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    import chip_smoke
-
     cols = chip_smoke.lineitem_sf1(seed=7, n=70_000)
     (reg, ranges), _ = chip_smoke.make_regions(cols, 100)
     pb = json.load(open(os.path.join(FIXTURES, "q6.json")))

@@ -87,7 +87,7 @@ def test_dot_route_at_the_chunk_edge_on_card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["count", "q6", "q1", "q10", "band"])
+@pytest.mark.parametrize("name", chip_smoke.DAG_NAMES)
 def test_engine_on_card_matches_cpu_path(name):
     _need_card()
     with open(os.path.join(DAGS, f"{name}.json")) as f:
@@ -113,3 +113,63 @@ def test_rows_path_on_card_matches_cpu_path():
         cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu").rows()
         gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda").rows()
         assert gpu == cpu and len(gpu) > 0
+
+
+def _limit_dag():
+    """scan → selection → LIMIT 5: the rows query of Q6's predicate."""
+    with open(os.path.join(DAGS, "q6.json")) as f:
+        pb = json.load(f)
+    pb["executors"] = pb["executors"][:2] + [{"tp": "limit", "limit": 5}]
+    return carry.dag_from_pb(pb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,fuse_max", [(8192, 8), (4096, 8), (4096, 20)])
+@pytest.mark.parametrize("name", chip_smoke.DAG_NAMES + ("limit",))
+def test_blocked_region_on_card_matches_cpu_path(monkeypatch, name, block, fuse_max):
+    """One 50,000-row region in blocks of 8,192 (7 blocks: aggregations
+    fuse, Q1 never reaches the blockwise dot at this size) or 4,096 (13
+    blocks: per-block programs, K1 per block for the band query, paged
+    LIMIT; or all 13 fused): the card's Chunk equals the CPU path's, and
+    the lex route runs on the card."""
+    _need_card()
+    monkeypatch.setattr(gpu_engine, "_BLOCK", block)
+    monkeypatch.setattr(gpu_engine, "_FUSE_MAX_NB", fuse_max)
+    if name == "limit":
+        dag = _limit_dag()
+    else:
+        with open(os.path.join(DAGS, f"{name}.json")) as f:
+            dag = carry.dag_from_pb(json.load(f))
+    cols = chip_smoke.lineitem_sf1(seed=5, n=50_000)
+    ((region, ranges),) = chip_smoke.make_regions(cols, dag.executors[0].table_id, parts=1)
+    cpu_stats, gpu_stats = {}, {}
+    cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu", stats=cpu_stats)
+    before = gs.LAUNCHES
+    gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda", stats=gpu_stats)
+    torch.cuda.synchronize()
+    assert chip_smoke._same_chunk(gpu, cpu) and gpu.rows() == cpu.rows()
+    assert gpu_stats == cpu_stats
+    if name == "band":
+        assert gs.LAUNCHES - before == (13 if (block, fuse_max) == (4096, 8) else 1)
+
+
+@pytest.mark.gpu
+def test_blockwise_dot_on_card_matches_cpu_path(monkeypatch):
+    """Q1 over 13 fused blocks with the dot route's 2^21-row size gate
+    lowered: one limb matrix accumulates block by block on the card."""
+    _need_card()
+    from tidb_tpu_torch.ops import dag_kernel
+
+    monkeypatch.setattr(gpu_engine, "_BLOCK", 4096)
+    monkeypatch.setattr(gpu_engine, "_FUSE_MAX_NB", 20)
+    monkeypatch.setattr(dag_kernel, "_MXU_MIN_ROWS", 4096)
+    monkeypatch.setattr(dag_kernel, "_COMPILE_CACHE", {})
+    with open(os.path.join(DAGS, "q1.json")) as f:
+        dag = carry.dag_from_pb(json.load(f))
+    cols = chip_smoke.lineitem_sf1(seed=6, n=50_000)
+    ((region, ranges),) = chip_smoke.make_regions(cols, dag.executors[0].table_id, parts=1)
+    stats = {}
+    gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda", stats=stats)
+    cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu")
+    assert stats["path"] == "blockwise dot"
+    assert gpu.rows() == cpu.rows()

@@ -22,6 +22,8 @@ import tidb_tpu_torch.copr.gpu_engine
 import tidb_tpu_torch.copr.carry
 import tidb_tpu_torch.ops.grouped_sums
 import tidb_tpu_torch.ops.mxu_groupby
+import tidb_tpu_torch.ops.dag_kernel
+import tidb_tpu_torch.ops.window_core
 import tidb_tpu_torch.native
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))

@@ -19,7 +19,7 @@ import numpy as np
 from tidb_tpu_torch.utils.chunk import Dictionary
 
 # the reference engine's device block (tidb_tpu/copr/colcache.py:45): a
-# region of more rows runs as several blocks, which this slice does not port
+# region of more rows runs as several blocks of this many padded rows
 DEVICE_BLOCK_ROWS = 1 << 22
 
 
@@ -34,6 +34,13 @@ class RegionColumns:
     data_version: int = 0
     # per-slot (min, max) over valid values, computed lazily
     _minmax: dict = field(default_factory=dict)
+
+    def vtag_span(self, lo: int, hi: int) -> int:
+        """Device-cache version tag for rows [lo, hi). The reference carries
+        per-block tags across delta merges, so a clean block keeps its device
+        arrays; with no merge ported every block of an entry shares the
+        entry's own version (the reference's fallback)."""
+        return self.data_version
 
     def minmax(self, slot: int) -> tuple[int, int]:
         mm = self._minmax.get(slot)

@@ -1,19 +1,35 @@
 """GPU coprocessor engine: region columns → device cache → fused program.
 
-Port of the single-block path of tidb_tpu/copr/tpu_engine.py. Per region
+Port of tidb_tpu/copr/tpu_engine.py without the delta operand. Per region
 task:
 
 1. keep the region's columns resident on the device in an LRU bounded by
-   the card's memory (``_DeviceLRU``), keyed by (region, version, epoch),
-   with int64 lanes whose values fit int32 stored narrow (``_narrowed``);
+   the card's memory (``_DeviceLRU``), keyed by (region, table, slot, unit,
+   version, epoch, rows) where the unit is a block index or "s" for a
+   region held as one array; int64 lanes whose values fit int32 are stored
+   narrow (``_narrowed``);
 2. bind the DAG (string constants → dictionary codes; ``binder.py``);
-3. fetch the program for (DAG, padded rows) and run it (``dag_kernel``);
+3. fetch the program for (DAG, padded rows, agg cap, blocks) and run it
+   (``dag_kernel``) on one of the reference's paths:
+   - a region of at most one device block (``_BLOCK`` rows), or a
+     complete-mode aggregation: one padded array, one program
+     (``_exec_single``);
+   - an aggregation-last DAG over 2..``_FUSE_MAX_NB`` blocks: one program
+     over every block (``_exec_fused_blocks``) — the blocks concatenate,
+     or the int8 dot accumulates block by block;
+   - anything else over several blocks: one program per block, partial
+     results in block (handle) order (``_exec_blocks``); a LIMIT-last DAG
+     pages through the blocks and stops once the limit can be met;
 4. trim the packed outputs by the program's reported count and re-attach
    string dictionaries → ``Chunk``.
 
+Block results concatenate without a merge: aggregations run in partial
+mode (the root merges groups across tasks and blocks), TopN and LIMIT tasks
+return per-block candidates the root re-sorts and cuts.
+
 Overflow protocol: if the program reports more groups than its static cap,
 rerun with a 4x larger cap. The engine has no host fallback: a DAG shape
-this slice does not port raises ``UnsupportedForDevice``.
+the port does not carry raises ``UnsupportedForDevice``.
 """
 
 from __future__ import annotations
@@ -38,6 +54,7 @@ from tidb_tpu_torch.utils.chunk import Chunk, Column, bucket_size
 
 _DEFAULT_AGG_CAP = 4096
 _BLOCK = DEVICE_BLOCK_ROWS
+_FUSE_MAX_NB = 8  # fused multi-block programs: the card holds the inputs and their concatenation
 # share of the card's memory the column LRU may hold; the rest is the
 # programs' working set (one-hot and limb operands, packed outputs)
 _HBM_SHARE = 0.5
@@ -150,13 +167,32 @@ def _covers_all(rarr: np.ndarray, entry) -> bool:
     return int(spans[0, 0]) <= int(entry.handles[0]) and int(entry.handles[-1]) < int(spans[0, 1])
 
 
-def execute_dag(region: Region, dag: dagpb.DAGRequest, ranges: list[KeyRange], warn=None, device="cuda") -> Chunk:
+def _n_blocks(n: int) -> int:
+    return -(-n // _BLOCK)
+
+
+def _block_bounds(n: int) -> list[tuple[int, int]]:
+    return [(i, min(i + _BLOCK, n)) for i in range(0, n, _BLOCK)]
+
+
+def _should_fuse_agg(dag: dagpb.DAGRequest, entry) -> bool:
+    """An aggregation-last DAG over a region of 2..``_FUSE_MAX_NB`` blocks
+    runs as one program: one dispatch, and no partial merge of per-block
+    results."""
+    agg_last = bool(dag.executors[1:]) and dag.executors[-1].tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG)
+    return entry.n > _BLOCK and agg_last and _n_blocks(entry.n) <= _FUSE_MAX_NB
+
+
+def execute_dag(region: Region, dag: dagpb.DAGRequest, ranges: list[KeyRange], warn=None, device="cuda", stats=None) -> Chunk:
     """Run one pushed-down DAG over one region on ``device`` → Chunk.
 
     ``ranges`` are the task's record-key ranges (at most ``MAX_RANGES``);
-    ``warn(level, code, msg)`` receives the program's warnings (the builtins
-    of this slice raise none). Raises ``UnsupportedForDevice`` for a DAG
-    shape this slice does not port.
+    ``warn(level, code, msg)`` receives the program's warnings (the ported
+    builtins raise none). ``stats``, a dict when given, receives the task's
+    engine ``path`` ("single", "fused", "blockwise dot", "per-block
+    stacked" or "paged limit"), the ``routes`` of its aggregations and the
+    number of agg-cap ``regrows``. Raises ``UnsupportedForDevice`` for a
+    DAG shape the port does not carry.
     """
     dev = resolve(device)
     scan = dag.executors[0]
@@ -169,69 +205,236 @@ def execute_dag(region: Region, dag: dagpb.DAGRequest, ranges: list[KeyRange], w
     if any(ex.tp == dagpb.WINDOW for ex in dag.executors[1:]):
         raise UnsupportedForDevice("window programs are not ported")
     entry = region.entry
-    if entry.n > _BLOCK:
-        raise UnsupportedForDevice(f"region of {entry.n} rows spans several device blocks (not ported)")
     bound = Binder(region.cache, scan.table_id, scan.columns, entry).bind_dag(dag)
     # ranges → padded static array; rows outside every range are masked out
     rarr = np.zeros((MAX_RANGES, 2), dtype=np.int64)
     for i, kr in enumerate(ranges):
         rarr[i] = tablecodec.range_to_handles(kr, scan.table_id)
-    return _exec_single(region, dag, bound, scan, rarr, dev, warn)
+    stats = stats if stats is not None else {}
+    stats["regrows"] = 0
+    if _should_fuse_agg(dag, entry):
+        return _exec_fused_blocks(region, dag, bound, scan, rarr, dev, warn, stats)
+    agg_complete = any(
+        ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG) and ex.agg_mode == dagpb.AGG_COMPLETE
+        for ex in dag.executors[1:]
+    )
+    if entry.n > _BLOCK and not agg_complete:
+        return _exec_blocks(region, dag, bound, scan, rarr, dev, warn, stats)
+    return _exec_single(region, dag, bound, scan, rarr, dev, warn, stats)
 
 
-def _single_device_inputs(region: Region, scan, n_pad: int, device: torch.device):
+def _device_inputs(region: Region, scan, unit, lo: int, hi: int, n_pad: int, device: torch.device):
+    """(handles, column pairs) of rows [lo, hi) on ``device``, padded to
+    ``n_pad`` and LRU-cached under ``unit``: "s" for a region held as one
+    array, else the block index. Blocks are put on demand, so a LIMIT that
+    stops early never uploads the blocks it does not read, and the fused
+    and per-block paths share the block entries."""
     entry = region.entry
     cache = region.cache
     lru = _device_lru(cache, device)
+    ver = entry.vtag_span(lo, hi)
     base = (region.region_id, scan.table_id)
-    hkey = base + (-1, "s", entry.data_version, cache.epoch, n_pad)
-    handles_pair = _device_put_col(lru, hkey, lambda: (entry.handles, np.ones(entry.n, bool)), n_pad, device)
+    hkey = base + (-1, unit, ver, cache.epoch, n_pad)
+    hpair = _device_put_col(lru, hkey, lambda: (entry.handles[lo:hi], np.ones(hi - lo, bool)), n_pad, device)
     cols_dev = []
     for c in scan.columns:
         if c.is_handle:
-            cols_dev.append(handles_pair)
+            cols_dev.append(hpair)
             continue
-        ckey = base + (c.column_id, "s", entry.data_version, cache.epoch, n_pad)
+        ckey = base + (c.column_id, unit, ver, cache.epoch, n_pad)
 
         def mk(cid=c.column_id):
             data, valid = entry.cols[cid]
-            return _narrowed(entry, cid, data), valid
+            # narrowing reads the whole region's min/max: every block of a
+            # column gets one dtype, so the fused program can concatenate
+            return _narrowed(entry, cid, data[lo:hi]), valid[lo:hi]
 
         cols_dev.append(_device_put_col(lru, ckey, mk, n_pad, device))
-    return handles_pair[0], tuple(cols_dev)
+    return hpair[0], tuple(cols_dev)
 
 
-def _exec_single(region: Region, dag, bound, scan, rarr, device: torch.device, warn=None) -> Chunk:
-    """One padded array per column, one program run (a region of at most
-    one device block)."""
+def _fused_block_inputs(region: Region, scan, device: torch.device):
+    """(handles per block, per column its pairs per block, live rows per
+    block, block count) for the fused multi-block program."""
+    bounds = _block_bounds(region.entry.n)
+    handles_blocks = []
+    cols_blocks: list[list] = [[] for _ in scan.columns]
+    for bi, (lo, hi) in enumerate(bounds):
+        h, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
+        handles_blocks.append(h)
+        for ci, pair in enumerate(cols_dev):
+            cols_blocks[ci].append(pair)
+    nvalids = tuple(hi - lo for lo, hi in bounds)
+    return tuple(handles_blocks), tuple(tuple(cb) for cb in cols_blocks), nvalids, len(bounds)
+
+
+def _to_host(packed):
+    """(int buffer, float buffer or None) as numpy arrays."""
+    if isinstance(packed, tuple):
+        return packed[0].cpu().numpy(), packed[1].cpu().numpy()
+    return packed.cpu().numpy(), None
+
+
+def _probe_slice_rows(packed_list: list, kernel):
+    """Large rows-kind buffers (capacity = the padded block) are mostly
+    empty after selection: read every program's meta row in one copy, then
+    slice each buffer to its bucketed live width so only live rows move.
+    → (counts, sliced buffers)."""
+    tup = isinstance(packed_list[0], tuple)
+    ibufs = [p[0] if tup else p for p in packed_list]
+    metas = torch.stack([b[0, :2] for b in ibufs]).cpu().numpy()
+    sliced = []
+    for p, m in zip(packed_list, metas):
+        w = min(kernel.out_n, bucket_size(max(2, int(m[0]))))
+        sliced.append(tuple(q[:, :w] for q in p) if tup else p[:, :w])
+    return [int(m[0]) for m in metas], sliced
+
+
+def _run_whole(get, run, agg_cap: int, cap_max: int, stats: dict):
+    """Run one whole-region program, rerunning it with a 4x larger agg cap
+    (at most ``cap_max``, the rows it reads) while its groups overflow.
+    → (kernel, int buffer, float buffer)."""
+    while True:
+        kernel = get(agg_cap)
+        packed = run(kernel)
+        if kernel.kind == "rows" and kernel.out_n > 65536:
+            _, (packed,) = _probe_slice_rows([packed], kernel)
+        buf, fbuf = _to_host(packed)
+        stats["routes"] = kernel.routes
+        if int(buf[0, 1]) > kernel.agg_cap:
+            if agg_cap >= cap_max:
+                # more groups than rows cannot happen; the row-count cap always fits
+                raise RuntimeError("aggregation group overflow beyond row count")
+            agg_cap = min(agg_cap * 4, cap_max)
+            stats["regrows"] += 1
+            continue
+        return kernel, buf, fbuf
+
+
+def _exec_single(region: Region, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
+    """One padded array per column, one program run: a region of at most one
+    device block, or a complete-mode aggregation."""
     entry = region.entry
     n_pad = bucket_size(max(entry.n, 1))
-    handles_dev, cols_dev = _single_device_inputs(region, scan, n_pad, device)
     agg_cap = min(_DEFAULT_AGG_CAP, n_pad) if kernel_needs_agg(bound) else _DEFAULT_AGG_CAP
     fs = _covers_all(rarr, entry)
-    while True:
-        kernel = get_kernel(bound, n_pad, agg_cap, full_scan=fs)
-        packed = kernel.fn(handles_dev, cols_dev, rarr, entry.n)
-        ibuf, fbuf = packed if isinstance(packed, tuple) else (packed, None)
-        if kernel.kind == "rows" and kernel.out_n > 65536:
-            # large rows-kind buffers are mostly empty after selection: read
-            # the meta row, then move only the bucketed live width
-            w = min(kernel.out_n, bucket_size(max(2, int(ibuf[0, 0]))))
-            ibuf = ibuf[:, :w]
-            fbuf = fbuf[:, :w] if fbuf is not None else None
-        buf = ibuf.cpu().numpy()
-        fbuf = fbuf.cpu().numpy() if fbuf is not None else None
-        count = int(buf[0, 0])
-        ngroups = int(buf[0, 1])
-        if ngroups > kernel.agg_cap:
-            if agg_cap >= n_pad:
-                # more groups than rows cannot happen; the n_pad cap always fits
-                raise RuntimeError("aggregation group overflow beyond row count")
-            agg_cap = min(agg_cap * 4, n_pad)
-            continue
-        break
+    stats["path"] = "single"
+
+    def run(kernel):
+        handles_dev, cols_dev = _device_inputs(region, scan, "s", 0, entry.n, n_pad, device)
+        return kernel.fn(handles_dev, cols_dev, rarr, entry.n)
+
+    kernel, buf, fbuf = _run_whole(
+        lambda cap: get_kernel(bound, n_pad, cap, full_scan=fs), run, agg_cap, n_pad, stats
+    )
     _emit_kernel_warnings(buf, kernel, warn)
-    return _chunk_from_bufs(buf, fbuf, count, kernel, dag, region.cache, scan)
+    return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
+
+
+def _exec_fused_blocks(region: Region, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
+    """An aggregation-last DAG over a region of several blocks: one program
+    over every block, one dispatch, no merge of per-block partials."""
+    entry = region.entry
+    handles_blocks, cols_blocks, nvalids, nb = _fused_block_inputs(region, scan, device)
+    n_total = nb * _BLOCK
+    agg_cap = min(_DEFAULT_AGG_CAP, n_total)
+    fs = _covers_all(rarr, entry)
+    kernel, buf, fbuf = _run_whole(
+        lambda cap: get_kernel(bound, _BLOCK, cap, nb=nb, full_scan=fs),
+        lambda kernel: kernel.fn(handles_blocks, cols_blocks, rarr, nvalids),
+        agg_cap,
+        n_total,
+        stats,
+    )
+    stats["path"] = "blockwise dot" if kernel.blockwise else "fused"
+    _emit_kernel_warnings(buf, kernel, warn)
+    return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
+
+
+def _exec_blocks(region: Region, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
+    """A region of several blocks, one program per block: aggregations and
+    TopN run every block and copy the stacked results once; a LIMIT-last DAG
+    pages through the blocks."""
+    entry = region.entry
+    bounds = _block_bounds(entry.n)
+    limit_last = dag.executors[-1].tp == dagpb.LIMIT
+    stats["path"] = "paged limit" if limit_last else "per-block stacked"
+    agg_cap = _DEFAULT_AGG_CAP
+    fs = _covers_all(rarr, entry)
+    while True:
+        kernel = get_kernel(bound, _BLOCK, agg_cap, full_scan=fs)
+        stats["routes"] = kernel.routes
+
+        def run_block(bi: int):
+            lo, hi = bounds[bi]
+            handles_dev, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
+            return kernel.fn(handles_dev, cols_dev, rarr, hi - lo)
+
+        if limit_last:
+            out = _blocks_paged_limit(run_block, len(bounds), kernel, dag, region.cache, scan, warn)
+        else:
+            out = _blocks_stacked(run_block, len(bounds), kernel, dag, region.cache, scan, warn)
+        if out is None:  # agg overflow in some block
+            agg_cap = min(agg_cap * 4, _BLOCK)
+            stats["regrows"] += 1
+            continue
+        return out
+
+
+def _blocks_stacked(run_block, nb: int, kernel, dag, cache, scan, warn=None):
+    """Run every block, stack the results on the device, copy once. Returns
+    None on agg-cap overflow (the caller reruns with a larger cap)."""
+    packed = [run_block(bi) for bi in range(nb)]
+    tup = isinstance(packed[0], tuple)
+    chunks = []
+    if kernel.kind == "rows" and kernel.out_n > 65536:
+        # rows-kind: counts first (one small copy), then live slices only
+        counts, gets = _probe_slice_rows(packed, kernel)
+        for cnt, got in zip(counts, gets):
+            buf, fbuf = _to_host(got)
+            _emit_kernel_warnings(buf, kernel, warn)
+            chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
+        return _concat_chunks(chunks)
+    bi_all = torch.stack([p[0] if tup else p for p in packed]).cpu().numpy()
+    bf_all = torch.stack([p[1] for p in packed]).cpu().numpy() if tup else None
+    if kernel.kind == "agg" and any(int(b[0, 1]) > kernel.agg_cap for b in bi_all):
+        return None
+    for b in range(nb):
+        buf = bi_all[b]
+        fbuf = bf_all[b] if bf_all is not None else None
+        _emit_kernel_warnings(buf, kernel, warn)
+        chunks.append(_chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, cache, scan))
+    return _concat_chunks(chunks)
+
+
+def _blocks_paged_limit(run_block, nb: int, kernel, dag, cache, scan, warn=None):
+    """LIMIT-last: run blocks in windows of 1, 2, 4, then 8, and stop once
+    the rows fetched can meet the limit (the coprocessor's paging)."""
+    limit = dag.executors[-1].limit
+    chunks = []
+    got = 0
+    window = 1
+    bi = 0
+    # `not chunks` keeps LIMIT 0 well-formed: one empty block result still
+    # carries the output schema
+    while bi < nb and (got < limit or not chunks):
+        batch = list(range(bi, min(bi + window, nb)))
+        packed = [run_block(i) for i in batch]
+        if kernel.out_n > 65536:  # LIMIT-last DAGs are rows-kind
+            _counts, packed = _probe_slice_rows(packed, kernel)
+        for p in packed:
+            buf, fbuf = _to_host(p)
+            cnt = int(buf[0, 0])
+            _emit_kernel_warnings(buf, kernel, warn)
+            chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
+            got += cnt
+        bi += len(batch)
+        window = min(window * 2, 8)
+    return _concat_chunks(chunks)
+
+
+def _concat_chunks(chunks: list[Chunk]) -> Chunk:
+    return chunks[0] if len(chunks) == 1 else Chunk.concat(chunks)
 
 
 def _emit_kernel_warnings(buf, kernel, warn) -> None:

@@ -1,12 +1,11 @@
-"""The fused DAG program (port of the single-block subset of
-tidb_tpu/ops/dag_kernel.py).
+"""The fused DAG program (port of tidb_tpu/ops/dag_kernel.py).
 
-One program per (DAG, padded row count): scan → selection* → aggregation
-or TopN over one region's padded columns, packed into one int64 buffer (and
-a float64 one when a lane is floating) whose row 0 is the meta row
-``[count, ngroups]``. PyTorch runs eagerly, so "compiling" parses the DAG
-and fixes every route; the program cache is keyed exactly as the
-reference's (``get_kernel``).
+One program per (DAG, padded rows per block, agg cap, blocks): scan →
+selection* → aggregation / TopN / LIMIT / PROJECTION over one region's
+padded columns, packed into one int64 buffer (and a float64 one when a lane
+is floating) whose row 0 is the meta row ``[count, ngroups]``. PyTorch runs
+eagerly, so "compiling" parses the DAG and fixes every route; the program
+cache is keyed exactly as the reference's (``get_kernel``).
 
 Routes ported, chosen by the reference's rule and constants:
 
@@ -17,12 +16,19 @@ Routes ported, chosen by the reference's rule and constants:
   int8 dot (``mxu_groupby``) for B ≤ 64, and K1 (``grouped_sums``, the
   hand-written CUDA kernel) for 64 < B ≤ 512 with n ≤ 8,000,000 rows,
   n % 1024 == 0.
+- Aggregation by lex sort for everything else (keys without a small
+  dictionary domain, more buckets, the bit aggregates): a stable multi-lane
+  sort, segment boundaries, COUNT/SUM by cumulative-sum deltas, MIN/MAX by
+  order statistics, BIT_AND/OR/XOR by a segmented log-doubling scan.
 - TopN: the single-key top-k with the rank-code key that packs the row
   position into the value (exact ties), else a stable lexicographic sort.
+  LIMIT: the first live rows by a top-k on the negated position.
+- Several blocks (``nb > 1``): the blocks concatenate into one program with
+  a per-block live mask, or, for an aggregation the int8 dot provably
+  carries, accumulate one limb matrix per block (``_blockwise_dot``).
 
-Everything else — lex-sort grouping, complete-mode finalize, ROLLUP,
-LIMIT, PROJECTION, WINDOW, multi-block programs, the delta operand —
-raises ``UnsupportedForDevice`` when the program is built.
+Complete-mode finalize, ROLLUP, WINDOW and the delta operand raise
+``UnsupportedForDevice`` when the program is built.
 """
 
 from __future__ import annotations
@@ -39,7 +45,8 @@ from tidb_tpu_torch.copr.binder import UnsupportedForDevice
 from tidb_tpu_torch.expression.expr import AggDesc, ColumnRef, EvalBatch, eval_expr, expr_from_pb
 from tidb_tpu_torch.ops.grouped_sums import _BLK, MAX_ROWS, grouped_sums
 from tidb_tpu_torch.ops.mxu_groupby import MAX_B as _DOT_MAX_B
-from tidb_tpu_torch.ops.mxu_groupby import grouped_sums_dot
+from tidb_tpu_torch.ops.mxu_groupby import dot_acc, dot_plan, dot_recombine, grouped_sums_dot
+from tidb_tpu_torch.ops.window_core import _seg_running, seg_value_sorted
 from tidb_tpu_torch.types import TypeKind
 
 MAX_RANGES = 8
@@ -50,6 +57,9 @@ _I32_MIN = np.iinfo(np.int32).min
 # int8 dot (≤ MAX_B) or K1 (≤ _DENSE_MXU_MAX) takes over
 _DENSE_EQMASK_MAX = 32
 _DENSE_MXU_MAX = 512
+# below this many rows a bucket space of B ≤ 32 stays on the equality-mask
+# reduce: the dense product routes amortize their fixed cost above it
+_MXU_MIN_ROWS = 1 << 21
 # TopN key kinds whose physical values never equal the int64 sentinel
 _TOPK_KINDS = (
     TypeKind.DECIMAL,
@@ -105,41 +115,59 @@ def _pair_bound(a, b):
     return None  # int32 dtype envelope inside grouped_sums_dot
 
 
-def agg_route(ex, group_exprs, aggs, scan, n: int, agg_cap: int):
-    """("eqmask" | "dot" | "k1", doms) for one aggregation executor — the
-    reference's rule (tidb_tpu/ops/dag_kernel.py:775-823) with its
-    constants. Shapes the reference sends to the lex-sort path raise."""
-    has_bit = any(pk in ("bit_and", "bit_or", "bit_xor") for a in aggs for pk in a.partial_kinds)
-    if has_bit:
-        raise UnsupportedForDevice("bit aggregates need the lex-sort path (not ported)")
-    if not group_exprs:
-        return "eqmask", []
+def _key_doms(group_exprs, scan):
+    """Per-key dictionary domains when every key is a scan column with one,
+    else None."""
     doms = []
     for g in group_exprs:
         if isinstance(g, ColumnRef) and g.index < len(scan.domains) and scan.domains[g.index] > 0:
             doms.append(scan.domains[g.index])
         else:
-            raise UnsupportedForDevice("group key without a dictionary domain: lex-sort path (not ported)")
+            return None
+    return doms
+
+
+def _has_bit(aggs) -> bool:
+    return any(pk in ("bit_and", "bit_or", "bit_xor") for a in aggs for pk in a.partial_kinds)
+
+
+def agg_route(ex, group_exprs, aggs, scan, n: int, agg_cap: int):
+    """("eqmask" | "dot" | "k1" | "lex", doms) for one aggregation executor
+    over ``n`` rows — the reference's rule (tidb_tpu/ops/dag_kernel.py:
+    775-823) with its constants. Bit aggregates reduce with non-additive
+    operators, which only the lex-sort path's segmented scan handles."""
+    if _has_bit(aggs):
+        return "lex", []
+    if not group_exprs:
+        return "eqmask", []
+    doms = _key_doms(group_exprs, scan)
+    if doms is None:
+        return "lex", []
     bt = _dense_b_total(doms)
     sums_ok = _mxu_aggs_ok(aggs, getattr(ex, "arg_bounds", ()))
     dot_fits = bt <= min(agg_cap, _DOT_MAX_B) and sums_ok
     mxu_fits = bt <= min(agg_cap, _DENSE_MXU_MAX) and sums_ok and n <= MAX_ROWS and n % _BLK == 0
-    if (dot_fits or mxu_fits) and (bt > _DENSE_EQMASK_MAX or n >= (1 << 21)):
+    if (dot_fits or mxu_fits) and (bt > _DENSE_EQMASK_MAX or n >= _MXU_MIN_ROWS):
         return ("dot" if dot_fits else "k1"), doms
     if bt <= min(agg_cap, _DENSE_EQMASK_MAX):
         return "eqmask", doms
-    raise UnsupportedForDevice(f"{bt}-bucket group-by needs the lex-sort path (not ported)")
+    return "lex", []
 
 
 @dataclass
 class CompiledKernel:
-    fn: Callable  # (handles, cols, ranges, nvalid) -> packed buffer(s)
+    # (handles, cols, ranges, nvalid) -> packed buffer(s); with nb > 1,
+    # handles and every column are per-block sequences and nvalid holds one
+    # live-row count per block
+    fn: Callable
     kind: str  # "rows" | "agg"
     out_n: int  # static output row capacity
     agg_cap: int
     # written by each run's packing step; every run of one program writes
     # the same values
     _lanes: dict
+    routes: tuple = ()  # the route of each aggregation executor, in order
+    blockwise: bool = False  # multi-block int8 dot: one limb matrix per block
 
     @property
     def lane_loc(self):  # per-output ("i"|"f", row index) into packed buffer(s)
@@ -225,15 +253,13 @@ def _hier_top_k(vals: torch.Tensor, K: int):
 
 
 def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_scan: bool = False, delta_cap: int = 0) -> CompiledKernel:
-    if nb != 1:
-        raise UnsupportedForDevice("multi-block programs are not ported")
     if delta_cap:
         raise UnsupportedForDevice("the delta operand is not ported")
     executors = dag.executors
     scan = executors[0]
     if scan.tp != dagpb.TABLE_SCAN:
         raise UnsupportedForDevice(f"{scan.tp} scans are not ported")
-    n = n_pad
+    n = n_pad * nb  # rows in one program: every block of a fused region
     # parse every executor and fix every route now: the program raises
     # before it touches the device, never halfway through a run
     parsed: list = []
@@ -247,18 +273,21 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 raise UnsupportedForDevice("ROLLUP is not ported")
             group_exprs = [expr_from_pb(g) for g in ex.group_by]
             aggs = [AggDesc.from_pb(a) for a in ex.aggs]
-            for a in aggs:
-                if any(pk not in ("count", "sum", "sumsq", "min", "max", "first_row") for pk in a.partial_kinds):
-                    raise UnsupportedForDevice(f"aggregate {a.name} is not ported")
+            if any("group_concat" in a.partial_kinds for a in aggs):
+                raise UnsupportedForDevice("group_concat has no partial state to push down")
             route, doms = agg_route(ex, group_exprs, aggs, scan, n, agg_cap)
             parsed.append((group_exprs, aggs, route, doms))
         elif ex.tp == dagpb.TOPN:
             parsed.append(([(expr_from_pb(p), d) for p, d in ex.order_by], ex.limit))
+        elif ex.tp == dagpb.LIMIT:
+            parsed.append(ex.limit)
+        elif ex.tp == dagpb.PROJECTION:
+            parsed.append([expr_from_pb(e) for e in ex.exprs])
         else:
             raise UnsupportedForDevice(f"executor {ex.tp} is not ported")
 
     agg_is_last = bool(executors[1:]) and executors[-1].tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG)
-    topn_like = [ex for ex in executors[1:] if ex.tp == dagpb.TOPN]
+    topn_like = [ex for ex in executors[1:] if ex.tp in (dagpb.TOPN, dagpb.LIMIT)]
     out_n = n
     if agg_is_last:
         out_n = agg_cap
@@ -266,13 +295,62 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         # tight power-of-two (floor 32): small K keeps top-k candidate sets tiny
         lim = max(ex.limit for ex in topn_like)
         out_n = min(n, max(32, 1 << max(lim - 1, 0).bit_length()))
+    # a multi-block [scan, selection*, agg-last] DAG whose aggregation rides
+    # the int8 dot accumulates one limb matrix per block instead of
+    # concatenating the blocks (the reference's _static_dot_route, :522)
+    blockwise = (
+        nb > 1
+        and agg_is_last
+        and all(ex.tp == dagpb.SELECTION for ex in executors[1:-1])
+        and parsed[-1][2] == "dot"
+    )
+    routes = tuple(p[2] for ex, p in zip(executors[1:], parsed) if ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG))
 
     lanes_holder: dict = {}
 
-    def _mxu_seg(gvals, doms, mask, B, dev):
+    def _range_mask(handles, ranges, live):
+        # ranges: (MAX_RANGES, 2) host array; empty slots have lo >= hi
+        mask = torch.zeros_like(live)
+        for lo, hi in ranges:
+            if lo < hi:
+                mask = mask | ((handles >= int(lo)) & (handles < int(hi)))
+        return mask & live  # padding rows are never live
+
+    def _batches(cols_nw, nn):
+        # lanes may be stored narrow (int32 dict codes / bounded values). The
+        # default batch upcasts integer lanes to int64; binder-proven narrow
+        # expressions evaluate on the storage-dtype view instead
+        cols = tuple(
+            (d.to(torch.int64) if not d.is_floating_point() and d.dtype != torch.bool else d, v)
+            for d, v in cols_nw
+        )
+        return EvalBatch(list(cols), [None] * len(cols), nn), EvalBatch(list(cols_nw), [None] * len(cols_nw), nn)
+
+    def _select(ex, conds, batch, batch_nw, mask, nn, dev):
+        nok = getattr(ex, "narrow_ok", [])
+        for ci_, cond in enumerate(conds):
+            src = batch_nw if ci_ < len(nok) and nok[ci_] else batch
+            d, v, _ = eval_expr(cond, src, torch)
+            keep = _bcast(d, nn, dev) != 0
+            if v is not None:
+                keep = keep & _vmask(v, nn, dev)
+            mask = mask & keep
+        return mask
+
+    def _group_vals(ex, group_exprs, batch, batch_nw, nn, dev):
+        gnar = getattr(ex, "group_narrow", [])
+        gvals = []
+        for gi_, g in enumerate(group_exprs):
+            src = batch_nw if gi_ < len(gnar) and gnar[gi_] else batch
+            d, v, _ = eval_expr(g, src, torch)
+            d, v = _bcast(d, nn, dev), _vmask(v, nn, dev)
+            gvals.append((torch.where(v, d, 0), v))
+        return gvals
+
+    def _mxu_seg(gvals, doms, mask, B, nn, dev):
         # int32 bucket arithmetic when every key lane is narrow
         seg_dtype = torch.int32 if gvals and all(d.dtype == torch.int32 for d, _ in gvals) else torch.int64
-        seg = torch.zeros(n, dtype=seg_dtype, device=dev)
+        seg = torch.zeros(nn, dtype=seg_dtype, device=dev)
         stride = 1
         strides = []
         for (d, v), dom in zip(reversed(gvals), reversed(doms)):
@@ -283,11 +361,11 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         strides = list(reversed(strides))  # align with gvals order
         return torch.where(mask, seg, B), strides
 
-    def _mxu_pairs(aggs, arg_bounds, arg_narrow, batch, batch_nw, mask, dev):
+    def _mxu_pairs(aggs, arg_bounds, arg_narrow, batch, batch_nw, mask, nn, dev):
         pairs = []
         pair_bounds = []
         lane_of_agg = []
-        zero64 = torch.zeros(n, dtype=torch.int64, device=dev)
+        zero64 = torch.zeros(nn, dtype=torch.int64, device=dev)
         arg_memo: dict = {}  # SUM(x) + AVG(x) share one lane set
         for ai, a in enumerate(aggs):
             count_only = all(pk == "count" for pk in a.partial_kinds)
@@ -297,13 +375,13 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 got = arg_memo.get(memo_key)
                 if got is None:
                     d0, v0, _ = eval_expr(a.arg, batch_nw if nw else batch, torch)
-                    d0 = _bcast(d0, n, dev)
+                    d0 = _bcast(d0, nn, dev)
                     # proven-narrow args keep their int32 lanes
                     if not d0.is_floating_point() and d0.dtype != torch.int32:
                         d0 = d0.to(torch.int64)
                     # never-null args share the one mask object: the dot
                     # dedups weight columns by identity
-                    w0 = mask if v0 is None else mask & _vmask(v0, n, dev)
+                    w0 = mask if v0 is None else mask & _vmask(v0, nn, dev)
                     got = (d0, w0)
                     arg_memo[memo_key] = got
                 d, w = got
@@ -317,7 +395,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 (0, 0) if count_only else _pair_bound(a, arg_bounds[ai] if ai < len(arg_bounds) else None)
             )
         occ_lane = len(pairs)
-        pairs.append((torch.zeros(n, dtype=torch.int64, device=dev), mask))  # occupancy
+        pairs.append((torch.zeros(nn, dtype=torch.int64, device=dev), mask))  # occupancy
         pair_bounds.append((0, 0))
         return pairs, pair_bounds, lane_of_agg, occ_lane
 
@@ -345,7 +423,47 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         out_cap = min(B, agg_cap)
         return [o[order][:out_cap] for o in out_data], [o[order][:out_cap] for o in out_valid], ngroups
 
-    def _eqmask_agg(group_exprs, aggs, doms, gvals, batch, mask, dev):
+    def _collect_aggs(aggs, eval_arg, reducers, first_pos, first_pos_c, ones_n, dev):
+        # the per-partial-kind switch both reduction paths share;
+        # reducers(d, v) returns the path's reduce callables
+        out_data, out_valid = [], []
+        for a in aggs:
+            d, v = eval_arg(a)
+            red = reducers(d, v)
+            cnt = red["count"]()
+            for pk in a.partial_kinds:
+                if pk == "count":
+                    out_data.append(cnt)
+                    out_valid.append(torch.ones(ones_n, dtype=torch.bool, device=dev))
+                elif pk == "sum":
+                    isf = a.arg is not None and a.arg.ftype.kind == TypeKind.FLOAT
+                    out_data.append(red["sumf"]() if isf else red["sum"]())
+                    out_valid.append(cnt > 0)
+                elif pk == "sumsq":
+                    out_data.append(red["sumsq"]())
+                    out_valid.append(cnt > 0)
+                elif pk in ("min", "max"):
+                    if d.is_floating_point():
+                        sentinel = float("inf") if pk == "min" else float("-inf")
+                    else:
+                        sentinel = _I64_MAX if pk == "min" else _I64_MIN
+                    out_data.append(red[pk](sentinel))
+                    out_valid.append(cnt > 0)
+                elif pk in ("bit_and", "bit_or", "bit_xor"):
+                    out_data.append(red[pk]())
+                    out_valid.append(torch.ones(ones_n, dtype=torch.bool, device=dev))
+                else:  # first_row
+                    out_data.append(d[first_pos_c])
+                    out_valid.append(v[first_pos_c] & (first_pos < n))
+        return out_data, out_valid
+
+    def _eval_arg(a, batch, dev):
+        if a.arg is not None:
+            d, v, _ = eval_expr(a.arg, batch, torch)
+            return _bcast(d, n, dev), _vmask(v, n, dev)
+        return torch.ones(n, dtype=torch.int64, device=dev), torch.ones(n, dtype=torch.bool, device=dev)
+
+    def _eqmask_agg(aggs, doms, gvals, batch, mask, dev):
         B = _dense_b_total(doms)
         seg_dtype = torch.int32 if gvals and all(d.dtype == torch.int32 for d, _ in gvals) else torch.int64
         seg = torch.zeros(n, dtype=seg_dtype, device=dev)
@@ -360,40 +478,21 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         live = livem.sum(dim=1) > 0
         first_pos = torch.where(livem, pos[None, :], n).amin(dim=1)
         first_pos_c = first_pos.clamp(0, n - 1).to(torch.int64)
-        out_data, out_valid = [], []
-        for a in aggs:
-            if a.arg is not None:
-                d, v, _ = eval_expr(a.arg, batch, torch)
-                d, v = _bcast(d, n, dev), _vmask(v, n, dev)
-            else:
-                d = torch.ones(n, dtype=torch.int64, device=dev)
-                v = torch.ones(n, dtype=torch.bool, device=dev)
+
+        def reducers(d, v):
             wm = livem & v[None, :]
-            cnt = wm.sum(dim=1)
-            for pk in a.partial_kinds:
-                if pk == "count":
-                    out_data.append(cnt)
-                    out_valid.append(torch.ones(B, dtype=torch.bool, device=dev))
-                elif pk == "sum":
-                    if a.arg is not None and a.arg.ftype.kind == TypeKind.FLOAT:
-                        out_data.append(torch.where(wm, d[None, :] * 1.0, 0.0).sum(dim=1))
-                    else:
-                        out_data.append(torch.where(wm, d[None, :], 0).sum(dim=1))
-                    out_valid.append(cnt > 0)
-                elif pk == "sumsq":
-                    out_data.append(torch.where(wm, (d[None, :] * 1.0) ** 2, 0.0).sum(dim=1))
-                    out_valid.append(cnt > 0)
-                elif pk in ("min", "max"):
-                    if d.is_floating_point():
-                        sentinel = float("inf") if pk == "min" else float("-inf")
-                    else:
-                        sentinel = _I64_MAX if pk == "min" else _I64_MIN
-                    masked = torch.where(wm, d[None, :], sentinel)
-                    out_data.append(masked.amin(dim=1) if pk == "min" else masked.amax(dim=1))
-                    out_valid.append(cnt > 0)
-                else:  # first_row
-                    out_data.append(d[first_pos_c])
-                    out_valid.append(v[first_pos_c] & (first_pos < n))
+            return {
+                "count": lambda: wm.sum(dim=1),
+                "sum": lambda: torch.where(wm, d[None, :], 0).sum(dim=1),
+                "sumf": lambda: torch.where(wm, d[None, :].to(torch.float64), 0.0).sum(dim=1),
+                "sumsq": lambda: torch.where(wm, d[None, :].to(torch.float64) ** 2, 0.0).sum(dim=1),
+                "min": lambda s: torch.where(wm, d[None, :], s).amin(dim=1),
+                "max": lambda s: torch.where(wm, d[None, :], s).amax(dim=1),
+            }
+
+        out_data, out_valid = _collect_aggs(
+            aggs, lambda a: _eval_arg(a, batch, dev), reducers, first_pos, first_pos_c, B, dev
+        )
         for gd, gv in gvals:
             out_data.append(gd[first_pos_c])
             out_valid.append(gv[first_pos_c] & (first_pos < n))
@@ -405,6 +504,102 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             ngroups = torch.ones((), dtype=torch.int64, device=dev)
         out_cap = min(B, agg_cap)
         return [o[order][:out_cap] for o in out_data], [o[order][:out_cap] for o in out_valid], ngroups
+
+    def _lex_agg(aggs, gvals, batch, mask, dev):
+        # stable sort by (live first, then per key: NULL last, value); each
+        # group becomes one contiguous run, dead rows trail the last group
+        lanes = [~mask]
+        for d, v in gvals:
+            lanes.append(~v)
+            lanes.append(d)
+        perm = _lex_perm(lanes)
+        sm = mask[perm]
+        diff = torch.zeros(n, dtype=torch.bool, device=dev)
+        for d, v in gvals:
+            ds, vs = d[perm], v[perm]
+            diff[1:] |= (ds[1:] != ds[:-1]) | (vs[1:] != vs[:-1])
+        diff[0] = True
+        boundary = sm & diff
+        seg = (torch.cumsum(boundary, 0) - 1).clamp(min=0)
+        ngroups = boundary.sum()
+        ks = torch.arange(agg_cap, device=dev)
+        # seg is nondecreasing → group k spans [searchsorted(seg, k, left),
+        # searchsorted(seg, k, right))
+        starts = torch.searchsorted(seg, ks)
+        starts_c = starts.clamp(0, n - 1)
+        ends_c = (torch.searchsorted(seg, ks, right=True) - 1).clamp(0, n - 1)
+        slot_live = ks < ngroups
+        first_pos = torch.where(slot_live, starts, n)
+        first_pos_c = starts_c
+
+        def csum_delta(x):
+            cs = torch.cumsum(x, 0)
+            lo = torch.where(starts_c > 0, cs[(starts_c - 1).clamp(min=0)], 0)
+            return torch.where(slot_live, cs[ends_c] - lo, 0)
+
+        # each row's group start, for the bit aggregates' segmented scan;
+        # eager PyTorch would compute it even when no lane reads it (XLA
+        # drops the unused value in the reference)
+        seg_ps = None
+        if _has_bit(aggs):
+            seg_ps = torch.cummax(
+                torch.where(boundary, torch.arange(n, dtype=torch.int32, device=dev), -1), dim=0
+            ).values
+
+        def seg_scan_red(x, op):
+            return _seg_running(x, seg_ps, op, n)[ends_c]
+
+        def seg_extreme(w, d, which):
+            # grouped extreme by order statistics: invalid rows sink under a
+            # +max sentinel of the lane's own dtype, so min = the group's
+            # start slot, max = start + valid_count - 1
+            top = float("inf") if d.is_floating_point() else torch.iinfo(d.dtype).max
+            lane2 = seg_value_sorted(torch.where(w, d, top), seg)
+            if which == "min":
+                return torch.where(slot_live, lane2[starts_c], 0)
+            cw = csum_delta(w.to(torch.int64))
+            last = (starts + cw - 1).clamp(0, n - 1)
+            return torch.where(slot_live, lane2[last], 0)
+
+        def eval_arg(a):
+            if a.arg is not None:
+                d, v = _eval_arg(a, batch, dev)
+                return d[perm], v[perm]
+            return _eval_arg(a, batch, dev)
+
+        def reducers(d, v):
+            w = sm & v
+            return {
+                "count": lambda: csum_delta(w.to(torch.int64)),
+                "sum": lambda: csum_delta(torch.where(w, d, 0)),
+                "sumf": lambda: csum_delta(torch.where(w, d.to(torch.float64), 0.0)),
+                "sumsq": lambda: csum_delta(torch.where(w, d.to(torch.float64) ** 2, 0.0)),
+                "min": lambda s: seg_extreme(w, d, "min"),
+                "max": lambda s: seg_extreme(w, d, "max"),
+                "bit_and": lambda: seg_scan_red(torch.where(w, d, -1), torch.bitwise_and),
+                "bit_or": lambda: seg_scan_red(torch.where(w, d, 0), torch.bitwise_or),
+                "bit_xor": lambda: seg_scan_red(torch.where(w, d, 0), torch.bitwise_xor),
+            }
+
+        out_data, out_valid = _collect_aggs(aggs, eval_arg, reducers, first_pos, first_pos_c, agg_cap, dev)
+        for gd, gv in gvals:
+            at = perm[first_pos_c]
+            out_data.append(gd[at])
+            out_valid.append(gv[at] & (first_pos < n))
+        return out_data, out_valid, ngroups
+
+    def _dense_agg(aggs, route, doms, gvals, ex, batch, batch_nw, mask, dev):
+        B = _dense_b_total(doms)
+        seg, strides = _mxu_seg(gvals, doms, mask, B, n, dev)
+        pairs, pair_bounds, lane_of_agg, occ_lane = _mxu_pairs(
+            aggs, getattr(ex, "arg_bounds", ()), getattr(ex, "arg_narrow", ()), batch, batch_nw, mask, n, dev
+        )
+        seg32 = seg.to(torch.int32)
+        if route == "dot":
+            counts, sums = grouped_sums_dot(seg32, pairs, B, n, pair_bounds)
+        else:
+            counts, sums = grouped_sums(seg32, pairs, B, n, pair_bounds, device=dev)
+        return _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
 
     def _topn(ex, order, limit, batch, mask, dev):
         cur_n = batch.n
@@ -463,6 +658,18 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                     lanes.append(v)  # NULLs first
                     lanes.append(torch.where(v, d, 0))
             head = _lex_perm(lanes)[: min(out_n, cur_n)]
+        return _take(batch, head, mask, limit, dev)
+
+    def _limit(limit, batch, mask, dev):
+        # the first live rows in position order, O(n): the key is the unique
+        # negated position, so top-k ties cannot arise among live rows
+        cur_n = batch.n
+        pos = torch.arange(cur_n, dtype=torch.int32, device=dev)
+        _, head = _hier_top_k(torch.where(mask, -pos, _I32_MIN), min(out_n, cur_n))
+        return _take(batch, head, mask, limit, dev)
+
+    def _take(batch, head, mask, limit, dev):
+        cur_n = batch.n
         head_n = int(head.shape[0])
         batch = EvalBatch(
             [(_bcast(d2, cur_n, dev)[head], _vmask(v2, cur_n, dev)[head]) for d2, v2 in batch.cols],
@@ -471,6 +678,14 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         )
         count = torch.clamp(mask.sum(), max=limit)
         return batch, torch.arange(head_n, device=dev) < count, count
+
+    def _project(exprs, batch, dev):
+        cur_n = batch.n
+        cols = []
+        for e in exprs:
+            d, v, _ = eval_expr(e, batch, torch)
+            cols.append((_bcast(d, cur_n, dev), _vmask(v, cur_n, dev)))
+        return EvalBatch(cols, [None] * len(cols), cur_n)
 
     def _pack(outs, count, og, dev):
         loc: list = []
@@ -502,80 +717,95 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             return torch.stack(ilanes), torch.stack(flanes)
         return torch.stack(ilanes)
 
-    def kernel(handles, cols, ranges, nvalid: int):
-        dev = handles.device
-        live = torch.arange(n, device=dev) < nvalid
-        handles = handles.to(torch.int64)
-        # lanes may be stored narrow (int32 dict codes / bounded values). The
-        # default batch upcasts integer lanes to int64; binder-proven narrow
-        # expressions evaluate on the storage-dtype view instead
-        cols_nw = cols
-        cols = tuple(
-            (d.to(torch.int64) if not d.is_floating_point() and d.dtype != torch.bool else d, v)
-            for d, v in cols_nw
-        )
-        if full_scan:
-            mask = live  # the caller proved range coverage
+    def _pack_groups(out_data, out_valid, ngroups, dev):
+        out_len = int(out_data[0].shape[0])
+        gvalid_slot = torch.arange(out_len, device=dev) < ngroups
+        out_valid = [ov & gvalid_slot for ov in out_valid]
+        offsets = dag.output_offsets or list(range(len(out_data)))
+        return _pack([(out_data[i], out_valid[i]) for i in offsets], ngroups, ngroups, dev)
+
+    def _blockwise_dot(handles_blocks, cols_blocks, ranges, nvalid):
+        # one (B, C) limb accumulator carried across the blocks: no
+        # concatenation of the region's columns
+        group_exprs, aggs, _route, doms = parsed[-1]
+        agg_ex = executors[-1]
+        B = _dense_b_total(doms)
+        dev = handles_blocks[0].device
+        acc = plan = strides = lane_of_agg = occ_lane = n_pairs = None
+        for b in range(nb):
+            live = torch.arange(n_pad, dtype=torch.int32, device=dev) < int(nvalid[b])
+            mask_b = live if full_scan else _range_mask(handles_blocks[b].to(torch.int64), ranges, live)
+            batch_b, batch_nw_b = _batches(tuple(c[b] for c in cols_blocks), n_pad)
+            for ex, pre in zip(executors[1:-1], parsed[:-1]):
+                mask_b = _select(ex, pre, batch_b, batch_nw_b, mask_b, n_pad, dev)
+            gvals_b = _group_vals(agg_ex, group_exprs, batch_b, batch_nw_b, n_pad, dev)
+            seg, strides_b = _mxu_seg(gvals_b, doms, mask_b, B, n_pad, dev)
+            pairs, pair_bounds, lane_of_agg, occ_lane = _mxu_pairs(
+                aggs, getattr(agg_ex, "arg_bounds", ()), getattr(agg_ex, "arg_narrow", ()),
+                batch_b, batch_nw_b, mask_b, n_pad, dev,
+            )
+            if plan is None:
+                # one lane plan serves every block: identical code builds each
+                # block's pair list, so the dedup pattern cannot differ
+                plan = dot_plan(pairs, pair_bounds)
+                strides = strides_b
+                n_pairs = len(pairs)
+            acc = dot_acc(seg.to(torch.int32), pairs, B, n_pad, plan, acc)
+        counts, sums = dot_recombine(acc, plan, n_pairs, B)
+        out_data, out_valid, ngroups = _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
+        return _pack_groups(out_data, out_valid, ngroups, dev)
+
+    def kernel(handles, cols, ranges, nvalid):
+        if nb > 1:
+            if blockwise:
+                return _blockwise_dot(handles, cols, ranges, nvalid)
+            # the fused program: blocks concatenate, each block's padding
+            # stays at its tail and is masked by the block's own count
+            dev = handles[0].device
+            handles = torch.cat(handles)
+            cols = tuple((torch.cat([p[0] for p in c]), torch.cat([p[1] for p in c])) for c in cols)
+            iota = torch.arange(n, dtype=torch.int32, device=dev)
+            nv = torch.as_tensor(nvalid, dtype=torch.int32).to(dev)
+            live = (iota % n_pad) < nv[iota // n_pad]
         else:
-            # ranges: (MAX_RANGES, 2) host array; empty slots have lo >= hi
-            mask = torch.zeros(n, dtype=torch.bool, device=dev)
-            for lo, hi in ranges:
-                if lo < hi:
-                    mask = mask | ((handles >= int(lo)) & (handles < int(hi)))
-            mask = mask & live  # padding rows are never live
-        batch = EvalBatch(list(cols), [None] * len(cols), n)
-        batch_nw = EvalBatch(list(cols_nw), [None] * len(cols_nw), n)
+            dev = handles.device
+            live = torch.arange(n, device=dev) < nvalid
+        handles = handles.to(torch.int64)
+        mask = live if full_scan else _range_mask(handles, ranges, live)  # full_scan: coverage proven
+        batch, batch_nw = _batches(cols, n)
         kind = "rows"
         count = None
         ngroups = None
 
         for ex, pre in zip(executors[1:], parsed):
             if ex.tp == dagpb.SELECTION:
-                nok = getattr(ex, "narrow_ok", [])
-                for ci_, cond in enumerate(pre):
-                    src = batch_nw if ci_ < len(nok) and nok[ci_] else batch
-                    d, v, _ = eval_expr(cond, src, torch)
-                    keep = _bcast(d, n, dev) != 0
-                    if v is not None:
-                        keep = keep & _vmask(v, n, dev)
-                    mask = mask & keep
-            elif ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG):
+                mask = _select(ex, pre, batch, batch_nw, mask, n, dev)
+                continue
+            if ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG):
                 group_exprs, aggs, route, doms = pre
-                gnar = getattr(ex, "group_narrow", [])
-                gvals = []
-                for gi_, g in enumerate(group_exprs):
-                    src = batch_nw if gi_ < len(gnar) and gnar[gi_] else batch
-                    d, v, _ = eval_expr(g, src, torch)
-                    d, v = _bcast(d, n, dev), _vmask(v, n, dev)
-                    gvals.append((torch.where(v, d, 0), v))
+                gvals = _group_vals(ex, group_exprs, batch, batch_nw, n, dev)
                 if route == "eqmask":
-                    out_data, out_valid, ngroups = _eqmask_agg(group_exprs, aggs, doms, gvals, batch, mask, dev)
+                    out_data, out_valid, ngroups = _eqmask_agg(aggs, doms, gvals, batch, mask, dev)
+                elif route == "lex":
+                    out_data, out_valid, ngroups = _lex_agg(aggs, gvals, batch, mask, dev)
                 else:
-                    B = _dense_b_total(doms)
-                    seg, strides = _mxu_seg(gvals, doms, mask, B, dev)
-                    pairs, pair_bounds, lane_of_agg, occ_lane = _mxu_pairs(
-                        aggs, getattr(ex, "arg_bounds", ()), getattr(ex, "arg_narrow", ()), batch, batch_nw, mask, dev
-                    )
-                    seg32 = seg.to(torch.int32)
-                    if route == "dot":
-                        counts, sums = grouped_sums_dot(seg32, pairs, B, n, pair_bounds)
-                    else:
-                        counts, sums = grouped_sums(seg32, pairs, B, n, pair_bounds, device=dev)
-                    out_data, out_valid, ngroups = _mxu_outputs(
-                        counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev
-                    )
+                    out_data, out_valid, ngroups = _dense_agg(aggs, route, doms, gvals, ex, batch, batch_nw, mask, dev)
                 out_len = int(out_data[0].shape[0])
                 gvalid_slot = torch.arange(out_len, device=dev) < ngroups
                 out_valid = [ov & gvalid_slot for ov in out_valid]
                 batch = EvalBatch(list(zip(out_data, out_valid)), [None] * len(out_data), out_len)
-                batch_nw = batch  # lanes rebuilt: the storage-dtype view is stale
                 mask = gvalid_slot
                 kind = "agg"
-            else:  # TOPN
+            elif ex.tp == dagpb.TOPN:
                 order, limit = pre
                 batch, mask, count = _topn(ex, order, limit, batch, mask, dev)
-                batch_nw = batch
                 kind = "rows"
+            elif ex.tp == dagpb.LIMIT:
+                batch, mask, count = _limit(pre, batch, mask, dev)
+                kind = "rows"
+            else:  # PROJECTION
+                batch = _project(pre, batch, dev)
+            batch_nw = batch  # lanes rebuilt: the storage-dtype view is stale
 
         # ngroups travels out so the caller detects agg-cap overflow
         og = ngroups if ngroups is not None else -1
@@ -592,4 +822,4 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         outs = [(_bcast(d, cur_n, dev), _vmask(v, cur_n, dev)) for d, v in batch.cols]
         return _pack([outs[i] for i in offsets], count, og, dev)
 
-    return CompiledKernel(kernel, "agg" if agg_is_last else "rows", out_n, agg_cap, lanes_holder)
+    return CompiledKernel(kernel, "agg" if agg_is_last else "rows", out_n, agg_cap, lanes_holder, routes, blockwise)

@@ -129,6 +129,22 @@ class Column:
             return int(v) + (1 << 64)  # undo two's complement wrap
         return int(v)
 
+    @staticmethod
+    def concat(cols: Sequence["Column"]) -> "Column":
+        if not cols:
+            raise ValueError("Column.concat of an empty sequence")
+        first = cols[0]
+        # raw codes concatenate only under one shared dictionary object
+        for c in cols[1:]:
+            if c.dictionary is not first.dictionary:
+                raise ValueError("concat across dictionaries requires re-encode")
+        return Column(
+            np.concatenate([c.data for c in cols]),
+            np.concatenate([c.validity for c in cols]),
+            first.ftype,
+            first.dictionary,
+        )
+
 
 @dataclass
 class Chunk:
@@ -144,6 +160,13 @@ class Chunk:
 
     def rows(self) -> list[tuple]:
         return [self.row(i) for i in range(len(self))]
+
+    @staticmethod
+    def concat(chunks: Sequence["Chunk"]) -> "Chunk":
+        if not chunks:
+            raise ValueError("Chunk.concat of an empty sequence")
+        ncols = len(chunks[0].columns)
+        return Chunk([Column.concat([ch.columns[i] for ch in chunks]) for i in range(ncols)])
 
 
 _MIN_BUCKET = 1024
