@@ -16,7 +16,7 @@
    specification's column domains, from --seed) and runs the eight fixture
    DAGs (COUNT(*), Q6, Q1, the Q10 TopN, the 160-bucket grouped sum, Q18's
    inner GROUP BY l_orderkey, Q15's revenue view and a grouped MIN/MAX/
-   BIT_OR/BIT_XOR) through gpu_engine.execute_dag in two configurations:
+   BIT_OR/BIT_XOR) through gpu_engine.execute_region in two configurations:
    two regions split at the middle handle, one 4,194,304-row device block
    each, and the whole table as one region of two blocks (the reference
    bench's layout), where each DAG's engine path and aggregation route
@@ -32,7 +32,18 @@
    gave it and times kernel, plain version and one ``index_add_`` call over
    the same distinct weight and value columns; on Q1's own grouped-sum
    input it times K1 beside the int8 dot route that Q1 takes.
-5. Prints the ``{"kernels": [...]}`` line, then, last, the
+5. Runs the SQL front over the same lineitem: ``tidb_tpu_torch.open``
+   with the table bulk-loaded and split at the middle handle into two
+   regions, the six statements of ``SQL_QUERIES`` (the reference bench's
+   COUNT(*), Q6, Q1 and Q10, the band query, Q15's revenue view) once
+   cold and ten times warm. Every result must equal the numpy oracle's
+   final rows, every cop task must run on the ``gpu`` engine with none
+   degraded, and K1 must launch during the band query and not during Q1.
+   Prints the load time and the row codec, and per statement the cold
+   wall, the warm SQL wall, the summed cop-task walls and the SQL-layer
+   tax between them.
+6. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+   count over its single drive), then, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -428,6 +439,89 @@ def make_regions(cols: dict, table_id: int, parts: int = 2):
     return out
 
 
+# -- the SQL front ----------------------------------------------------------------
+
+SQL_SCHEMA = """CREATE TABLE lineitem (
+    l_quantity DECIMAL(12,2), l_extendedprice DECIMAL(12,2),
+    l_discount DECIMAL(12,2), l_tax DECIMAL(12,2),
+    l_returnflag VARCHAR(1), l_linestatus VARCHAR(1), l_shipdate DATE,
+    l_shipmode VARCHAR(10), l_shipinstruct VARCHAR(25),
+    l_orderkey BIGINT, l_suppkey BIGINT, l_linenumber BIGINT)"""
+
+# the reference bench's statements (bench.py: COUNT_STAR, Q6, Q1, Q10), the
+# band query the 160-bucket DAG computes, and Q15's revenue view
+SQL_QUERIES = {
+    "count": "SELECT COUNT(*) FROM lineitem",
+    "q6": """SELECT SUM(l_extendedprice * l_discount) FROM lineitem
+  WHERE l_shipdate >= DATE '1994-01-01' AND l_shipdate < DATE '1995-01-01'
+    AND l_discount BETWEEN 0.05 AND 0.07 AND l_quantity < 24""",
+    "q1": """SELECT l_returnflag, l_linestatus,
+    SUM(l_quantity), SUM(l_extendedprice),
+    SUM(l_extendedprice * (1 - l_discount)),
+    SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)),
+    AVG(l_quantity), AVG(l_extendedprice), AVG(l_discount), COUNT(*)
+  FROM lineitem WHERE l_shipdate <= DATE '1998-09-02'
+  GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus""",
+    "q10": """SELECT l_returnflag, l_extendedprice FROM lineitem
+  WHERE l_shipdate >= DATE '1994-01-01'
+  ORDER BY l_extendedprice DESC LIMIT 20""",
+    "band": """SELECT l_shipmode, l_shipinstruct, l_returnflag, COUNT(*),
+    SUM(l_quantity), SUM(l_extendedprice)
+  FROM lineitem GROUP BY l_shipmode, l_shipinstruct, l_returnflag""",
+    "q15rev": """SELECT l_suppkey, SUM(l_extendedprice * (1 - l_discount)) FROM lineitem
+  WHERE l_shipdate >= DATE '1996-01-01' AND l_shipdate < DATE '1996-04-01'
+  GROUP BY l_suppkey""",
+}
+# statements whose row order the SQL fixes (ORDER BY); the others compare
+# as sets of rows
+SQL_ORDERED = ("q1", "q10")
+
+
+def lineitem_sql(db, bulk_load, record_key, cols: dict, parts: int = 2) -> float:
+    """Create the twelve-column lineitem in ``db`` (a handle opened with no
+    automatic region split), bulk-load the generated ``cols`` (string codes
+    decoded to their bytes) and split it into ``parts`` regions at equal
+    handle counts (handles 1..n, ``make_regions``' cuts). ``bulk_load`` and
+    ``record_key`` are the handle's own package's. → load seconds."""
+    db.execute(SQL_SCHEMA)
+    data = [cols[i] for i in range(12)]
+    for slot, values in ((4, RETURNFLAGS), (5, LINESTATUS), (7, SHIPMODES), (8, SHIPINSTRUCTS)):
+        data[slot] = np.array(values)[cols[slot]]
+    t0 = time.perf_counter()
+    bulk_load(db, "lineitem", data)
+    load_s = time.perf_counter() - t0
+    n = len(cols[0])
+    table_id = db.catalog.table("test", "lineitem").id
+    for i in range(1, parts):
+        db.store.split_region(record_key(table_id, n * i // parts + 1))
+    return load_s
+
+
+def sql_oracle(name: str, c: dict) -> list[tuple]:
+    """The statement's final rows from the numpy oracle, merged as the SQL
+    layer merges the partials: AVG is the sum over the count at the
+    argument's scale + 4, rounded half away from zero; Q1 and Q10 in their
+    ORDER BY order, the others sorted by ``repr``."""
+    want = oracle(name, c)
+    if name == "q10":
+        return [(f, p) for p, f, _d in want]
+    if name == "q1":
+        rows = []
+        for key in sorted(want):
+            sq, sp, sdp, sch, cnt, _sq, _c1, _sp, _c2, sd, _c3 = want[key]
+            avg = [_dec((int(x.scaleb(2)) * 10**4 + cnt // 2) // cnt, 6) for x in (sq, sp, sd)]
+            rows.append((*key, sq, sp, sdp, sch, *avg, cnt))
+        return rows
+    if name in ("band", "q15rev"):
+        return sorted(((*k, *v) for k, v in want.items()), key=repr)
+    return [want[()]]
+
+
+def sql_rows(name: str, rows: list) -> list:
+    """A statement's rows in the order ``sql_oracle`` gives them."""
+    return list(rows) if name in SQL_ORDERED else sorted(rows, key=repr)
+
+
 # -- the oracle -----------------------------------------------------------------
 
 
@@ -560,7 +654,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     try:
-        from tidb_tpu_torch import native
+        import tidb_tpu_torch
+        from tidb_tpu_torch.native import cuda as native
     except ImportError as e:
         print(f"chip_smoke: the tidb_tpu_torch package is not beside this script ({e})", file=sys.stderr)
         return 2
@@ -603,7 +698,7 @@ def main() -> int:
     # 3. the main path, in two configurations of one SF1 lineitem: two
     # regions of one device block each, and one region of two blocks (the
     # reference bench's layout: one region per chip)
-    fixtures = os.path.join(os.path.dirname(os.path.abspath(native.__file__)), "bench", "dags")
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(tidb_tpu_torch.__file__)), "bench", "dags")
     dags = {}
     for name in DAG_NAMES:
         with open(os.path.join(fixtures, f"{name}.json")) as f:
@@ -656,7 +751,7 @@ def main() -> int:
         want = oracle(name, cols)
         for label, regions, results in (("two regions", two, results2[name]), ("one region", one, results1[name])):
             for (r, rg), got in zip(regions, results):
-                if not _same_chunk(gpu_engine.execute_dag(r, dag, rg, device="cpu"), got):
+                if not _same_chunk(gpu_engine.execute_region(r, dag, rg, device="cpu"), got):
                     raise AssertionError(f"{name} {label}: card and CPU paths disagree")
             merged[name, label] = merge_partials(name, [c.rows() for c in results], dag)
             if merged[name, label] != want:
@@ -709,6 +804,13 @@ def main() -> int:
         "bound_ms": _bound(*_k1_work(qseg, qpairs, qB, qbounds))[0],
     }
     print(f"Q1 grouped-sum input: n={qn} B={qB} L={len(qpairs)} bounds {qbounds}: {json.dumps(q1)}")
+    print(f"DAG phases: {time.perf_counter() - t_start:.1f} s")
+
+    # 5. the SQL front: the same lineitem through tidb_tpu_torch.open()
+    t0 = time.perf_counter()
+    gs.LAUNCHES = 0  # the SQL path: counts from 0 just before it
+    sql_launches = _sql_phase(cols, gs)
+    print(f"SQL phase: {time.perf_counter() - t0:.1f} s; K1 launches on the SQL path {sql_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -716,7 +818,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tidb_tpu_torch/csrc/grouped_sums.cu",
         "replaces": "tidb_tpu/ops/pallas_groupby.py:64",
-        "launches": main_launches,
+        "launches": sql_launches,
+        "launches_dag_path": main_launches,
         "max_abs_err": max_err,
         **k1,
     }]}))
@@ -739,6 +842,73 @@ ONE_REGION_ROUTES = {
 }
 
 
+def _sql_phase(cols: dict, gs, reps: int = 10) -> int:
+    """The six statements of ``SQL_QUERIES`` through ``tidb_tpu_torch.open``
+    on the card, over ``cols`` split at the middle handle into two regions:
+    once cold (the column cache built from MVCC, the columns copied to the
+    card), then ``reps`` times warm. Every run must return the oracle's
+    rows with every cop task on the ``gpu`` engine and none degraded; K1
+    must launch during the band query and not during Q1. Prints the load
+    time and row codec, then per statement the cold wall, the warm SQL wall
+    (median, min), the summed and longest cop-task walls from ExecDetails
+    and the SQL-layer tax (wall minus summed task walls, and wall minus
+    the longest task: the tasks run concurrently). → K1 launches over the
+    single (cold) drive of the six statements."""
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch import native as row_native
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    load_s = lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+    n_regions = len(db.store.regions())
+    codec = "native C++ (g++)" if row_native.lib() is not None else "pure Python (no compiler found)"
+    print(f"sql: bulk load {load_s:.3f} s, {len(cols[0])} rows, {n_regions} regions; row codec {codec}")
+    s = db.session()
+    want = {name: sql_oracle(name, cols) for name in SQL_QUERIES}
+
+    def run(name):
+        t0 = time.perf_counter()
+        rows = s.query(SQL_QUERIES[name])
+        wall = (time.perf_counter() - t0) * 1e3
+        summ = s.exec_summary
+        if summ is None or summ.engines != {"gpu": n_regions} or summ.degraded:
+            raise AssertionError(f"sql {name}: cop tasks {summ and summ.engines}, degraded {summ and summ.degraded}")
+        if sql_rows(name, rows) != want[name]:
+            raise AssertionError(f"sql {name}: rows disagree with the numpy oracle")
+        return wall, summ.procs, summ.device_ms
+
+    cold, by_query = {}, {}
+    for name in SQL_QUERIES:
+        before = gs.LAUNCHES
+        cold[name] = run(name)
+        by_query[name] = gs.LAUNCHES - before
+    launches = gs.LAUNCHES
+    print(f"sql: K1 launches by statement (cold drive): {by_query}")
+    if by_query["band"] < 1 or by_query["q1"] != 0:
+        raise AssertionError(f"K1 must run for the band query and not for Q1: {by_query}")
+    for name in SQL_QUERIES:
+        runs = [run(name) for _ in range(reps)]
+        walls = [w for w, _p, _d in runs]
+        cop_sum = [sum(p) for _w, p, _d in runs]
+        cop_max = [max(p) for _w, p, _d in runs]
+        tax = [w - c for w, c in zip(walls, cop_sum)]
+        tax_crit = [w - c for w, c in zip(walls, cop_max)]
+        cw, cp, _cd = cold[name]
+        print(f"sql {name}: cold_ms {cw:.3f} (cop tasks {[round(p, 3) for p in cp]}); warm sql_ms median "
+              f"{statistics.median(walls):.3f} min {min(walls):.3f}; cop_task_sum_ms median "
+              f"{statistics.median(cop_sum):.3f}; cop_task_max_ms median {statistics.median(cop_max):.3f}; "
+              f"device_ms median {statistics.median(d for _w, _p, d in runs):.3f}; "
+              f"tax_ms median {statistics.median(tax):.3f} (wall minus summed task walls; the tasks run "
+              f"concurrently); tax_vs_longest_task_ms median {statistics.median(tax_crit):.3f}; "
+              f"rows {len(want[name])}")
+    db.stop_background()
+    torch.cuda.synchronize()
+    return launches
+
+
 def _drive(regions, dags, gs):
     """Every DAG over every region on the card, once. → (Chunks per DAG and
     region, K1 launches per DAG, the engine's stats per DAG of the first
@@ -753,7 +923,7 @@ def _drive(regions, dags, gs):
         results[name] = []
         for ri, (r, rg) in enumerate(regions):
             stats = {}
-            results[name].append(gpu_engine.execute_dag(r, dag, rg, device="cuda", stats=stats))
+            results[name].append(gpu_engine.execute_region(r, dag, rg, device="cuda", stats=stats))
             if ri == 0:
                 info[name] = stats
         torch.cuda.synchronize()
@@ -790,12 +960,12 @@ def _task_timing(gpu_engine, region, dag, ranges, reps: int = 10) -> dict:
         b = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         a.record()
-        gpu_engine.execute_dag(region, dag, ranges, device="cuda")
+        gpu_engine.execute_region(region, dag, ranges, device="cuda")
         b.record()
         b.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
         spans.append(a.elapsed_time(b))
-    kernels = _profile_device(lambda: gpu_engine.execute_dag(region, dag, ranges, device="cuda"))
+    kernels = _profile_device(lambda: gpu_engine.execute_region(region, dag, ranges, device="cuda"))
     wall = statistics.median(walls)
     busy = sum(k[1] for k in kernels) if kernels else None
     return {

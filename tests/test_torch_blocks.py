@@ -106,7 +106,7 @@ def test_blocked_region_matches_reference(setup, monkeypatch, layout, name):
     ref = _reference(db, dag, region, ranges, ts)
     calls = te._spy(monkeypatch)
     stats = {}
-    got = gpu_engine.execute_dag(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats)
+    got = gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats)
     assert got.rows() == ref
     assert stats["path"] == _path(layout, name)
     if name == "band":
@@ -171,7 +171,7 @@ def test_paged_limit_stops_early(setup, monkeypatch):
 
     monkeypatch.setattr(gpu_engine, "_device_inputs", counting)
     dag, _region, ranges, _ts = caps["limit"]
-    got = gpu_engine.execute_dag(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu")
+    got = gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu")
     assert len(got) == 5 and seen == [0]
 
 
@@ -188,7 +188,7 @@ def test_blockwise_dot_with_the_size_gate_lowered(setup, monkeypatch):
     monkeypatch.setattr(dag_kernel, "_MXU_MIN_ROWS", 1024)
     monkeypatch.setattr(dag_kernel, "_COMPILE_CACHE", {})
     stats = {}
-    got = gpu_engine.execute_dag(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats)
+    got = gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats)
     assert stats["path"] == "blockwise dot" and stats["routes"] == ("dot",)
     assert got.rows() == ref
     assert sorted(got.rows(), key=repr) == sorted(host, key=repr)
@@ -202,7 +202,7 @@ def test_device_lru_stays_under_budget(setup, monkeypatch):
     for name in ("band", "q10"):
         dag, region, ranges, ts = caps[name]
         ref = _reference(db, dag, region, ranges, ts)
-        assert gpu_engine.execute_dag(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu").rows() == ref
+        assert gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu").rows() == ref
     assert 0 < small.total <= 200_000 * 2  # at most one over-budget resident entry
 
 
@@ -260,7 +260,7 @@ def test_unported_shapes_raise_on_a_blocked_region(setup, monkeypatch, name, edi
     _blocks(monkeypatch, 1024)
     dag, ranges = _unsupported(caps, name, edit)
     with pytest.raises(UnsupportedForDevice):
-        gpu_engine.execute_dag(reg, dag, ranges, device="cpu")
+        gpu_engine.execute_region(reg, dag, ranges, device="cpu")
 
 
 def test_delta_operand_raises(setup):

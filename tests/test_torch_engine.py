@@ -196,7 +196,7 @@ def test_port_matches_reference_engines(setup, monkeypatch, name):
     ref = tpu_engine.execute_dag(db.store, dag, region, ranges, read_ts).rows()
     host = host_engine.execute_dag(db.store, dag, region, ranges, read_ts).rows()
     calls = _spy(monkeypatch)
-    got = gpu_engine.execute_dag(reg, _port_dag(dag), _port_ranges(ranges), device="cpu").rows()
+    got = gpu_engine.execute_region(reg, _port_dag(dag), _port_ranges(ranges), device="cpu").rows()
     # the host engine emits groups in its own order; the port returns the
     # JAX engine's chunk row for row
     assert sorted(ref, key=repr) == sorted(host, key=repr)
@@ -238,7 +238,7 @@ def test_dot_route_in_engine_matches_host(setup, monkeypatch):
     monkeypatch.setattr(dag_kernel, "agg_route", lambda ex, g, a, scan, n, cap: real_route(ex, g, a, scan, 1 << 21, cap))
     monkeypatch.setattr(dag_kernel, "_COMPILE_CACHE", {})
     calls = _spy(monkeypatch)
-    got = gpu_engine.execute_dag(reg, _port_dag(dag), _port_ranges(ranges), device="cpu").rows()
+    got = gpu_engine.execute_region(reg, _port_dag(dag), _port_ranges(ranges), device="cpu").rows()
     assert calls["dot"] == 1 and calls["k1"] == 0
     assert sorted(got, key=repr) == sorted(host, key=repr)
 
@@ -257,7 +257,7 @@ def test_partial_ranges_mask_rows(setup, name):
     host = host_engine.execute_dag(db.store, dag, region, ref_ranges, read_ts).rows()
     port_ranges = [ttc.handle_range(tid, lo, hi) for lo, hi in spans]
     assert port_ranges == _port_ranges(ref_ranges)
-    got = gpu_engine.execute_dag(reg, _port_dag(dag), port_ranges, device="cpu").rows()
+    got = gpu_engine.execute_region(reg, _port_dag(dag), port_ranges, device="cpu").rows()
     assert sorted(got, key=repr) == sorted(host, key=repr)
 
 
@@ -271,7 +271,7 @@ def test_large_rows_buffer_moves_only_live_rows():
     dag = carry.dag_from_pb(pb)
     k = dag_kernel.get_kernel(dag, 65536, 4096)
     assert k.kind == "rows" and k.out_n == 65536
-    got = gpu_engine.execute_dag(reg, dag, ranges, device="cpu")
+    got = gpu_engine.execute_region(reg, dag, ranges, device="cpu")
     qty, price, disc, ship = (cols[i][:35_000] for i in (0, 1, 2, 6))
     m = (ship >= 8766) & (ship < 9131) & (disc >= 5) & (disc <= 7) & (qty < 2400)
     assert [c.data.tolist() for c in got.columns] == [qty[m].tolist(), price[m].tolist(), disc[m].tolist(), ship[m].tolist()]
@@ -282,7 +282,7 @@ def test_unported_shapes_raise(setup):
     pb = caps["count"][0].to_pb()
     pb["executors"][1]["agg_mode"] = "complete"
     with pytest.raises(UnsupportedForDevice):
-        gpu_engine.execute_dag(reg, carry.dag_from_pb(pb), _port_ranges(caps["count"][2]), device="cpu")
+        gpu_engine.execute_region(reg, carry.dag_from_pb(pb), _port_ranges(caps["count"][2]), device="cpu")
 
 
 def test_default_device_raises_without_a_card(setup, monkeypatch):
@@ -290,7 +290,7 @@ def test_default_device_raises_without_a_card(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     dag, _region, ranges, _ts = caps["count"]
     with pytest.raises(RuntimeError, match="cuda"):
-        gpu_engine.execute_dag(reg, _port_dag(dag), _port_ranges(ranges))
+        gpu_engine.execute_region(reg, _port_dag(dag), _port_ranges(ranges))
 
 
 def _fixture_pbs():

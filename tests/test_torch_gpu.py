@@ -52,7 +52,7 @@ def test_k1_adversarial_lanes_on_card(n_pad, B, hot, extra):
     tensor, L = 20; through the port's build and the stress build (one
     table copy, the fewest blocks: up to 65,536 rows per 32-bit cell)."""
     _need_card()
-    from tidb_tpu_torch import native
+    from tidb_tpu_torch.native import cuda as native
 
     seg, pairs, bounds = chip_smoke._k1_adversarial(n_pad, B, seed=n_pad + B, hot=hot, extra=extra)
     want = gs.grouped_sums_plain(seg, pairs, B, n_pad, bounds)
@@ -95,8 +95,8 @@ def test_engine_on_card_matches_cpu_path(name):
     cols = chip_smoke.lineitem_sf1(seed=3, n=50_000)
     regions = chip_smoke.make_regions(cols, dag.executors[0].table_id)
     for region, ranges in regions:
-        cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu").rows()
-        gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda").rows()
+        cpu = gpu_engine.execute_region(region, dag, ranges, device="cpu").rows()
+        gpu = gpu_engine.execute_region(region, dag, ranges, device="cuda").rows()
         assert gpu == cpu
 
 
@@ -110,8 +110,8 @@ def test_rows_path_on_card_matches_cpu_path():
     dag = carry.dag_from_pb(pb)
     cols = chip_smoke.lineitem_sf1(seed=4, n=140_000)
     for region, ranges in chip_smoke.make_regions(cols, dag.executors[0].table_id):
-        cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu").rows()
-        gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda").rows()
+        cpu = gpu_engine.execute_region(region, dag, ranges, device="cpu").rows()
+        gpu = gpu_engine.execute_region(region, dag, ranges, device="cuda").rows()
         assert gpu == cpu and len(gpu) > 0
 
 
@@ -143,9 +143,9 @@ def test_blocked_region_on_card_matches_cpu_path(monkeypatch, name, block, fuse_
     cols = chip_smoke.lineitem_sf1(seed=5, n=50_000)
     ((region, ranges),) = chip_smoke.make_regions(cols, dag.executors[0].table_id, parts=1)
     cpu_stats, gpu_stats = {}, {}
-    cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu", stats=cpu_stats)
+    cpu = gpu_engine.execute_region(region, dag, ranges, device="cpu", stats=cpu_stats)
     before = gs.LAUNCHES
-    gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda", stats=gpu_stats)
+    gpu = gpu_engine.execute_region(region, dag, ranges, device="cuda", stats=gpu_stats)
     torch.cuda.synchronize()
     assert chip_smoke._same_chunk(gpu, cpu) and gpu.rows() == cpu.rows()
     assert gpu_stats == cpu_stats
@@ -169,7 +169,33 @@ def test_blockwise_dot_on_card_matches_cpu_path(monkeypatch):
     cols = chip_smoke.lineitem_sf1(seed=6, n=50_000)
     ((region, ranges),) = chip_smoke.make_regions(cols, dag.executors[0].table_id, parts=1)
     stats = {}
-    gpu = gpu_engine.execute_dag(region, dag, ranges, device="cuda", stats=stats)
-    cpu = gpu_engine.execute_dag(region, dag, ranges, device="cpu")
+    gpu = gpu_engine.execute_region(region, dag, ranges, device="cuda", stats=stats)
+    cpu = gpu_engine.execute_region(region, dag, ranges, device="cpu")
     assert stats["path"] == "blockwise dot"
     assert gpu.rows() == cpu.rows()
+
+
+@pytest.mark.gpu
+def test_sql_front_on_card_matches_cpu_and_oracle():
+    """The six SQL statements through ``tidb_tpu_torch.open`` on the card
+    and on the CPU, over the same 200,000-row lineitem in two regions:
+    equal rows, equal to the numpy oracle, every cop task on ``gpu``."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    cols = chip_smoke.lineitem_sf1(seed=6, n=200_000)
+    sessions = {}
+    for device in ("cuda", "cpu"):
+        db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+        chip_smoke.lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+        sessions[device] = (db, db.session())
+    for name, sql in chip_smoke.SQL_QUERIES.items():
+        got = {}
+        for device, (_db, s) in sessions.items():
+            got[device] = chip_smoke.sql_rows(name, s.query(sql))
+            assert s.exec_summary.engines == {"gpu": 2} and not s.exec_summary.degraded
+        assert got["cuda"] == got["cpu"] == chip_smoke.sql_oracle(name, cols)
+    for db, _s in sessions.values():
+        db.stop_background()

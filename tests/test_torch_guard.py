@@ -31,6 +31,27 @@ print(json.dumps(bad))
 """
 
 
+# the SQL front end to end: open, load, run Q1 on the port's gpu engine
+_SQL_PROBE = r"""
+import json, sys
+sys.path.insert(0, {repo!r})
+import tidb_tpu_torch
+from tidb_tpu_torch.executor.load import bulk_load
+from tidb_tpu_torch.kv.tablecodec import record_key
+import chip_smoke
+db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cpu")
+cols = chip_smoke.lineitem_sf1(1, n=3000)
+chip_smoke.lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+s = db.session()
+rows = s.query(chip_smoke.SQL_QUERIES["q1"])
+assert chip_smoke.sql_rows("q1", rows) == chip_smoke.sql_oracle("q1", cols)
+assert s.exec_summary.engines == {{"gpu": 2}}, s.exec_summary.engines
+db.stop_background()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
+print(json.dumps(bad))
+"""
+
+
 def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
@@ -44,6 +65,46 @@ def test_port_imports_no_jax_and_no_reference():
     )
     assert out.returncode == 0, out.stderr
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_sql_front_imports_no_jax_and_no_reference():
+    out = subprocess.run(
+        [sys.executable, "-c", _SQL_PROBE.format(repo=REPO)],
+        capture_output=True, text=True, timeout=300, cwd=REPO, env=_clean_env(),
+    )
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_default_open_raises_on_its_first_query_without_a_card(monkeypatch):
+    """``tidb_tpu_torch.open()`` asks for the card; with none its first
+    device task raises, and no task runs on the host engine instead."""
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.copr import host_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host_calls = []
+    real = host_engine.execute_dag
+    monkeypatch.setattr(host_engine, "execute_dag", lambda *a, **k: host_calls.append(a) or real(*a, **k))
+    db = tidb_tpu_torch.open()
+    db.execute("CREATE TABLE t (a BIGINT, b DECIMAL(10,2))")
+    db.execute("INSERT INTO t VALUES (1, 2.50), (2, 3.50)")
+    for sql in ("SELECT a, SUM(b) FROM t GROUP BY a", "SELECT COUNT(*) FROM t WHERE b < 3"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            db.query(sql)
+    assert host_calls == []
+    db.execute("SET tidb_isolation_read_engines='host'")
+    assert db.query("SELECT COUNT(*) FROM t WHERE b < 3") == [(1,)]
+    db.stop_background()
+
+
+def test_open_remote_raises_until_the_remote_store_is_copied():
+    import tidb_tpu_torch
+
+    with pytest.raises(ModuleNotFoundError, match="tidb_tpu_torch.kv.remote"):
+        tidb_tpu_torch.open(remote="127.0.0.1:1")
 
 
 def test_grouped_sums_default_device_raises_without_a_card(monkeypatch):

@@ -128,7 +128,7 @@ def test_lex_aggregation_matches_reference_engines(tdb, name):
     ref = tpu_engine._execute_dag_device(db.store, dag, region, ranges, ts).rows()
     host = host_engine.execute_dag(db.store, dag, region, ranges, ts).rows()
     stats = {}
-    got = gpu_engine.execute_dag(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats).rows()
+    got = gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats).rows()
     assert stats["routes"] == (("eqmask",) if name.endswith("_eqmask") else ("lex",))
     assert _rows_close(got, ref)
     if name == "bits_empty":
@@ -162,7 +162,7 @@ def test_agg_cap_regrows_past_4096_groups(monkeypatch):
     reg = te._carry_region(db, dag, region, ts)
     ref = tpu_engine._execute_dag_device(db.store, dag, region, ranges, ts).rows()
     stats = {}
-    got = gpu_engine.execute_dag(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats).rows()
+    got = gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats).rows()
     assert len(got) > 4096 and stats["regrows"] == 1 and stats["routes"] == ("lex",)
     assert got == ref
 

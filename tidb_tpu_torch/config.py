@@ -1,0 +1,329 @@
+"""Static configuration tier: TOML file + command-line flags.
+
+Reference parity: `pkg/config/config.go:170` (the Config struct TOML-mapped)
++ `cmd/tidb-server/main.go:262` (flag overrides config file overrides
+defaults). The surface is intentionally the subset a bootable process needs:
+wire server, status server, store selection, TLS, and session defaults —
+everything dynamic lives in system variables like the reference.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass
+class Config:
+    # [server]
+    host: str = "127.0.0.1"
+    port: int = 4000
+    # [status]
+    status_port: int = 10080
+    status_enabled: bool = True
+    # [storage]  mode: "embedded" | "remote" (attach to a store server)
+    store: str = "embedded"
+    store_path: str = ""  # host:port of the remote StoreServer
+    region_split_keys: int = 500_000
+    # [network] one timeout pair for every TCP seam (SQL wire client and the
+    # store RPC client, kv/remote.py): connect fails fast, reads tolerate
+    # first-query JIT compiles and big scans. rpc-retry-budget-ms bounds the
+    # TOTAL backoff sleep one store RPC may spend reconnecting/replaying
+    # before it surfaces ConnectionError (utils/backoff.Backoffer budget).
+    connect_timeout_s: float = 5.0
+    read_timeout_s: float = 600.0
+    rpc_retry_budget_ms: float = 4000.0
+    # [cluster] owner-election lease: background singleton owners (TTL,
+    # stats, GC, DDL) hold their lease this long; the session keepalive
+    # refreshes at lease/3 (kv/election.py quorum leases and kv/owner.py
+    # local leases both read this default)
+    owner_lease_s: float = 10.0
+    # [cluster] elastic placement (kv/placement.py): the owner-gated
+    # balancer sweep cadence (<= 0 disables), the max/min shard load ratio
+    # past which it moves a region, the region-migration copy page size,
+    # and the cutover fence TTL — an aborted migration's write/read fence
+    # on the source self-heals after this long, so a dead driver can never
+    # wedge a table (the successful path replaces it with a permanent
+    # fence + purge on the old owner)
+    balancer_interval_s: float = 30.0
+    balancer_skew_ratio: float = 2.0
+    migrate_batch_keys: int = 4096
+    placement_fence_ttl_s: float = 10.0
+    # [observability] always-on sampled tracing: the fraction of statements
+    # that record a full distributed trace into the reservoir (0 = off; the
+    # tidb_tpu_trace_sample_rate sysvar overrides per session/global), and
+    # how many recent traces the reservoir ring retains (tail-keep slow
+    # traces pin into a separate slow_capacity//2 section on top)
+    trace_sample_rate: float = 0.0
+    trace_reservoir_size: int = 64
+    # [observability] in-process metrics history (utils/metricshist.py): a
+    # bounded ring recorder sampling every registry counter/gauge/histogram
+    # so "what did qps look like five minutes ago" is answerable with no
+    # external Prometheus. Default ON (the recorder starts with the server /
+    # DB background loops) at a small footprint: retention/interval samples
+    # per series. interval <= 0 disables the recorder entirely.
+    metrics_history_interval_s: float = 5.0
+    metrics_history_retention_s: float = 600.0
+    # [observability] adaptive trace-sampling clamp (Dapper follow-up idiom:
+    # sample more when idle, clamp under pressure): when the local recent-QPS
+    # signal exceeds this, the effective sample rate scales down
+    # proportionally (tracing.clamp_rate). 0 = no clamp.
+    trace_clamp_qps: float = 0.0
+    # [observability] keyspace traffic heatmap (the Key Visualizer analog):
+    # every store keeps bounded per-(region, table) traffic rings — read and
+    # write keys+bytes bucketed by keyviz-interval-s, retained for
+    # keyviz-retention-s — sampled at the snapshot/scan/cop/commit seams and
+    # served fleet-wide via the sys_snapshot "heatmap" section /
+    # information_schema.keyspace_heatmap / GET /keyviz. interval <= 0
+    # disables the rings entirely (note_* become no-ops).
+    keyviz_interval_s: float = 5.0
+    keyviz_retention_s: float = 600.0
+    # [observability] store-side cop slow log: a cop task whose store-side
+    # processing wall crosses this lands in the STORE process's own
+    # StmtSummary ring (served fleet-wide via the sys_snapshot verb /
+    # information_schema.cluster_slow_query)
+    store_slow_cop_ms: float = 300.0
+    # [observability] structured event log (utils/eventlog.py): the minimum
+    # level retained ("debug"|"info"|"warn"|"error"|"off") and per-level ring
+    # capacities. Levels below the floor construct nothing (the tracer=None
+    # zero-cost discipline); rings are bounded deques, so retention is by
+    # count, not time — searchable via information_schema.tidb_log /
+    # cluster_log and the log_search wire verb.
+    eventlog_level: str = "info"
+    eventlog_capacity: int = 2048
+    eventlog_debug_capacity: int = 512
+    eventlog_error_capacity: int = 1024
+    # [perf] instance-level serving: capacity (entries) of EACH cross-session
+    # cache (statement ASTs / plan templates, planner/instcache.py), and the
+    # optional point-get batcher collection window in microseconds — 0 keeps
+    # coalescing purely opportunistic (zero added latency: batches form from
+    # readers that land while a flush is already in flight)
+    instance_plan_cache_size: int = 512
+    pointget_batch_window_us: float = 0.0
+    # [perf] delta+merge device column cache (copr/colcache.py): DML lands in
+    # bounded per-(region, table) delta overlays the device kernel reads as
+    # ``base ⊕ delta``. device-delta-cap is the FIXED kernel delta-operand
+    # capacity (rows; a query past it forces a merge — part of the compile
+    # cache key, so keep it stable per process); device-delta-merge-rows is
+    # the background compactor's fold threshold; device-delta-min-rows is the
+    # smallest base entry worth delta-tracking (smaller tables just rebuild —
+    # their upload is trivial and the delta kernel variant would only burn a
+    # compile)
+    device_delta_cap: int = 8192
+    device_delta_merge_rows: int = 2048
+    device_delta_min_rows: int = 65536
+    # [perf] background delta-merge sweep on REMOTE store servers: each
+    # StoreServer folds its own colcache deltas on this cadence (the
+    # embedded DB's owner-gated 'colmerge' timer mirrored onto the storage
+    # tier — single-owner by construction there, each server owns its
+    # store's cache). <= 0 disables; queries then merge on the query-path
+    # threshold only.
+    store_colmerge_interval_s: float = 30.0
+    # [security]
+    ssl_enabled: bool = False
+    ssl_cert: str = ""
+    ssl_key: str = ""
+    # [session] global system-variable defaults applied at boot
+    sysvars: dict = field(default_factory=dict)
+
+    @staticmethod
+    def from_toml(path: str) -> "Config":
+        try:
+            import tomllib
+
+            with open(path, "rb") as f:
+                raw = tomllib.load(f)
+        except ImportError:  # Python < 3.11: no stdlib TOML parser
+            raw = _parse_toml_subset(path)
+        cfg = Config()
+        srv = raw.get("server", {})
+        cfg.host = srv.get("host", cfg.host)
+        cfg.port = int(srv.get("port", cfg.port))
+        st = raw.get("status", {})
+        cfg.status_port = int(st.get("status-port", st.get("port", cfg.status_port)))
+        cfg.status_enabled = bool(st.get("report-status", cfg.status_enabled))
+        sto = raw.get("storage", {})
+        cfg.store = sto.get("store", cfg.store)
+        cfg.store_path = sto.get("path", cfg.store_path)
+        cfg.region_split_keys = int(sto.get("region-split-keys", cfg.region_split_keys))
+        net = raw.get("network", {})
+        cfg.connect_timeout_s = float(net.get("connect-timeout", cfg.connect_timeout_s))
+        cfg.read_timeout_s = float(net.get("read-timeout", cfg.read_timeout_s))
+        cfg.rpc_retry_budget_ms = float(net.get("rpc-retry-budget-ms", cfg.rpc_retry_budget_ms))
+        cl = raw.get("cluster", {})
+        cfg.owner_lease_s = float(cl.get("owner-lease-s", cfg.owner_lease_s))
+        cfg.balancer_interval_s = float(cl.get("balancer-interval-s", cfg.balancer_interval_s))
+        cfg.balancer_skew_ratio = float(cl.get("balancer-skew-ratio", cfg.balancer_skew_ratio))
+        cfg.migrate_batch_keys = int(cl.get("migrate-batch-keys", cfg.migrate_batch_keys))
+        cfg.placement_fence_ttl_s = float(
+            cl.get("placement-fence-ttl-s", cfg.placement_fence_ttl_s)
+        )
+        obs = raw.get("observability", {})
+        cfg.trace_sample_rate = float(obs.get("trace-sample-rate", cfg.trace_sample_rate))
+        cfg.trace_reservoir_size = int(obs.get("trace-reservoir-size", cfg.trace_reservoir_size))
+        cfg.metrics_history_interval_s = float(
+            obs.get("metrics-history-interval-s", cfg.metrics_history_interval_s)
+        )
+        cfg.metrics_history_retention_s = float(
+            obs.get("metrics-history-retention", cfg.metrics_history_retention_s)
+        )
+        cfg.trace_clamp_qps = float(obs.get("trace-clamp-qps", cfg.trace_clamp_qps))
+        cfg.keyviz_interval_s = float(obs.get("keyviz-interval-s", cfg.keyviz_interval_s))
+        cfg.keyviz_retention_s = float(obs.get("keyviz-retention-s", cfg.keyviz_retention_s))
+        cfg.store_slow_cop_ms = float(obs.get("store-slow-cop-ms", cfg.store_slow_cop_ms))
+        cfg.eventlog_level = str(obs.get("eventlog-level", cfg.eventlog_level))
+        cfg.eventlog_capacity = int(obs.get("eventlog-capacity", cfg.eventlog_capacity))
+        cfg.eventlog_debug_capacity = int(
+            obs.get("eventlog-debug-capacity", cfg.eventlog_debug_capacity)
+        )
+        cfg.eventlog_error_capacity = int(
+            obs.get("eventlog-error-capacity", cfg.eventlog_error_capacity)
+        )
+        perf = raw.get("perf", {})
+        cfg.instance_plan_cache_size = int(
+            perf.get("instance-plan-cache-size", cfg.instance_plan_cache_size)
+        )
+        cfg.pointget_batch_window_us = float(
+            perf.get("pointget-batch-window-us", cfg.pointget_batch_window_us)
+        )
+        cfg.device_delta_cap = int(perf.get("device-delta-cap", cfg.device_delta_cap))
+        cfg.device_delta_merge_rows = int(
+            perf.get("device-delta-merge-rows", cfg.device_delta_merge_rows)
+        )
+        cfg.device_delta_min_rows = int(
+            perf.get("device-delta-min-rows", cfg.device_delta_min_rows)
+        )
+        cfg.store_colmerge_interval_s = float(
+            perf.get("store-colmerge-interval-s", cfg.store_colmerge_interval_s)
+        )
+        sec = raw.get("security", {})
+        cfg.ssl_cert = sec.get("ssl-cert", cfg.ssl_cert)
+        cfg.ssl_key = sec.get("ssl-key", cfg.ssl_key)
+        cfg.ssl_enabled = bool(sec.get("enable-ssl", bool(cfg.ssl_cert)))
+        cfg.sysvars = dict(raw.get("session", {}).get("variables", {}))
+        return cfg
+
+    def merged_flags(self, args) -> "Config":
+        """Flags override the file (ref: main.go overrideConfig)."""
+        out = dataclasses.replace(self)
+        for flag, attr in (
+            ("host", "host"),
+            ("port", "port"),
+            ("status_port", "status_port"),
+            ("store", "store"),
+            ("path", "store_path"),
+        ):
+            v = getattr(args, flag, None)
+            if v is not None:
+                setattr(out, attr, v)
+        if getattr(args, "no_status", False):
+            out.status_enabled = False
+        return out
+
+
+def _parse_toml_subset(path: str) -> dict:
+    """Minimal TOML reader for the config surface above, used where the
+    stdlib ``tomllib`` is unavailable (Python 3.10 images): ``[a.b]`` tables,
+    ``key = value`` with quoted strings, booleans, ints, and floats. Arrays
+    and multi-line values are out of scope — the config file never uses them."""
+    root: dict = {}
+    table = root
+    with open(path, encoding="utf-8") as f:
+        for lineno, line in enumerate(f, 1):
+            s = line.strip()
+            if not s or s.startswith("#"):
+                continue
+            if s.startswith("["):
+                end = s.find("]")
+                rest = s[end + 1 :].strip() if end > 0 else ""
+                if end < 0 or (rest and not rest.startswith("#")):
+                    raise ValueError(f"{path}:{lineno}: malformed table header: {s!r}")
+                table = root
+                for part in s[1:end].strip().split("."):
+                    table = table.setdefault(part.strip(), {})
+                continue
+            if "=" not in s:
+                raise ValueError(f"{path}:{lineno}: not `key = value`: {s!r}")
+            key, _, val = s.partition("=")
+            key, val = key.strip().strip('"'), val.strip()
+            if val[:1] in ('"', "'"):
+                q = val[0]
+                end = val.find(q, 1)
+                rest = val[end + 1 :].strip() if end > 0 else ""
+                if end < 0 or (rest and not rest.startswith("#")):
+                    raise ValueError(f"{path}:{lineno}: malformed string value: {val!r}")
+                table[key] = val[1:end]
+                continue
+            if "#" in val:
+                val = val.split("#", 1)[0].strip()
+            if val in ("true", "false"):
+                table[key] = val == "true"
+            else:
+                try:
+                    table[key] = int(val)
+                except ValueError:
+                    try:
+                        table[key] = float(val)
+                    except ValueError:
+                        raise ValueError(
+                            f"{path}:{lineno}: unparseable value {val!r}"
+                            " (strings must be quoted)"
+                        ) from None
+    return root
+
+
+def parse_args(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(
+        prog="tidb_tpu",
+        description="tidb_tpu server (ref: cmd/tidb-server/main.go)",
+    )
+    p.add_argument("--config", help="TOML config file path")
+    p.add_argument("--host", help="wire-server bind host")
+    p.add_argument("-P", "--port", type=int, help="wire-server port (0 = ephemeral)")
+    p.add_argument("--status-port", dest="status_port", type=int, help="HTTP status port")
+    p.add_argument("--no-status", dest="no_status", action="store_true", help="disable the status server")
+    p.add_argument("--store", choices=["embedded", "remote"], help="storage backend")
+    p.add_argument("--path", help="host:port of the remote store server (store=remote)")
+    p.add_argument(
+        "--store-server",
+        dest="store_server",
+        action="store_true",
+        help="boot as a STORAGE server process (serves KV + coprocessor + MPP)",
+    )
+    p.add_argument(
+        "--raw-store",
+        dest="raw_store",
+        action="store_true",
+        help="with --store-server: serve a RAW empty store (no embedded SQL "
+        "bootstrap) — the store-fleet member role; a SQL layer connecting "
+        "with a multi-endpoint --path shards tables across the fleet",
+    )
+    return p.parse_args(argv)
+
+
+# process-wide effective config: set once at boot (load()), read by every
+# seam that needs a default it cannot be handed explicitly — RemoteStore and
+# the wire client source their timeout/retry-budget defaults here, so a
+# `--config` file's [network] section takes effect without threading a Config
+# through each constructor.
+_CURRENT: Optional[Config] = None
+
+
+def set_current(cfg: Config) -> None:
+    global _CURRENT
+    _CURRENT = cfg
+
+
+def current() -> Config:
+    return _CURRENT if _CURRENT is not None else Config()
+
+
+def load(argv=None) -> tuple[Config, object]:
+    args = parse_args(argv)
+    cfg = Config.from_toml(args.config) if args.config else Config()
+    merged = cfg.merged_flags(args)
+    set_current(merged)
+    return merged, args

@@ -1,9 +1,4 @@
-"""Device binder: legalize a DAGRequest for GPU execution.
-
-Port of tidb_tpu/copr/binder.py, whole. The stamps it writes (``domains``,
-``arg_bounds``, ``arg_narrow``, ``group_narrow``, ``narrow_ok``,
-``sort_bounds``) decide the kernel's routes, so they are computed by the
-same rules as the reference's.
+"""Device binder: legalize a DAGRequest for TPU execution.
 
 Strings never travel to the device as bytes — only as dictionary codes. The
 binder rewrites every string-touching expression into integer form against
@@ -16,16 +11,19 @@ compiled predicates play; pushdown legality: infer_pushdown.go:266):
   (codes become order-preserving; le/gt use bisect_right semantics);
 - ORDER BY / MIN / MAX on a string column → force-sort the dictionary;
 - anything else string-valued (LIKE, LENGTH, ...) → ``UnsupportedForDevice``
-  (the planner's legality table should have kept these off the device).
+  (the planner's legality table should have kept these off the TPU path).
 """
 
 from __future__ import annotations
 
 import copy
+from typing import Optional
 
 from tidb_tpu_torch.copr import dagpb
+from tidb_tpu_torch.copr.colcache import ColumnCache
 from tidb_tpu_torch.expression.registry import REGISTRY
 from tidb_tpu_torch.types import TypeKind
+from tidb_tpu_torch.types.field_type import bigint_type
 
 
 class UnsupportedForDevice(Exception):
@@ -37,7 +35,7 @@ _INT_FT = [int(TypeKind.INT), 20, 0, 1, "bin"]
 
 
 class Binder:
-    def __init__(self, cache, table_id: int, scan_cols: list[dagpb.ColumnInfoPB], entry=None):
+    def __init__(self, cache: ColumnCache, table_id: int, scan_cols: list[dagpb.ColumnInfoPB], entry=None):
         self.cache = cache
         self.table_id = table_id
         # scan output offset → (storage slot, ftype)
@@ -89,8 +87,8 @@ class Binder:
                         a["arg"] = self.bind_expr(a["arg"], allow_string_ref=allow or a["name"] in ("min", "max"))
                 if refs_are_scan:
                     # exact value bounds per SUM argument (corner evaluation
-                    # over column min/max) — unlocks the dense grouped-sum
-                    # routes for expression args the ftype whitelist rejects
+                    # over column min/max) — unlocks the MXU grouped-sum
+                    # kernel for expression args the ftype whitelist rejects
                     ex.arg_bounds = [
                         self._corner_bounds(a["arg"]) if a["arg"] is not None else None
                         for a in ex.aggs
@@ -140,13 +138,13 @@ class Binder:
         return out
 
     def _gate_device_rollup(self, ex) -> None:
-        """Device WITH ROLLUP runs ONLY as the (G+1)-hot int8 dot: every key
+        """Device WITH ROLLUP runs ONLY as the (G+1)-hot MXU dot: every key
         needs a dictionary domain and every aggregate a bounded COUNT/SUM
         form, with the summed window space inside the dot's bucket cap.
         Anything else is the host engine's loop-over-sets (still one scan)."""
         from tidb_tpu_torch.expression.expr import AggDesc
         from tidb_tpu_torch.ops.dag_kernel import _mxu_aggs_ok
-        from tidb_tpu_torch.ops.mxu_groupby import MAX_B, rollup_bucket_space
+        from tidb_tpu_torch.ops.mxu_groupby import MAX_B
 
         doms = []
         dmn = getattr(self, "_scan_domains", None) or []
@@ -155,6 +153,8 @@ class Binder:
                 doms.append(dmn[g["idx"]])
             else:
                 raise UnsupportedForDevice("rollup key without a dictionary domain")
+        from tidb_tpu_torch.ops.mxu_groupby import rollup_bucket_space
+
         b_total = rollup_bucket_space(doms)
         if b_total > MAX_B:
             raise UnsupportedForDevice(f"rollup window space {b_total} exceeds the dot cap")
@@ -168,6 +168,8 @@ class Binder:
         when the key is an expression, a float, or no region entry is at
         hand; consumers then fall back (multi-lane sort / heuristic top_k /
         host engine)."""
+        from tidb_tpu_torch.ops.window_core import widen_bounds
+
         bounds = []
         for pb in pbs:
             b = None
@@ -275,8 +277,8 @@ class Binder:
 
     # -- int32 narrow-eval proofs -------------------------------------------
     # the kernel evaluates proven expressions on the NARROW (storage-dtype)
-    # lanes, which read half the bytes of int64 ones (ref: the per-width
-    # column discipline, util/chunk/column.go:74)
+    # lanes: int32 VPU ops run native where emulated-pair int64 ops would run
+    # 2-3x wider (ref: the per-width column discipline, util/chunk/column.go:74)
     _NARROW_CMP = frozenset({"eq", "ne", "nulleq", "lt", "le", "gt", "ge", "in"})
     _NARROW_LOGIC = frozenset({"and", "or", "not", "isnull"})
     _I32_LO, _I32_HI = -(1 << 31), (1 << 31) - 1
@@ -408,20 +410,3 @@ class Binder:
             "children": [{**col, "ft": _INT_FT}, {"tp": "const", "val": int(rank), "ft": _INT_FT}],
             "ft": pb["ft"],
         }
-
-
-def widen_bounds(bounds):
-    """Round (lo, hi) outward to power-of-two envelopes so measured bounds
-    stay stable across small data changes (port of
-    tidb_tpu/ops/window_core.py:widen_bounds — bounds are part of a DAG's
-    fingerprint, and coarse buckets keep the program cache warm)."""
-    out = []
-    for b in bounds:
-        if b is None:
-            out.append(None)
-            continue
-        lo, hi = int(b[0]), int(b[1])
-        lo2 = 0 if lo >= 0 else -(1 << (-lo).bit_length())
-        hi2 = (1 << (hi + 1).bit_length()) - 1 if hi >= 0 else 0
-        out.append((lo2, hi2))
-    return out

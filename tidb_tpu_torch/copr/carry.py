@@ -11,7 +11,8 @@ from __future__ import annotations
 import numpy as np
 
 from tidb_tpu_torch.copr import dagpb
-from tidb_tpu_torch.copr.colcache import ColumnCache, Region, RegionColumns
+from tidb_tpu_torch.copr.colcache import ColumnCache, RegionColumns
+from tidb_tpu_torch.copr.gpu_engine import RegionView
 
 
 def region_from_arrays(
@@ -21,8 +22,9 @@ def region_from_arrays(
     table_id: int,
     region_bounds: tuple[bytes, bytes],
     cache: ColumnCache | None = None,
-) -> Region:
-    """Build one region's host state.
+) -> RegionView:
+    """Build one region's host state (``gpu_engine.execute_region`` runs a
+    DAG over it).
 
     handles       : (n,) int64, strictly ascending.
     cols          : {storage slot: (data, valid)}; string slots hold int32
@@ -30,8 +32,9 @@ def region_from_arrays(
                     values (scaled decimals, DATE days) or float64.
     dicts         : {string slot: [bytes, ...]} — code i decodes to item i.
     region_bounds : (start_key, end_key) of the region.
-    cache         : the ColumnCache shared with the table's other regions
-                    (their string codes must agree); a new one when None.
+    cache         : the store-less ColumnCache shared with the table's other
+                    regions (their string codes must agree); a new one when
+                    None.
     """
     handles = np.ascontiguousarray(handles, dtype=np.int64)
     n = len(handles)
@@ -61,9 +64,9 @@ def region_from_arrays(
         live = data[valid]
         if live.size and (live.min() < 0 or live.max() >= len(values)):
             raise ValueError(f"string slot {slot}: code outside its dictionary")
-    entry = RegionColumns(handles, n, out_cols)
-    region = Region(cache.next_region_id(), table_id, region_bounds[0], region_bounds[1], entry, cache)
-    cache.add_region(region)
+    entry = RegionColumns(handles, n, out_cols, range_start=region_bounds[0], range_end=region_bounds[1])
+    region = RegionView(cache.next_region_id(), table_id, entry, cache)
+    cache.add_region(region.region_id, table_id, entry)
     return region
 
 

@@ -1,46 +1,168 @@
-"""Host-side region state (port of the parts of tidb_tpu/copr/colcache.py
-the binder and the engine read).
+"""Region column cache — MVCC rows materialized as device-ready columns.
 
-A :class:`Region` is one region's rows of one table, sorted by handle, as
-decoded columns (``RegionColumns``), plus the :class:`ColumnCache` it shares
-with the table's other regions: the per-(table, slot) string dictionaries —
-codes are table-global, so group keys agree across regions — and the device
-column LRUs. MVCC building, the delta overlay and merging are not ported;
-the state arrives already decoded (``carry.region_from_arrays``).
+Reference parity: TiFlash's delta tree (delta layer + stable layer + a
+background merge). Keyed by (region_id, table_id); a cached base entry is
+pinned at its build version, and committed writes after it land in a small
+:class:`DeltaOverlay` (fresh rows, updated rows, delete tombstones keyed by
+row handle) fed by the store's change log — analytics reads see
+``base ⊕ delta`` without rebuilding or re-uploading the base. A merge
+(:meth:`ColumnCache._merge` — threshold-triggered on the query path, swept
+by the session-level compactor) folds the delta into a fresh base, carrying
+per-device-block version tags (``RegionColumns.block_vers``) for blocks
+whose content provably did not change, so only dirty blocks re-enter HBM.
+
+String columns dictionary-encode against a per-(table, column) dictionary
+shared across regions, so group-by/join codes are globally consistent; a
+dictionary can be rank-compacted (sorted) on demand to legalize device-side
+ordering predicates, which remaps codes in every cached region of that column.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time as _time
 from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 import numpy as np
 
+from tidb_tpu_torch.kv import KeyRange, tablecodec
+from tidb_tpu_torch.kv.kv import KeyLockedError
+from tidb_tpu_torch.kv.memstore import MemStore, Region
+from tidb_tpu_torch.kv.rowcodec import RowSchema, decode_fixed_bulk, decode_strings_bulk
+from tidb_tpu_torch.types import FieldType, TypeKind
+from tidb_tpu_torch.utils import eventlog as _ev
+from tidb_tpu_torch.utils import execdetails as _ed
+from tidb_tpu_torch.utils import failpoint
+from tidb_tpu_torch.utils import metrics as _metrics
 from tidb_tpu_torch.utils.chunk import Dictionary
 
-# the reference engine's device block (tidb_tpu/copr/colcache.py:45): a
-# region of more rows runs as several blocks of this many padded rows
-DEVICE_BLOCK_ROWS = 1 << 22
+# device block granularity of the merge's dirty-block accounting; MUST match
+# tpu_engine._BLOCK (both read the same env knob). A mismatch only costs
+# carry precision, never correctness: an engine block spanning carry blocks
+# with disagreeing tags falls back to the entry's own data_version.
+DEVICE_BLOCK_ROWS = int(os.environ.get("TIDB_TPU_DEVICE_BLOCK_ROWS", str(1 << 22)))
+
+
+def _delta_limits() -> tuple[int, int, int]:
+    """(delta_cap, merge_rows, min_rows) from the effective config:
+    ``delta_cap`` is the fixed kernel delta-operand capacity (a query-path
+    merge triggers past it), ``merge_rows`` the background compactor's fold
+    threshold, ``min_rows`` the smallest base entry worth delta-tracking
+    (smaller tables rebuild outright — their upload cost is trivial and the
+    delta kernel variant would only burn a compile)."""
+    from tidb_tpu_torch import config as _config
+
+    cfg = _config.current()
+    return (
+        int(getattr(cfg, "device_delta_cap", 8192)),
+        int(getattr(cfg, "device_delta_merge_rows", 2048)),
+        int(getattr(cfg, "device_delta_min_rows", 65536)),
+    )
+
+
+@dataclass
+class DeltaOverlay:
+    """Committed row changes on top of a pinned base entry: sorted touched
+    handles with per-handle tombstone verdicts and decoded column lanes for
+    the surviving (PUT) rows. The device DAG reads ``base ⊕ delta`` — every
+    delta handle masks its base row; non-tombstone rows union in fresh."""
+
+    handles: np.ndarray  # sorted distinct touched handles, int64
+    tomb: np.ndarray  # bool, aligned: visible version at built_ts is a delete
+    data_version: int
+    built_ts: int
+    # True iff this overlay covers every commit in the region at build time
+    complete: bool = True
+    # slot → (data, valid), aligned to ``handles`` (tombstone rows zeroed)
+    cols: dict[int, tuple[np.ndarray, np.ndarray]] = field(default_factory=dict)
+    _buf: bytes = b""
+    _starts: np.ndarray | None = None
+    _put_rows: np.ndarray | None = None  # indices into handles that are PUTs
+    _minmax: dict = field(default_factory=dict)
+
+    @property
+    def n(self) -> int:
+        return len(self.handles)
+
+    @property
+    def n_put(self) -> int:
+        return len(self._put_rows) if self._put_rows is not None else 0
+
+    def minmax(self, slot: int):
+        """(min, max) over valid PUT values, None when none are valid."""
+        mm = self._minmax.get(slot)
+        if mm is None:
+            d, v = self.cols[slot]
+            lv = d[v]
+            mm = (int(lv.min()), int(lv.max())) if lv.size else None
+            self._minmax[slot] = mm
+        return mm
 
 
 @dataclass
 class RegionColumns:
-    """One region's decoded rows for one table: sorted-by-handle columns."""
+    """One region's decoded rows for one table: sorted-by-handle columns.
+
+    Rows come from two layers merged at build time (TiFlash delta+stable):
+    stable columnar block slices (``_stable_parts``, already decoded — the
+    common bulk-load case hands zero-copy views to the device) overlaid by
+    the MVCC row-delta dict (``_buf``/``_starts``, decoded lazily per slot).
+    ``_stable_take`` selects surviving stable rows (None = all, in order);
+    ``_perm`` restores ascending-handle order over [stable_kept + delta]
+    (None = already ascending)."""
 
     handles: np.ndarray  # int64, ascending
     n: int
-    # storage slot → (data, validity)
+    # storage-slot → (data, validity)
     cols: dict[int, tuple[np.ndarray, np.ndarray]] = field(default_factory=dict)
-    data_version: int = 0
-    # per-slot (min, max) over valid values, computed lazily
+    data_version: int = -1
+    built_ts: int = 0
+    # True iff built_ts covered every commit in the region at build time —
+    # only then does the entry equal the region head for this data_version
+    complete: bool = True
+    # raw row-delta buffer retained to decode further columns lazily
+    _buf: bytes = b""
+    _starts: np.ndarray | None = None
+    _delta_n: int = 0
+    _stable_parts: list = field(default_factory=list)  # [(block, lo, hi)]
+    _stable_take: np.ndarray | None = None
+    _delta_take: np.ndarray | None = None  # delta rows shadowed by newer blocks
+    _perm: np.ndarray | None = None
+    # per-slot (min, max) over valid values, computed lazily — feeds the
+    # packed window-sort key (binder._window_bounds)
     _minmax: dict = field(default_factory=dict)
+    # per-DEVICE_BLOCK_ROWS-block version tags carried across merges: a block
+    # whose content provably did not change keeps its previous tag, so its
+    # device arrays stay valid in the HBM LRU (None → data_version everywhere)
+    block_vers: list | None = None
+    # device-facing version pinned at build time: revalidation (a sibling
+    # table's commit bumped the region version without touching this table)
+    # advances data_version but must NOT change device-cache identities
+    dev_version: int = -1
+    # region bounds at build time — a split/merge since then invalidates the
+    # entry even when data_version did not move
+    range_start: bytes = b""
+    range_end: bytes = b""
 
-    def vtag_span(self, lo: int, hi: int) -> int:
-        """Device-cache version tag for rows [lo, hi). The reference carries
-        per-block tags across delta merges, so a clean block keeps its device
-        arrays; with no merge ported every block of an entry shares the
-        entry's own version (the reference's fallback)."""
-        return self.data_version
+    def vtag_span(self, lo: int, hi: int):
+        """Device-cache version tag for rows [lo, hi): the carried per-block
+        tag when every covered carry block agrees, else the entry's own
+        build version (content changed → fresh identity)."""
+        base_ver = self.dev_version if self.dev_version >= 0 else self.data_version
+        bv = self.block_vers
+        if not bv or hi <= lo:
+            return base_ver
+        b0 = lo // DEVICE_BLOCK_ROWS
+        b1 = (hi - 1) // DEVICE_BLOCK_ROWS
+        if b1 >= len(bv):
+            return base_ver
+        v = bv[b0]
+        for b in range(b0 + 1, b1 + 1):
+            if bv[b] != v:
+                return base_ver
+        return v
 
     def minmax(self, slot: int) -> tuple[int, int]:
         mm = self._minmax.get(slot)
@@ -53,60 +175,796 @@ class RegionColumns:
 
 
 class ColumnCache:
-    """Dictionaries and device caches shared by the regions of one store."""
+    """Per-store singleton (both engines share it; the GPU engine layers a
+    device-array cache keyed by the same (region, version) identity).
 
-    def __init__(self):
+    With no store the cache serves regions carried in as decoded arrays
+    (``carry.region_from_arrays`` → :meth:`add_region`): their entries and
+    dictionaries live here, and nothing is built from MVCC."""
+
+    def __init__(self, store: Optional[MemStore] = None):
+        # weak: the cache registry keys off the store; a strong ref here
+        # would keep the store alive through the WeakKeyDictionary value
+        self._store_ref = __import__("weakref").ref(store) if store is not None else (lambda: None)
         self._mu = threading.Lock()
+        self._entries: dict[tuple[int, int], RegionColumns] = {}
+        # pending delta overlays + host-materialized base⊕delta views,
+        # keyed like entries; both validate against (data_version, built_ts)
+        self._deltas: dict[tuple[int, int], DeltaOverlay] = {}
+        self._merged: dict[tuple[int, int], RegionColumns] = {}
         self._dicts: dict[tuple[int, int], Dictionary] = {}
-        self._regions: list["Region"] = []
-        # bumped whenever a dictionary is compacted: device copies must drop
+        self._alias: dict[int, int] = {}  # partition physical id → logical id
+        # bumped whenever a dictionary is compacted: device caches must drop
         self.epoch = 0
-        # device string → the engine's HBM-budgeted column LRU
+        # device string → the GPU engine's memory-budgeted column LRU
         self.device_lrus: dict = {}
+
+    def resident_bytes(self) -> int:
+        """Host bytes pinned by cached column entries (base entries, delta
+        overlays, merged views) — the device-cache working-set signal the
+        sys_snapshot health report ships per store (cluster_load)."""
+        total = 0
+        with self._mu:
+            for coll in (self._entries, self._deltas, self._merged):
+                for e in coll.values():
+                    for data, valid in getattr(e, "cols", {}).values():
+                        total += getattr(data, "nbytes", 0) + getattr(valid, "nbytes", 0)
+        return total
+
+    def table_resident_bytes(self, table_id: int) -> int:
+        """Cached bytes for ONE table (partition physical ids resolve to
+        their logical table) — the per-table residency signal the MPP
+        exchange-type cost model consults (a build side whose columns are
+        already resident broadcasts cheaper than the row count says)."""
+        total = 0
+        with self._mu:
+            want = self._resolve(table_id)
+            for coll in (self._entries, self._merged):
+                for (_rid, tid), e in coll.items():
+                    if self._alias.get(tid, tid) != want:
+                        continue
+                    for data, valid in getattr(e, "cols", {}).values():
+                        total += getattr(data, "nbytes", 0) + getattr(valid, "nbytes", 0)
+        return total
+
+    # -- dictionaries ------------------------------------------------------
+    def set_table_alias(self, physical_id: int, logical_id: int) -> None:
+        """Partition physical ids share the logical table's dictionaries, so
+        string columns concat across partitions (same Dictionary object)."""
+        with self._mu:
+            self._alias[physical_id] = logical_id
+
+    def _resolve(self, table_id: int) -> int:
+        return self._alias.get(table_id, table_id)
 
     def dictionary(self, table_id: int, slot: int) -> Dictionary:
         with self._mu:
-            return self._dicts.setdefault((table_id, slot), Dictionary())
+            return self._dicts.setdefault((self._resolve(table_id), slot), Dictionary())
 
     def ensure_sorted_dict(self, table_id: int, slot: int, ci: bool = False) -> Dictionary:
-        """Rank-compact a dictionary so codes become order-preserving; remaps
-        the codes of every region of this table that holds the slot."""
-        if ci:
-            from tidb_tpu_torch.copr.binder import UnsupportedForDevice
-
-            raise UnsupportedForDevice("ci-collation ordering is not ported")
+        """Rank-compact a dictionary so codes become order-preserving —
+        under byte order, or under the general_ci WEIGHT order with ``ci``
+        (the device ci MIN/MAX legalization: a ci column's only correct
+        order IS the weight order, and ci comparisons never push down, so no
+        byte-order consumer exists for it); remaps codes in all cached
+        regions of this column."""
         with self._mu:
-            dic = self._dicts.setdefault((table_id, slot), Dictionary())
-            if dic.sorted:
+            logical = self._resolve(table_id)
+            dic = self._dicts.setdefault((logical, slot), Dictionary())
+            if dic.ci_sorted if ci else dic.sorted:
                 return dic
-            remap = dic.compact()
-            for r in self._regions:
-                entry = r.entry
-                if r.table_id == table_id and slot in entry.cols:
+            remap = dic.compact(ci=ci)
+            for (rid, tid), entry in self._entries.items():
+                if self._resolve(tid) == logical and slot in entry.cols:
                     data, valid = entry.cols[slot]
                     entry.cols[slot] = (remap[data], valid)
-                    entry._minmax.pop(slot, None)
+            for coll in (self._deltas, self._merged):
+                for (rid, tid), e in coll.items():
+                    if self._resolve(tid) == logical and slot in e.cols:
+                        data, valid = e.cols[slot]
+                        e.cols[slot] = (remap[data], valid)
+                        e._minmax.pop(slot, None)
+            # stable blocks hold codes against the same dictionary: remap them
+            # so future cache builds see compacted codes
+            store = self._store_ref()
+            if store is not None:
+                with store._mu:
+                    for tid, blocks in store._stable.items():
+                        if self._resolve(tid) != logical:
+                            continue
+                        for b in blocks:
+                            pair = b.cols.get(slot)
+                            if pair is not None and pair[0].dtype == np.int32:
+                                b.cols[slot] = (remap[pair[0]], pair[1])
             self.epoch += 1
             return dic
 
-    def add_region(self, region: "Region") -> None:
+    def add_region(self, region_id: int, table_id: int, entry: RegionColumns) -> None:
+        """Hold a carried region's decoded rows (a store-less cache)."""
         with self._mu:
-            if any(r.region_id == region.region_id for r in self._regions):
-                raise ValueError(f"region id {region.region_id} already in this cache")
-            self._regions.append(region)
+            if (region_id, table_id) in self._entries:
+                raise ValueError(f"region id {region_id} already in this cache")
+            self._entries[(region_id, table_id)] = entry
 
     def next_region_id(self) -> int:
         with self._mu:
-            return 1 + max((r.region_id for r in self._regions), default=0)
+            return 1 + max((rid for rid, _ in self._entries), default=0)
+
+    def unify_dictionaries(self, table_a: int, slot_a: int, table_b: int, slot_b: int) -> Dictionary:
+        """Make two string columns share ONE dictionary so their codes are
+        directly comparable (string equi-join keys across tables — ref: the
+        role collation-consistent encodings play for TiFlash join keys).
+        The second column's codes remap into the first's dictionary; cached
+        region entries and stable blocks follow, and the epoch bump drops
+        device copies. Idempotent and persistent: later encodes on either
+        column land in the shared dictionary."""
+        with self._mu:
+            ka = (self._resolve(table_a), slot_a)
+            kb = (self._resolve(table_b), slot_b)
+            da = self._dicts.setdefault(ka, Dictionary())
+            db = self._dicts.setdefault(kb, Dictionary())
+            if da is db:
+                return da
+            vals = db.values_array()
+            remap = np.fromiter((da.encode(v) for v in vals), dtype=np.int32, count=len(vals))
+            for coll in (self._entries, self._deltas, self._merged):
+                for (rid, tid), entry in coll.items():
+                    if self._resolve(tid) == kb[0] and slot_b in entry.cols:
+                        data, valid = entry.cols[slot_b]
+                        entry.cols[slot_b] = (remap[data] if len(vals) else data, valid)
+                        entry._minmax.pop(slot_b, None)
+            store = self.store
+            with store._mu:
+                for tid, blocks in store._stable.items():
+                    if self._resolve(tid) != kb[0]:
+                        continue
+                    for b in blocks:
+                        pair = b.cols.get(slot_b)
+                        if pair is not None and pair[0].dtype == np.int32 and len(vals):
+                            b.cols[slot_b] = (remap[pair[0]], pair[1])
+                        # row-read decode must follow the shared dictionary
+                        if getattr(b, "dicts", None) and slot_b in b.dicts:
+                            b.dicts[slot_b] = da
+            self._dicts[kb] = da
+            self.epoch += 1
+            return da
+
+    def ingest_lock(self):
+        """Context manager serializing bulk dictionary encoding + block
+        ingest against :meth:`ensure_sorted_dict` compaction — codes encoded
+        for a block must be appended to ``store._stable`` before any remap
+        runs, or the block would carry pre-compaction codes. Callers must
+        fetch dictionaries via :meth:`dictionary` BEFORE entering (the lock
+        is not reentrant)."""
+        return self._mu
+
+    # -- entry build/reuse -------------------------------------------------
+    def get(
+        self,
+        region: Region,
+        table_id: int,
+        schema: RowSchema,
+        slots: Sequence[int],
+        read_ts: int,
+    ) -> RegionColumns:
+        """Columns for the given storage slots of one region, reusing cached
+        decodes when the region's write epoch is unchanged. With a pending
+        delta the returned entry is a host-materialized ``base ⊕ delta``
+        view (the host engine's parity surface); device callers use
+        :meth:`get_split` to keep the base pinned and ship the delta as a
+        bounded kernel operand instead."""
+        base, delta = self.get_split(region, table_id, schema, slots, read_ts)
+        if delta is None or not delta.n:
+            return base
+        det = _ed.current_cop()
+        if det is not None:
+            det.delta_rows += delta.n
+        key = (region.region_id, table_id)
+        with self._mu:
+            m = self._merged.get(key)
+            if m is not None and not (
+                m.data_version == delta.data_version and m.built_ts == delta.built_ts and m.complete
+            ):
+                m = None
+        if m is None:
+            m = self._materialize(base, delta, table_id, schema, slots)
+            if m.complete:
+                with self._mu:
+                    self._merged[key] = m
+            return m
+        missing = [s for s in slots if s not in m.cols]
+        if missing:
+            mb, md, _keep, _put, _perm = m._merge_src
+            self._decode_slots(mb, table_id, schema, [s for s in missing if s not in mb.cols])
+            self._decode_delta_slots(md, table_id, schema, missing)
+            for s in missing:
+                self._materialize_slot(m, s)
+        return m
+
+    def get_split(
+        self,
+        region: Region,
+        table_id: int,
+        schema: RowSchema,
+        slots: Sequence[int],
+        read_ts: int,
+    ) -> tuple[RegionColumns, Optional[DeltaOverlay]]:
+        """(base, delta): the pinned base entry plus the pending committed
+        changes on top of it, or (entry, None) when the entry IS the head.
+        The delta path engages only when every commit since the base build
+        is itemized in the store's change log and small enough for the fixed
+        delta capacity; anything else folds through :meth:`_merge` (which
+        still re-uploads only dirty device blocks)."""
+        key = (region.region_id, table_id)
+        base_delta = None
+        for _attempt in range(4):
+            base_delta = self._get_split_once(key, region, table_id, schema, slots, read_ts)
+            if base_delta is not None:
+                break
+        if base_delta is None:
+            # repeated install races (merges landing back to back): plain merge
+            with self._mu:
+                old = self._entries.get(key)
+            base_delta = self._merge(key, region, table_id, schema, slots, read_ts, old), None
+        # cop-serve traffic seam: every serve counts — device-cache hits
+        # never reach the store's MVCC read seams, but a hammered-cached
+        # region is exactly what the keyspace heatmap (and the balancer's
+        # hot boost) must surface
+        note = getattr(self.store, "note_region_read", None)
+        if note is not None:
+            n = base_delta[0].n + (base_delta[1].n if base_delta[1] is not None else 0)
+            if n:
+                note(region.region_id, table_id, n, n * 8 * max(1, len(slots)))
+        return base_delta
+
+    def _get_split_once(self, key, region, table_id, schema, slots, read_ts):
+        """One get_split attempt; None = a concurrent merge replaced the
+        entry AFTER we read the change log (its prune may have erased the
+        evidence our verdict rests on) — the caller re-reads and retries."""
+        with self._mu:
+            entry = self._entries.get(key)
+        if entry is not None and entry.data_version == region.data_version and read_ts >= entry.built_ts:
+            self._ensure_slots(entry, table_id, schema, slots)
+            return entry, None
+        old = entry
+        cap, _merge_rows, min_rows = _delta_limits()
+        if (
+            old is not None
+            and old.complete
+            and read_ts >= old.built_ts
+            and old.range_start == region.start
+            and old.range_end == region.end
+            and old.n >= min_rows
+        ):
+            dv = region.data_version  # BEFORE the change read: a commit that
+            # lands in between surfaces as items and rejects this path
+            kind, payload = self.store.col_changes_since(region.region_id, table_id, old.built_ts)
+            # identity re-check: install+prune are atomic under _mu, so if
+            # the installed entry is still `old` HERE, no prune ran before
+            # the log read above and the verdict is trustworthy
+            with self._mu:
+                if self._entries.get(key) is not old:
+                    return None
+            if kind == "none":
+                # version moved without record changes for this table (index
+                # backfill, a sibling table in the region, meta keys): the
+                # entry still equals the table head — revalidate in place,
+                # pinning the device-facing version so HBM identities hold
+                with self._mu:
+                    if old.dev_version < 0:
+                        old.dev_version = old.data_version
+                    old.data_version = dv
+                self._ensure_slots(old, table_id, schema, slots)
+                return old, None
+            if kind == "items":
+                cur = [it for it in payload if it[0] <= read_ts]
+                pend = [it for it in payload if it[0] > read_ts]
+                if not cur:
+                    # every change is invisible at this read_ts: base IS the view
+                    self._ensure_slots(old, table_id, schema, slots)
+                    return old, None
+                hlo, hhi = tablecodec.range_to_handles(region.range(), table_id)
+                handles = np.unique(
+                    np.asarray([h for _, h, _ in cur if hlo <= h < hhi], dtype=np.int64)
+                )
+                if len(handles) and len(handles) <= cap:
+                    complete = not pend and read_ts >= region.max_commit_ts
+                    delta = self._delta_for(
+                        key, region, table_id, schema, slots, read_ts, handles, dv, complete
+                    )
+                    if delta is not None:
+                        self._ensure_slots(old, table_id, schema, slots)
+                        return old, delta
+        return self._merge(key, region, table_id, schema, slots, read_ts, old), None
+
+    def merge_now(self, region, table_id, schema, slots, read_ts) -> RegionColumns:
+        """Fold any pending delta into the base immediately and return the
+        (head) entry — for device shapes that cannot take the delta operand
+        (windows): the merge keeps clean-block device identities, where a
+        materialized view would re-key (and evict) every resident block."""
+        key = (region.region_id, table_id)
+        with self._mu:
+            old = self._entries.get(key)
+        if old is not None and old.data_version == region.data_version and read_ts >= old.built_ts:
+            self._ensure_slots(old, table_id, schema, slots)
+            return old
+        return self._merge(key, region, table_id, schema, slots, read_ts, old)
+
+    def _ensure_slots(self, entry: RegionColumns, table_id: int, schema, slots: Sequence[int]) -> None:
+        if schema is None:
+            return
+        missing = [s for s in slots if s not in entry.cols]
+        if missing:
+            self._decode_slots(entry, table_id, schema, missing)
+
+    def delta_rows_pending(self) -> int:
+        with self._mu:
+            return sum(len(d.handles) for d in self._deltas.values())
+
+    def _update_delta_gauge_locked(self) -> None:
+        _metrics.DEVICE_DELTA_ROWS.set(sum(len(d.handles) for d in self._deltas.values()))
+
+    # -- delta build --------------------------------------------------------
+    def _delta_for(self, key, region, table_id, schema, slots, read_ts, handles, dv, complete):
+        with self._mu:
+            d = self._deltas.get(key)
+            if d is not None and (
+                d.data_version != dv
+                or read_ts < d.built_ts
+                or not d.complete
+                or len(d.handles) != len(handles)
+                or not np.array_equal(d.handles, handles)
+            ):
+                d = None
+        if d is None:
+            d = self._build_delta(region, table_id, handles, read_ts, dv, complete)
+            if d.complete:
+                with self._mu:
+                    self._deltas[key] = d
+                    self._merged.pop(key, None)  # the view of the previous delta
+                    self._update_delta_gauge_locked()
+        if schema is not None and slots:
+            self._decode_delta_slots(d, table_id, schema, slots)
+        return d
+
+    def _build_delta(self, region, table_id, handles, read_ts, dv, complete) -> DeltaOverlay:
+        """Point-read the touched handles at read_ts and decode them into an
+        overlay. Lock conflicts resolve-and-retry like every reader path."""
+        keys = [tablecodec.record_key(table_id, int(h)) for h in handles]
+        snap = self.store.get_snapshot(read_ts)
+        vals = None
+        for _ in range(16):
+            vals = snap.get_many(keys)
+            locked = [v for v in vals if isinstance(v, KeyLockedError)]
+            if not locked:
+                break
+            for e in locked[:8]:
+                self.store.resolve_lock(e.key, e.lock)
+            _time.sleep(0.001)
+        else:
+            from tidb_tpu_torch.kv.kv import TxnAbortedError
+
+            raise TxnAbortedError("delta build: lock resolution did not converge")
+        tomb = np.fromiter((v is None for v in vals), dtype=bool, count=len(vals))
+        put_rows = np.nonzero(~tomb)[0]
+        chunks = [vals[i] for i in put_rows]
+        starts: list[int] = []
+        off = 0
+        for c in chunks:
+            starts.append(off)
+            off += len(c)
+        return DeltaOverlay(
+            handles=handles,
+            tomb=tomb,
+            data_version=dv,
+            built_ts=read_ts,
+            # a commit racing the build bumps data_version: don't cache
+            complete=complete and region.data_version == dv,
+            _buf=b"".join(chunks),
+            _starts=np.asarray(starts, dtype=np.int64),
+            _put_rows=put_rows,
+        )
+
+    def _decode_delta_slots(self, d: DeltaOverlay, table_id: int, schema, slots: Sequence[int]) -> None:
+        missing = [s for s in slots if s not in d.cols]
+        if not missing:
+            return
+        n = d.n
+        dec: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        if d.n_put:
+            fixed = [s for s in missing if schema.ftypes[s].kind not in (TypeKind.STRING, TypeKind.JSON)]
+            if fixed:
+                datas, valids = decode_fixed_bulk(schema, d._buf, d._starts, fixed)
+                for s, dd, vv in zip(fixed, datas, valids):
+                    dec[s] = (dd, vv)
+            for s in missing:
+                if s in dec:
+                    continue
+                raw, valid = decode_strings_bulk(schema, d._buf, d._starts, s)
+                dic = self.dictionary(table_id, s)
+                with self._mu:
+                    data = np.fromiter(
+                        (0 if r is None else dic.encode(r) for r in raw), dtype=np.int32, count=len(raw)
+                    )
+                dec[s] = (data, valid)
+        for s in missing:
+            ft = schema.ftypes[s]
+            dt = np.int32 if ft.kind in (TypeKind.STRING, TypeKind.JSON) else (
+                np.float64 if ft.kind == TypeKind.FLOAT else np.int64
+            )
+            full_d = np.zeros(n, dt)
+            full_v = np.zeros(n, bool)
+            if d.n_put:
+                dd, vv = dec[s]
+                full_d[d._put_rows] = dd.astype(dt, copy=False)
+                full_v[d._put_rows] = vv
+            d.cols[s] = (full_d, full_v)
+            d._minmax.pop(s, None)
+
+    # -- host materialization (parity surface) ------------------------------
+    def _materialize(self, base: RegionColumns, delta: DeltaOverlay, table_id, schema, slots) -> RegionColumns:
+        """base ⊕ delta as plain host arrays, ascending by handle — exactly
+        what a rebuild at the delta's snapshot would have produced."""
+        keep = np.ones(base.n, dtype=bool)
+        if delta.n and base.n:
+            pos = np.minimum(np.searchsorted(delta.handles, base.handles), delta.n - 1)
+            keep = delta.handles[pos] != base.handles
+        put = ~delta.tomb
+        handles = np.concatenate([base.handles[keep], delta.handles[put]])
+        perm = np.argsort(handles, kind="stable")
+        m = RegionColumns(
+            handles[perm],
+            len(handles),
+            data_version=delta.data_version,
+            built_ts=delta.built_ts,
+            complete=base.complete and delta.complete,
+            range_start=base.range_start,
+            range_end=base.range_end,
+        )
+        m._merge_src = (base, delta, keep, put, perm)
+        for s in dict.fromkeys(slots or ()):
+            self._materialize_slot(m, s)
+        return m
+
+    def _materialize_slot(self, m: RegionColumns, s: int) -> None:
+        base, delta, keep, put, perm = m._merge_src
+        bd, bv = base.cols[s]
+        dd, dv = delta.cols[s]
+        data = np.concatenate([bd[keep], dd[put].astype(bd.dtype, copy=False)])
+        valid = np.concatenate([bv[keep], dv[put]])
+        m.cols[s] = (data[perm], valid[perm])
+
+    # -- merge (delta → base fold, dirty-block accounting) -------------------
+    def _merge(self, key, region, table_id, schema, slots, read_ts, old) -> RegionColumns:
+        """Rebuild the base at read_ts and carry per-block version tags for
+        blocks whose content provably did not change — the delta-tree merge.
+        The swap is atomic (entry replaced only after a full build), so a
+        compactor dying mid-merge leaves the old base + change log intact
+        and no torn block is ever visible."""
+        t0 = _time.perf_counter()
+        entry = self._build(region, table_id, read_ts)
+        # chaos seam: tests kill the merge here — after the build, before
+        # the swap — to prove deltas survive and re-merge
+        failpoint.inject("colcache_merge", region.region_id, table_id)
+        if (
+            old is not None
+            and entry.complete
+            and old.complete
+            and entry.n
+            and old.range_start == region.start
+            and old.range_end == region.end
+        ):
+            self._carry_block_vers(entry, old, region.region_id, table_id)
+        if entry.complete:
+            with self._mu:
+                cur = self._entries.get(key)
+                if old is not None and cur is not None and cur is not old:
+                    # another merge installed (and pruned the change log)
+                    # while we were building: our carry verdicts may rest on
+                    # pruned evidence. Discard them — serve our fresh build
+                    # uninstalled with data_version-only device identity, so
+                    # no stale-tagged HBM block can be reused.
+                    entry.block_vers = None
+                else:
+                    self._entries[key] = entry
+                    self._deltas.pop(key, None)
+                    self._merged.pop(key, None)
+                    self._update_delta_gauge_locked()
+                    # prune under the SAME lock as the install: a reader that
+                    # still observes the old entry afterwards can only have
+                    # read the log before this point (un-pruned) — see the
+                    # identity re-check in get_split
+                    self.store.col_changes_prune(region.region_id, table_id, entry.built_ts)
+        self._ensure_slots(entry, table_id, schema, slots)
+        if old is not None:
+            wall = _time.perf_counter() - t0
+            _metrics.DEVICE_MERGE_SECONDS.observe(wall)
+            lg = _ev.on(_ev.DEBUG)
+            if lg is not None:
+                lg.emit(
+                    _ev.DEBUG, "colcache", "merge",
+                    region=region.region_id, table=table_id,
+                    rows=entry.n, wall_ms=round(wall * 1000.0, 3),
+                )
+            det = _ed.current_cop()
+            if det is not None:
+                det.merges += 1
+        return entry
+
+    def _carry_block_vers(self, new: RegionColumns, old: RegionColumns, rid: int, tid: int) -> None:
+        B = DEVICE_BLOCK_ROWS
+        kind, payload = self.store.col_changes_since(rid, tid, old.built_ts)
+        ch = span = None
+        if kind == "items":
+            ch = np.unique(np.asarray([h for _, h, _ in payload], dtype=np.int64))
+        elif kind == "span":
+            span = payload
+        else:
+            ch = np.empty(0, np.int64)
+        old_bv = old.block_vers
+        m = min(new.n, old.n)
+        if m:
+            neq = new.handles[:m] != old.handles[:m]
+            prefix = int(np.argmax(neq)) if bool(neq.any()) else m
+        else:
+            prefix = 0
+        nb = -(-new.n // B)
+        bv: list = []
+        carried = False
+        for bi in range(nb):
+            lo, hi = bi * B, min((bi + 1) * B, new.n)
+            # clean ⇔ same handles at the same positions AND no changed
+            # handle inside the block's span (values only move via logged
+            # changes). Rows the old device array holds beyond hi are dead
+            # under the kernel's nvalid mask, so a shrunk tail still carries.
+            clean = hi <= prefix
+            if clean:
+                h0, h1 = int(new.handles[lo]), int(new.handles[hi - 1])
+                if ch is not None and ch.size:
+                    i = int(np.searchsorted(ch, h0))
+                    clean = not (i < len(ch) and int(ch[i]) <= h1)
+                elif span is not None:
+                    clean = span[1] < h0 or h1 < span[0]
+            old_ver = old.dev_version if old.dev_version >= 0 else old.data_version
+            if clean:
+                bv.append(old_bv[bi] if old_bv and bi < len(old_bv) else old_ver)
+                carried = True
+            else:
+                bv.append(new.data_version)
+        if carried:
+            new.block_vers = bv
+
+    def merge_pending(self, threshold: int | None = None, should_stop=None) -> int:
+        """Fold every delta at or past ``threshold`` rows into its base (the
+        background compactor's work loop; ``should_stop`` is polled between
+        regions — the cooperative owner-fence seam)."""
+        _cap, merge_rows, _min = _delta_limits()
+        thr = merge_rows if threshold is None else threshold
+        with self._mu:
+            todo = [k for k, d in self._deltas.items() if len(d.handles) >= thr]
+        merged = 0
+        for rid, tid in todo:
+            if should_stop is not None and should_stop():
+                break
+            region = next((r for r in self.store.regions() if r.region_id == rid), None)
+            with self._mu:
+                old = self._entries.get((rid, tid))
+            if region is None:
+                with self._mu:
+                    self._deltas.pop((rid, tid), None)
+                    self._update_delta_gauge_locked()
+                continue
+            read_ts = self.store.current_ts()
+            self._merge((rid, tid), region, tid, None, (), read_ts, old)
+            merged += 1
+        if merged:
+            lg = _ev.on(_ev.INFO)
+            if lg is not None:
+                lg.emit(_ev.INFO, "colcache", "compactor_round", merged=merged)
+        return merged
+
+    @property
+    def store(self) -> MemStore:
+        s = self._store_ref()
+        assert s is not None, "store was garbage-collected"
+        return s
+
+    def _build(self, region: Region, table_id: int, read_ts: int) -> RegionColumns:
+        kr = region.range().intersect(tablecodec.record_range(table_id))
+        # capture version/coverage/bounds BEFORE the scan: a concurrent
+        # commit after this point bumps data_version and invalidates the
+        # entry; a split shifts the bounds and fails the range check
+        data_version = region.data_version
+        rng = (region.start, region.end)
+        complete = read_ts >= region.max_commit_ts
+        snap = self.store.get_snapshot(read_ts)
+        if kr is None:
+            return RegionColumns(
+                np.empty(0, np.int64), 0, data_version=data_version, built_ts=read_ts, complete=complete,
+                range_start=rng[0], range_end=rng[1],
+            )
+        from tidb_tpu_torch.kv.txn import retry_locked
+
+        # a concurrent writer's prewrite lock resolves-and-retries here, the
+        # reader-side ResolveLocks loop (ref: client-go snapshot backoff)
+        bulk = retry_locked(self.store, lambda: snap.scan_record_rows(kr))
+        parts = self.store.stable_parts(table_id, kr, read_ts)
+        if not parts:
+            return RegionColumns(
+                bulk.handles,
+                len(bulk),
+                data_version=data_version,
+                built_ts=read_ts,
+                complete=complete,
+                _buf=bulk.buf,
+                _starts=bulk.starts,
+                _delta_n=len(bulk),
+                range_start=rng[0],
+                range_end=rng[1],
+            )
+        return self._merge_stable(bulk, parts, data_version, read_ts, complete, rng)
+
+    def _merge_stable(self, bulk, parts, data_version: int, read_ts: int, complete: bool, rng=(b"", b"")) -> RegionColumns:
+        """Overlay the row-delta scan on the stable block slices with
+        newest-version-wins PER HANDLE across layers: a delta PUT/tombstone
+        masks stable rows from blocks committed before it, and a later block
+        masks both earlier blocks and older delta rows. The merged view is
+        ascending by handle."""
+        sh = np.concatenate([b.handles[lo:hi] for b, lo, hi in parts])
+        sh_ts = np.concatenate([np.full(hi - lo, b.commit_ts, np.int64) for b, lo, hi in parts])
+        take: np.ndarray | None = None
+        if len(parts) > 1 and not np.all(sh[:-1] < sh[1:]):
+            # overlapping ingests: keep the LAST occurrence of each handle
+            # (parts are in ingest order), then ascending-handle order
+            order = np.lexsort((np.arange(len(sh)), sh))  # sort by handle, ingest order ties
+            shs = sh[order]
+            last = np.ones(len(shs), dtype=bool)
+            last[:-1] = shs[:-1] != shs[1:]
+            take = order[last]
+            sh = shs[last]
+            sh_ts = sh_ts[take]
+        # delta rows shadowed by a NEWER stable block (e.g. re-import over
+        # previously updated keys) drop out of the delta side
+        delta_take: np.ndarray | None = None
+        if len(bulk) and len(sh):
+            pos = np.minimum(np.searchsorted(sh, bulk.handles), len(sh) - 1)
+            shadowed = (sh[pos] == bulk.handles) & (sh_ts[pos] > bulk.put_ts)
+            if shadowed.any():
+                delta_take = np.nonzero(~shadowed)[0]
+        # stable rows masked by a NEWER delta verdict
+        ov_h = np.concatenate([bulk.handles, bulk.tombstones])
+        if len(ov_h) and len(sh):
+            ov_ts = np.concatenate([bulk.put_ts, bulk.tomb_ts])
+            o = np.argsort(ov_h)
+            ov_h, ov_ts = ov_h[o], ov_ts[o]
+            pos = np.minimum(np.searchsorted(ov_h, sh), len(ov_h) - 1)
+            hit = (ov_h[pos] == sh) & (ov_ts[pos] > sh_ts)
+            if hit.any():
+                keep = ~hit
+                take = np.nonzero(keep)[0] if take is None else take[keep]
+                sh = sh[keep]
+        delta_handles = bulk.handles if delta_take is None else bulk.handles[delta_take]
+        perm: np.ndarray | None = None
+        if len(delta_handles):
+            handles = np.concatenate([sh, delta_handles])
+            perm = np.argsort(handles, kind="stable")
+            handles = handles[perm]
+        else:
+            handles = sh
+        return RegionColumns(
+            handles,
+            len(handles),
+            data_version=data_version,
+            built_ts=read_ts,
+            complete=complete,
+            _buf=bulk.buf,
+            _starts=bulk.starts,
+            _delta_n=len(bulk),
+            _stable_parts=parts,
+            _stable_take=take,
+            _delta_take=delta_take,
+            _perm=perm,
+            range_start=rng[0],
+            range_end=rng[1],
+        )
+
+    def _decode_slots(self, entry: RegionColumns, table_id: int, schema: RowSchema, slots: Sequence[int]) -> None:
+        if entry.n == 0:
+            for s in slots:
+                ft = schema.ftypes[s]
+                dt = np.int32 if ft.kind == TypeKind.STRING else (np.float64 if ft.kind == TypeKind.FLOAT else np.int64)
+                entry.cols[s] = (np.empty(0, dt), np.empty(0, bool))
+            return
+        # 1) decode the row-delta lanes (small in steady state)
+        delta: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        if entry._delta_n:
+            fixed = [s for s in slots if schema.ftypes[s].kind not in (TypeKind.STRING, TypeKind.JSON)]
+            if fixed:
+                datas, valids = decode_fixed_bulk(schema, entry._buf, entry._starts, fixed)
+                for s, d, v in zip(fixed, datas, valids):
+                    delta[s] = (d, v)
+            for s in slots:
+                if s in delta:
+                    continue
+                raw, valid = decode_strings_bulk(schema, entry._buf, entry._starts, s)
+                dic = self.dictionary(table_id, s)
+                with self._mu:
+                    data = np.fromiter(
+                        (0 if r is None else dic.encode(r) for r in raw), dtype=np.int32, count=len(raw)
+                    )
+                delta[s] = (data, valid)
+        # 2) overlay on stable block slices (zero-copy in the pure-stable,
+        #    single-block case — the bulk-load steady state)
+        for s in slots:
+            if s in entry.cols:
+                continue
+            if not entry._stable_parts:
+                entry.cols[s] = delta[s]
+                continue
+            def part_cols(b, lo, hi):
+                pair = b.cols.get(s)
+                if pair is None:
+                    # column added after this block was ingested (ADD COLUMN
+                    # without rewrite): all-NULL for the block's rows
+                    ft = schema.ftypes[s]
+                    dt = np.int32 if ft.kind in (TypeKind.STRING, TypeKind.JSON) else (
+                        np.float64 if ft.kind == TypeKind.FLOAT else np.int64
+                    )
+                    return np.zeros(hi - lo, dt), np.zeros(hi - lo, bool)
+                return pair[0][lo:hi], pair[1][lo:hi]
+
+            if len(entry._stable_parts) == 1:
+                sdata, svalid = part_cols(*entry._stable_parts[0])
+            else:
+                pieces = [part_cols(b, lo, hi) for b, lo, hi in entry._stable_parts]
+                sdata = np.concatenate([p[0] for p in pieces])
+                svalid = np.concatenate([p[1] for p in pieces])
+            if entry._stable_take is not None:
+                sdata, svalid = sdata[entry._stable_take], svalid[entry._stable_take]
+            if entry._delta_n:
+                dd, dv = delta[s]
+                if entry._delta_take is not None:
+                    dd, dv = dd[entry._delta_take], dv[entry._delta_take]
+                sdata = np.concatenate([sdata, dd.astype(sdata.dtype, copy=False)])
+                svalid = np.concatenate([svalid, dv])
+            if entry._perm is not None:
+                sdata, svalid = sdata[entry._perm], svalid[entry._perm]
+            entry.cols[s] = (sdata, svalid)
+
+    def invalidate_table(self, table_id: int) -> None:
+        """DDL (drop/truncate) drops cached columns."""
+        with self._mu:
+            for coll in (self._entries, self._deltas, self._merged):
+                for key in [k for k in coll if k[1] == table_id]:
+                    del coll[key]
+            for key in [k for k in self._dicts if k[0] == table_id]:
+                del self._dicts[key]
+            self.epoch += 1
+            self._update_delta_gauge_locked()
+        drop = getattr(self.store, "col_changes_drop", None)
+        if drop is not None:
+            drop(table_id)
 
 
-@dataclass
-class Region:
-    """One region of one table: its key bounds, its rows and its cache."""
+import weakref
 
-    region_id: int
-    table_id: int
-    start: bytes
-    end: bytes
-    entry: RegionColumns
-    cache: ColumnCache
+_CACHES: "weakref.WeakKeyDictionary[MemStore, ColumnCache]" = weakref.WeakKeyDictionary()
+_CACHES_MU = threading.Lock()
+
+
+def cache_for(store: MemStore) -> ColumnCache:
+    with _CACHES_MU:
+        c = _CACHES.get(store)
+        if c is None:
+            c = ColumnCache(store)
+            _CACHES[store] = c
+        return c
+
+
+def peek_resident_bytes(store, table_id: int) -> int:
+    """Cached bytes for one table WITHOUT creating a cache — the planner's
+    residency probe (planning a query must never allocate columnar state
+    for a store that has served none)."""
+    with _CACHES_MU:
+        c = _CACHES.get(store)
+    return c.table_resident_bytes(table_id) if c is not None else 0

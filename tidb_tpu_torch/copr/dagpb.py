@@ -1,25 +1,20 @@
 """DAG request "protobuf" — the wire contract between SQL layer and engines.
 
-Port of tidb_tpu/copr/dagpb.py, whole: ``DAGRequest.from_pb`` reads exactly
-what the reference's ``to_pb`` writes, and ``fingerprint`` hashes the same
-bytes, so a DAG keeps its identity across the two packages.
-
 Reference parity: pingcap/tipb DAGRequest + Executor messages, as consumed by
 unistore's cophandler (closure_exec.go:72-149 dispatch on tipb.ExecType_*).
 Plain JSON-able dataclasses instead of protobuf — the process boundary in
 this build is a function call or (multi-host) a serialized dict.
 
 An executor list is a linear chain bottom-up: executors[0] is always a scan.
-(Joins and exchanges appear only in MPP fragments, which this port does
-not run yet.)
+(Joins/exchanges appear only in MPP fragments, tidb_tpu.parallel.)
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any
+from typing import Any, Optional
 
-from tidb_tpu_torch.types import FieldType
+from tidb_tpu_torch.types import FieldType, TypeKind
 from tidb_tpu_torch.expression.expr import _ft_pb, _ft_from_pb  # shared FieldType wire form
 
 # executor types (ref: tipb.ExecType)
@@ -89,7 +84,7 @@ class ExecutorPB:
     aggs: list[dict] = field(default_factory=list)  # AggDesc pb
     agg_mode: str = AGG_COMPLETE
     # binder-stamped exact (lo, hi) per agg argument (None = unbounded) —
-    # static magnitude proofs for the dense grouped-sum routes; participates in
+    # static magnitude proofs for the MXU grouped-sum path; participates in
     # to_pb so kernels never reuse stale bounds
     arg_bounds: list = field(default_factory=list)
     # binder-stamped int32 narrow-eval proofs (group keys / agg arguments)

@@ -1,7 +1,10 @@
 """GPU coprocessor engine: region columns → device cache → fused program.
 
-Port of tidb_tpu/copr/tpu_engine.py without the delta operand. Per region
-task:
+Port of tidb_tpu/copr/tpu_engine.py without the delta operand. The cop
+client calls :func:`execute_dag` (the reference's signature) per region
+task; it takes the region's columns from the store's ``ColumnCache`` and
+runs :func:`execute_region`, which a caller holding decoded columns
+(``carry.region_from_arrays``) may call directly. Per region task:
 
 1. keep the region's columns resident on the device in an LRU bounded by
    the card's memory (``_DeviceLRU``), keyed by (region, table, slot, unit,
@@ -28,28 +31,36 @@ mode (the root merges groups across tasks and blocks), TopN and LIMIT tasks
 return per-block candidates the root re-sorts and cuts.
 
 Overflow protocol: if the program reports more groups than its static cap,
-rerun with a 4x larger cap. The engine has no host fallback: a DAG shape
-the port does not carry raises ``UnsupportedForDevice``.
+rerun with a 4x larger cap. ``execute_region`` has no host fallback: a DAG
+shape the port does not carry raises ``UnsupportedForDevice``, and
+``execute_dag`` answers that task on the host engine, recorded as the
+task's ``degraded`` reason. Nothing else falls back: a CUDA error or a
+kernel build or launch failure propagates.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from tidb_tpu_torch.copr import dagpb
+from tidb_tpu_torch.copr import dagpb, host_engine
 from tidb_tpu_torch.copr.binder import Binder, UnsupportedForDevice
-from tidb_tpu_torch.copr.colcache import DEVICE_BLOCK_ROWS, Region
+from tidb_tpu_torch.copr.colcache import DEVICE_BLOCK_ROWS, ColumnCache, RegionColumns, cache_for
 from tidb_tpu_torch.device import resolve
 from tidb_tpu_torch.expression.expr import AggDesc, _ft_from_pb, expr_from_pb
 from tidb_tpu_torch.kv import tablecodec
-from tidb_tpu_torch.kv.tablecodec import KeyRange
+from tidb_tpu_torch.kv.kv import KeyRange
+from tidb_tpu_torch.kv.rowcodec import RowSchema
 from tidb_tpu_torch.ops.dag_kernel import MAX_RANGES, get_kernel
 from tidb_tpu_torch.types import FieldType, TypeKind
 from tidb_tpu_torch.types.field_type import bigint_type, double_type
+from tidb_tpu_torch.utils import execdetails as _ed
+from tidb_tpu_torch.utils import metrics as _metrics
 from tidb_tpu_torch.utils.chunk import Chunk, Column, bucket_size
 
 _DEFAULT_AGG_CAP = 4096
@@ -59,6 +70,20 @@ _FUSE_MAX_NB = 8  # fused multi-block programs: the card holds the inputs and th
 # programs' working set (one-hot and limb operands, packed outputs)
 _HBM_SHARE = 0.5
 _HOST_BUDGET = 8 << 30  # device="cpu": the "device" copies are host tensors
+
+
+@dataclass
+class RegionView:
+    """One region task's rows of one table: the decoded columns and the
+    cache that holds their dictionaries and device copies. ``cacheable``
+    is False for an entry built at an older snapshot than the region's
+    head, whose device copies must not be kept under the head's version."""
+
+    region_id: int
+    table_id: int
+    entry: RegionColumns
+    cache: ColumnCache
+    cacheable: bool = True
 
 
 class _DeviceLRU:
@@ -122,11 +147,12 @@ def _device_lru(cache, device: torch.device) -> _DeviceLRU:
         return lru
 
 
-def _device_put_col(lru: _DeviceLRU, key, make_pair, n_pad: int, device: torch.device):
+def _device_put_col(lru: _DeviceLRU, key, make_pair, n_pad: int, device: torch.device, cacheable: bool = True):
     """One padded (data, valid) pair on ``device``, LRU-cached under
-    ``key``. ``make_pair`` is a thunk: host-side preparation (the int32
-    narrowing walks the whole column) runs only on a miss."""
-    hit = lru.get(key)
+    ``key`` when ``cacheable``. ``make_pair`` is a thunk: host-side
+    preparation (the int32 narrowing walks the whole column) runs only on
+    a miss."""
+    hit = lru.get(key) if cacheable else None
     if hit is not None:
         return hit
     data, valid = make_pair()
@@ -135,6 +161,8 @@ def _device_put_col(lru: _DeviceLRU, key, make_pair, n_pad: int, device: torch.d
     pv = np.zeros(n_pad, dtype=bool)
     pv[: len(valid)] = valid
     out = (torch.from_numpy(pd).to(device), torch.from_numpy(pv).to(device))
+    if not cacheable:
+        return out
     # key layout: (region_id, table_id, slot, unit, version, epoch, n_pad)
     lru.put(key, out, pd.nbytes + pv.nbytes)
     lru.evict_superseded(key[:4], key[4:6])
@@ -183,7 +211,61 @@ def _should_fuse_agg(dag: dagpb.DAGRequest, entry) -> bool:
     return entry.n > _BLOCK and agg_last and _n_blocks(entry.n) <= _FUSE_MAX_NB
 
 
-def execute_dag(region: Region, dag: dagpb.DAGRequest, ranges: list[KeyRange], warn=None, device="cuda", stats=None) -> Chunk:
+def execute_dag(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRange], read_ts: int, warn=None) -> Chunk:
+    """The ``gpu`` cop engine: one pushed-down DAG over one store region
+    (``kv.memstore.Region``) at ``read_ts``, on the device the store
+    carries (``store.device``, set by ``tidb_tpu_torch.open``). Fills the
+    task's ExecDetails sidecar: a ``device-exec`` span, ``device_ms`` and
+    ``engine = "gpu"``; a shape the device engine does not carry runs on
+    the host engine with ``degraded`` set to the reason."""
+    det = _ed.current_cop()
+    if det is None:
+        try:
+            return _execute_dag_device(store, dag, region, ranges, read_ts, warn)
+        except UnsupportedForDevice:
+            return host_engine.execute_dag(store, dag, region, ranges, read_ts, warn)
+    t0 = time.perf_counter()
+    h0 = det.host_ms
+    try:
+        try:
+            with _ed.trace_span("device-exec"):
+                return _execute_dag_device(store, dag, region, ranges, read_ts, warn)
+        except UnsupportedForDevice as e:
+            det.degraded = det.degraded or f"unsupported-for-device: {e}"
+            return host_engine.execute_dag(store, dag, region, ranges, read_ts, warn)
+    finally:
+        # device-time attribution, unless the task ran on the host engine
+        # (which attributed itself and claimed the engine label)
+        if det.host_ms - h0 <= 0.0:
+            dev_ms = (time.perf_counter() - t0) * 1000.0
+            det.device_ms += dev_ms
+            det.engine = "gpu"
+            _metrics.COP_DEVICE_SECONDS.observe(dev_ms / 1000.0)
+
+
+def store_device(store) -> torch.device:
+    """The store's device, resolved once (``device.resolve``): with no card
+    a CUDA device raises here, on the first device task."""
+    dev = getattr(store, "_gpu_device", None)
+    if dev is None:
+        dev = store._gpu_device = resolve(getattr(store, "device", "cuda"))
+    return dev
+
+
+def _execute_dag_device(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRange], read_ts: int, warn=None) -> Chunk:
+    dev = store_device(store)
+    scan = dag.executors[0]
+    schema = RowSchema(scan.storage_schema)
+    slots = [c.column_id for c in scan.columns if not c.is_handle]
+    cache = cache_for(store)
+    entry, delta = cache.get_split(region, scan.table_id, schema, slots, read_ts)
+    if delta is not None and delta.n:
+        raise UnsupportedForDevice("committed changes pending on the pinned entry: the delta operand is not ported")
+    view = RegionView(region.region_id, scan.table_id, entry, cache, cacheable=entry.complete)
+    return execute_region(view, dag, ranges, warn, dev)
+
+
+def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRange], warn=None, device="cuda", stats=None) -> Chunk:
     """Run one pushed-down DAG over one region on ``device`` → Chunk.
 
     ``ranges`` are the task's record-key ranges (at most ``MAX_RANGES``);
@@ -223,7 +305,7 @@ def execute_dag(region: Region, dag: dagpb.DAGRequest, ranges: list[KeyRange], w
     return _exec_single(region, dag, bound, scan, rarr, dev, warn, stats)
 
 
-def _device_inputs(region: Region, scan, unit, lo: int, hi: int, n_pad: int, device: torch.device):
+def _device_inputs(region: RegionView, scan, unit, lo: int, hi: int, n_pad: int, device: torch.device):
     """(handles, column pairs) of rows [lo, hi) on ``device``, padded to
     ``n_pad`` and LRU-cached under ``unit``: "s" for a region held as one
     array, else the block index. Blocks are put on demand, so a LIMIT that
@@ -235,7 +317,9 @@ def _device_inputs(region: Region, scan, unit, lo: int, hi: int, n_pad: int, dev
     ver = entry.vtag_span(lo, hi)
     base = (region.region_id, scan.table_id)
     hkey = base + (-1, unit, ver, cache.epoch, n_pad)
-    hpair = _device_put_col(lru, hkey, lambda: (entry.handles[lo:hi], np.ones(hi - lo, bool)), n_pad, device)
+    hpair = _device_put_col(
+        lru, hkey, lambda: (entry.handles[lo:hi], np.ones(hi - lo, bool)), n_pad, device, region.cacheable
+    )
     cols_dev = []
     for c in scan.columns:
         if c.is_handle:
@@ -249,11 +333,11 @@ def _device_inputs(region: Region, scan, unit, lo: int, hi: int, n_pad: int, dev
             # column gets one dtype, so the fused program can concatenate
             return _narrowed(entry, cid, data[lo:hi]), valid[lo:hi]
 
-        cols_dev.append(_device_put_col(lru, ckey, mk, n_pad, device))
+        cols_dev.append(_device_put_col(lru, ckey, mk, n_pad, device, region.cacheable))
     return hpair[0], tuple(cols_dev)
 
 
-def _fused_block_inputs(region: Region, scan, device: torch.device):
+def _fused_block_inputs(region: RegionView, scan, device: torch.device):
     """(handles per block, per column its pairs per block, live rows per
     block, block count) for the fused multi-block program."""
     bounds = _block_bounds(region.entry.n)
@@ -311,7 +395,7 @@ def _run_whole(get, run, agg_cap: int, cap_max: int, stats: dict):
         return kernel, buf, fbuf
 
 
-def _exec_single(region: Region, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
+def _exec_single(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
     """One padded array per column, one program run: a region of at most one
     device block, or a complete-mode aggregation."""
     entry = region.entry
@@ -331,7 +415,7 @@ def _exec_single(region: Region, dag, bound, scan, rarr, device: torch.device, w
     return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
 
 
-def _exec_fused_blocks(region: Region, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
+def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
     """An aggregation-last DAG over a region of several blocks: one program
     over every block, one dispatch, no merge of per-block partials."""
     entry = region.entry
@@ -351,7 +435,7 @@ def _exec_fused_blocks(region: Region, dag, bound, scan, rarr, device: torch.dev
     return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
 
 
-def _exec_blocks(region: Region, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
+def _exec_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
     """A region of several blocks, one program per block: aggregations and
     TopN run every block and copy the stacked results once; a LIMIT-last DAG
     pages through the blocks."""

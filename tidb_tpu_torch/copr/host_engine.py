@@ -1,0 +1,628 @@
+"""Host coprocessor engine — numpy reference implementation.
+
+Reference parity: unistore's fused closure executor
+(pkg/store/mockstore/unistore/cophandler/closure_exec.go:165
+buildClosureExecutor; dispatch :72-149). Executes a DAGRequest over one
+region's columns entirely in numpy. It is (a) the correctness oracle the TPU
+engine is tested against, and (b) the fallback engine for expressions the
+device can't run (LIKE, arbitrary string ops — ref: pushdown legality,
+infer_pushdown.go).
+
+Aggregation here (and on the TPU) is sort-based grouping: lexsort the group
+keys, find segment boundaries, reduce per segment — the same algorithm the
+device kernel uses, so partial-result semantics match bit-for-bit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from tidb_tpu_torch.copr import dagpb
+from tidb_tpu_torch.copr.colcache import RegionColumns, cache_for
+from tidb_tpu_torch.expression.expr import (
+    AggDesc,
+    EvalBatch,
+    _ft_from_pb,
+    eval_to_column,
+    expr_from_pb,
+)
+from tidb_tpu_torch.kv import KeyRange, tablecodec
+from tidb_tpu_torch.kv.memstore import MemStore, Region
+from tidb_tpu_torch.kv.rowcodec import RowSchema
+from tidb_tpu_torch.types import FieldType, TypeKind
+from tidb_tpu_torch.types.field_type import bigint_type, double_type
+from tidb_tpu_torch.utils.chunk import Chunk, Column, Dictionary
+
+
+@dataclass
+class ExecOutput:
+    """Intermediate batch between chained executors."""
+
+    chunk: Chunk
+
+    @property
+    def batch(self) -> EvalBatch:
+        return EvalBatch.from_chunk(self.chunk)
+
+
+def _scan(store: MemStore, region: Region, ex: dagpb.ExecutorPB, ranges: list[KeyRange], read_ts: int) -> Chunk:
+    schema = RowSchema(ex.storage_schema)
+    slots = [c.column_id for c in ex.columns if not c.is_handle]
+    cache = cache_for(store)
+    entry = cache.get(region, ex.table_id, schema, slots, read_ts)
+    # restrict to requested handle ranges (handles ascend in the entry)
+    if entry.n:
+        mask = np.zeros(entry.n, dtype=bool)
+        for kr in ranges:
+            lo, hi = tablecodec.range_to_handles(kr, ex.table_id)
+            i = np.searchsorted(entry.handles, lo, side="left")
+            j = np.searchsorted(entry.handles, hi, side="left")
+            mask[i:j] = True
+        idx = np.nonzero(mask)[0]
+    else:
+        idx = np.empty(0, dtype=np.int64)
+    cols = []
+    for c in ex.columns:
+        if c.is_handle:
+            cols.append(Column(entry.handles[idx], np.ones(len(idx), bool), bigint_type(nullable=False)))
+        else:
+            data, valid = entry.cols[c.column_id]
+            dic = cache.dictionary(ex.table_id, c.column_id) if c.ftype.kind == TypeKind.STRING else None
+            cols.append(Column(data[idx], valid[idx], c.ftype, dic))
+    if ex.desc:
+        cols = [Column(c.data[::-1], c.validity[::-1], c.ftype, c.dictionary) for c in cols]
+    return Chunk(cols)
+
+
+def _index_scan(store: MemStore, region: Region, ex: dagpb.ExecutorPB, ranges: list[KeyRange], read_ts: int) -> Chunk:
+    """Scan index entries, decoding flagged datums from keys (ref: unistore
+    cophandler index scan; tablecodec index layout). Output columns are a
+    subset of the index's key columns plus the handle pseudo-column; rows come
+    back in index-key order (keep_order semantics)."""
+    from tidb_tpu_torch.utils import codec as ucodec
+
+    snap = store.get_snapshot(read_ts)
+    prefix = tablecodec.index_prefix(ex.table_id, ex.index_id)
+    plen = len(prefix)
+    fts = [ex.storage_schema[off] for off in ex.index_col_offsets]
+    per_col: list[list] = [[] for _ in ex.index_col_offsets]
+    handles: list[int] = []
+    from tidb_tpu_torch.kv.txn import retry_locked
+
+    for kr in ranges:
+        rr = kr.intersect(region.range())
+        if rr is None:
+            continue
+        # reader-side lock resolution (same loop the record scan runs)
+        for k, v in retry_locked(store, lambda rr=rr: snap.scan(rr)):
+            off = plen
+            for ci in range(len(fts)):
+                val, off = ucodec.decode_key_one(k, off)
+                per_col[ci].append(val)
+            if off + 8 <= len(k):  # non-unique: handle suffix in key
+                handles.append(ucodec.decode_int_raw(k, off))
+            else:  # unique: handle in value
+                handles.append(ucodec.decode_int_raw(v))
+    n = len(handles)
+    by_offset = {off: i for i, off in enumerate(ex.index_col_offsets)}
+    cols = []
+    cache = cache_for(store)
+    for c in ex.columns:
+        if c.is_handle:
+            cols.append(Column(np.asarray(handles, np.int64), np.ones(n, bool), bigint_type(nullable=False)))
+            continue
+        vals = per_col[by_offset[c.column_id]]
+        valid = np.array([v is not None for v in vals], dtype=bool) if n else np.empty(0, bool)
+        if c.ftype.kind == TypeKind.STRING:
+            dic = cache.dictionary(ex.table_id, c.column_id)
+            data = np.array([0 if v is None else dic.encode(v) for v in vals], dtype=np.int32) if n else np.empty(0, np.int32)
+            cols.append(Column(data, valid, c.ftype, dic))
+        elif c.ftype.kind == TypeKind.FLOAT:
+            data = np.array([0.0 if v is None else float(v) for v in vals], dtype=np.float64) if n else np.empty(0, np.float64)
+            cols.append(Column(data, valid, c.ftype))
+        else:
+            data = np.array([0 if v is None else int(v) for v in vals], dtype=np.int64) if n else np.empty(0, np.int64)
+            cols.append(Column(data, valid, c.ftype))
+    if ex.desc:
+        cols = [Column(c.data[::-1], c.validity[::-1], c.ftype, c.dictionary) for c in cols]
+    return Chunk(cols)
+
+
+def _selection(chunk: Chunk, conditions: list[dict], warn=None) -> Chunk:
+    if not len(chunk):
+        return chunk
+    batch = EvalBatch.from_chunk(chunk, warn=warn)
+    keep = np.ones(len(chunk), dtype=bool)
+    for pb in conditions:
+        c = eval_to_column(expr_from_pb(pb), batch, np)
+        keep &= (c.data != 0) & c.validity  # NULL predicate == not selected
+    idx = np.nonzero(keep)[0]
+    return chunk.take(idx)
+
+
+def _aggregate_rollup(chunk: Chunk, ex: dagpb.ExecutorPB, warn=None) -> Chunk:
+    """WITH ROLLUP over one materialized chunk: one grouped aggregation per
+    PREFIX set over the SAME scanned rows (one scan, G+1 cheap re-groupings
+    — the host fallback of the device's (G+1)-hot dot), output layout
+    [agg lanes, keys (NULL when rolled up), GROUPING flags]."""
+    from tidb_tpu_torch.types.field_type import bigint_type
+
+    G = len(ex.group_by)
+    flag_ft = bigint_type(nullable=False)
+    outs: list[Chunk] = []
+    key_fts = [_ft_from_pb(g["ft"]) for g in ex.group_by]
+    # NULLed rolled-up key columns must share the REAL key column's
+    # dictionary or the set concat would mix incompatible code spaces
+    key_dics = [
+        chunk.columns[g["idx"]].dictionary
+        if g.get("tp") == "col" and g["idx"] < chunk.num_cols
+        else None
+        for g in ex.group_by
+    ]
+    for k in range(G, -1, -1):
+        if k == 0 and len(chunk) == 0:
+            continue  # MySQL: no () super-aggregate over empty input
+        sub = dagpb.ExecutorPB(
+            ex.tp, group_by=ex.group_by[:k], aggs=ex.aggs, agg_mode=ex.agg_mode
+        )
+        part = _aggregate(chunk, sub, warn)
+        m = len(part)
+        n_aggs = part.num_cols - k
+        cols = list(part.columns[:n_aggs])
+        cols.extend(part.columns[n_aggs:])  # the k leading keys
+        for j in range(k, G):  # rolled-up keys: NULL
+            ft = key_fts[j]
+            dt = np.int32 if ft.kind == TypeKind.STRING else (np.float64 if ft.kind == TypeKind.FLOAT else np.int64)
+            cols.append(Column(np.zeros(m, dt), np.zeros(m, bool), ft, key_dics[j]))
+        for j in range(G):  # GROUPING() flags
+            cols.append(Column(np.full(m, 0 if j < k else 1, np.int64), np.ones(m, bool), flag_ft))
+        outs.append(Chunk(cols))
+    if not outs:
+        # empty input: zero rows with the full column layout
+        sub = dagpb.ExecutorPB(ex.tp, group_by=ex.group_by, aggs=ex.aggs, agg_mode=ex.agg_mode)
+        base = _aggregate(chunk, sub, warn)
+        cols = list(base.columns) + [
+            Column(np.empty(0, np.int64), np.empty(0, bool), flag_ft) for _ in range(G)
+        ]
+        return Chunk([Column(c.data[:0], c.validity[:0], c.ftype, c.dictionary) for c in cols])
+    return Chunk.concat(outs) if len(outs) > 1 else outs[0]
+
+
+def _group_sort(chunk: Chunk, key_cols: list[Column]) -> tuple[np.ndarray, np.ndarray, int]:
+    """Lexsort rows by group keys → (perm, segment_ids_sorted, n_groups)."""
+    n = len(chunk)
+    if not key_cols:
+        return np.arange(n), np.zeros(n, dtype=np.int64), 1
+    lanes = []
+    from tidb_tpu_torch.utils.collate import canon_codes, is_ci_string
+
+    # ci collation: group keys compare by general_ci WEIGHT — map every
+    # code to its weight-class representative so 'a'/'A'/'á' collapse
+    # into one group (ref: collate-aware group keys)
+    masked = [
+        canon_codes(c.data, c.validity, c.dictionary)
+        if is_ci_string(c)
+        else np.where(c.validity, c.data, 0)
+        for c in key_cols
+    ]  # NULL lanes
+    for c, md in zip(key_cols, masked):  # may hold garbage from computed exprs
+        lanes.append(md)
+        lanes.append(~c.validity)  # NULLs form their own (single) group
+    perm = np.lexsort(tuple(reversed(lanes)))  # first key = primary
+    boundary = np.zeros(n, dtype=bool)
+    if n:
+        boundary[0] = True
+        for c, md in zip(key_cols, masked):
+            ds, vs = md[perm], c.validity[perm]
+            boundary[1:] |= ds[1:] != ds[:-1]
+            boundary[1:] |= vs[1:] != vs[:-1]
+    seg = np.cumsum(boundary) - 1
+    ngroups = int(seg[-1]) + 1 if n else 0
+    return perm, seg, ngroups
+
+
+def minmax_sentinel(op: str, dtype):
+    """Neutral element for a segmented min/max over lanes of ``dtype``.
+    Must fit the lane dtype: string codes travel as int32, and an int64
+    max would wrap to -1 there (shared by the cop engine and the
+    executor's partial merge)."""
+    if np.dtype(dtype).kind == "f":
+        return np.inf if op == "min" else -np.inf
+    info = np.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def _string_minmax(op: str, data, valid, seg, ngroups: int, dic, ci: bool):
+    """MIN/MAX over a dictionary-coded string lane. Codes are insertion-order
+    identities, not an order: reducing them raw returns whichever value was
+    dictionary-encoded first/last, which is wrong whenever the dictionary is
+    unsorted and ALWAYS wrong for general_ci (weight order ≠ byte order).
+    Rank the codes under the column's collation, reduce ranks, map back.
+    Within a ci weight class the byte order breaks ties, so the returned
+    member is deterministic. Found by graftfuzz (the whole-suite blind spot:
+    any prior device query force-sorts the dictionary and 'heals' the bin
+    case, so engine-parity tests never saw it)."""
+    vals = dic.values_array()
+    if ci:
+        from tidb_tpu_torch.utils.collate import weight_bytes
+
+        order = sorted(range(len(vals)), key=lambda c: (weight_bytes(vals[c]), vals[c]))
+    else:
+        order = sorted(range(len(vals)), key=lambda c: vals[c])
+    rank_of = np.zeros(max(len(vals), 1), dtype=np.int64)
+    for r, c in enumerate(order):
+        rank_of[c] = r
+    safe = np.where(valid, data, 0).astype(np.int64)
+    ranks = rank_of[np.clip(safe, 0, len(rank_of) - 1)]
+    res, cnt = _segment_reduce(op, ranks, valid, seg, ngroups)
+    back = np.asarray(order if order else [0], dtype=np.int64)
+    codes = back[np.clip(np.where(cnt > 0, res, 0), 0, len(back) - 1)]
+    return codes.astype(data.dtype), cnt
+
+
+def string_minmax_needs_rank(ftype, dic) -> bool:
+    """True when raw-code reduction would misorder: ci collation (weight
+    order), or a dictionary whose codes are not rank-compacted yet."""
+    return ftype.kind == TypeKind.STRING and dic is not None and (
+        ftype.collation == "ci" or not dic.sorted
+    )
+
+
+def _segment_reduce(op: str, data: np.ndarray, valid: np.ndarray, seg: np.ndarray, ngroups: int):
+    """→ (result, valid_count) per group."""
+    w = valid.astype(np.int64)
+    cnt = np.bincount(seg, weights=w, minlength=ngroups).astype(np.int64)
+    if op == "count":
+        return cnt, cnt
+    if op == "sum":
+        if data.dtype == np.float64:
+            s = np.bincount(seg, weights=np.where(valid, data, 0.0), minlength=ngroups)
+        else:
+            s = np.zeros(ngroups, dtype=np.int64)
+            np.add.at(s, seg, np.where(valid, data, 0))
+        return s, cnt
+    if op in ("min", "max"):
+        sentinel = minmax_sentinel(op, data.dtype)
+        d = np.where(valid, data, sentinel).astype(data.dtype)
+        out = np.full(ngroups, sentinel, dtype=data.dtype)
+        (np.minimum if op == "min" else np.maximum).at(out, seg, d)
+        return out, cnt
+    if op == "first_row":
+        if len(data) == 0:
+            # scalar agg over zero rows still emits its one group (MySQL:
+            # SELECT a, COUNT(*) FROM empty → (NULL, 0)); there is no row to
+            # take, so first_row is NULL — found by graftfuzz (repro
+            # tests/fuzz_corpus/repro_s42_c28.py), previously IndexError
+            return np.zeros(ngroups, dtype=data.dtype), np.zeros(ngroups, dtype=np.int64)
+        first_idx = np.zeros(ngroups, dtype=np.int64)
+        seen = np.zeros(ngroups, dtype=bool)
+        # rows are already grouped contiguously: boundary rows are the firsts
+        b = np.ones(len(seg), dtype=bool)
+        b[1:] = seg[1:] != seg[:-1]
+        first_idx[seg[b]] = np.nonzero(b)[0]
+        return data[first_idx], valid[first_idx].astype(np.int64) * np.maximum(cnt, 1)
+    if op == "sumsq":
+        # variance accumulates in double (int64 squares overflow; MySQL
+        # computes VAR/STDDEV in double regardless of the argument type)
+        d = data.astype(np.float64)
+        s = np.bincount(seg, weights=np.where(valid, d * d, 0.0), minlength=ngroups)
+        return s, cnt
+    if op in ("bit_and", "bit_or", "bit_xor"):
+        return bit_reduce(op, data, valid, seg, ngroups), cnt
+    raise ValueError(op)
+
+
+def bit_reduce(op: str, data: np.ndarray, valid: np.ndarray, seg: np.ndarray, ngroups: int) -> np.ndarray:
+    """Segmented bitwise reduction with MySQL identities (AND → all ones);
+    NULL rows reduce as the identity. Shared by the cop engine and the
+    partial merge in the executor."""
+    ident = -1 if op == "bit_and" else 0
+    out = np.full(ngroups, ident, dtype=np.int64)
+    d = np.where(valid, data, ident).astype(np.int64)
+    ufn = {"bit_and": np.bitwise_and, "bit_or": np.bitwise_or, "bit_xor": np.bitwise_xor}[op]
+    ufn.at(out, seg, d)
+    return out
+
+
+def _aggregate(chunk: Chunk, ex: dagpb.ExecutorPB, warn=None) -> Chunk:
+    if getattr(ex, "rollup", False):
+        return _aggregate_rollup(chunk, ex, warn)
+    batch = EvalBatch.from_chunk(chunk, warn=warn)
+    gcols = [eval_to_column(expr_from_pb(pb), batch, np) for pb in ex.group_by]
+    aggs = [AggDesc.from_pb(pb) for pb in ex.aggs]
+    n = len(chunk)
+    perm, seg, ngroups = _group_sort(chunk, gcols)
+    if n == 0 and not ex.group_by:
+        # scalar agg over empty input still yields one row
+        perm, seg, ngroups = np.arange(0), np.zeros(0, np.int64), 1
+
+    out_cols: list[Column] = []
+    for a in aggs:
+        if a.arg is not None:
+            ac = eval_to_column(a.arg, batch, np)
+            data, valid = ac.data[perm], ac.validity[perm]
+            adic = ac.dictionary
+            aft = ac.ftype
+        else:  # COUNT(*)
+            data = np.ones(n, dtype=np.int64)[perm] if n else np.zeros(0, np.int64)
+            valid = np.ones(len(data), dtype=bool)
+            adic, aft = None, bigint_type(nullable=False)
+        if a.distinct:
+            # dedupe (group, value) pairs before reducing; ci string values
+            # dedupe by general_ci weight class, like GROUP BY/DISTINCT
+            from tidb_tpu_torch.utils.collate import canon_codes
+
+            key = data
+            if aft.kind == TypeKind.STRING and aft.collation == "ci" and adic is not None:
+                key = canon_codes(data, valid, adic)
+            order = np.lexsort((key, ~valid, seg))
+            k2, v2, s2 = key[order], valid[order], seg[order]
+            keep = np.ones(len(k2), dtype=bool)
+            keep[1:] = (s2[1:] != s2[:-1]) | (k2[1:] != k2[:-1]) | (v2[1:] != v2[:-1])
+            data, valid, seg_a = data[order][keep], v2[keep], s2[keep]
+            sel = order[keep]  # row selection, for per-agg side columns
+        else:
+            seg_a = seg
+            sel = None
+        for kind in a.partial_kinds:
+            if kind == "count":
+                res, cnt = _segment_reduce("count", data, valid, seg_a, ngroups)
+                out_cols.append(Column(res, np.ones(ngroups, bool), bigint_type(nullable=False)))
+            elif kind == "sum":
+                res, cnt = _segment_reduce("sum", data, valid, seg_a, ngroups)
+                sum_ft = AggDesc("sum", a.arg).ftype if a.arg is not None else bigint_type()
+                dtype = np.float64 if sum_ft.kind == TypeKind.FLOAT else np.int64
+                out_cols.append(Column(res.astype(dtype), cnt > 0, sum_ft))
+            elif kind in ("min", "max", "first_row"):
+                if kind != "first_row" and string_minmax_needs_rank(aft, adic):
+                    res, cnt = _string_minmax(
+                        kind, data, valid, seg_a, ngroups, adic, aft.collation == "ci"
+                    )
+                else:
+                    res, cnt = _segment_reduce(kind, data, valid, seg_a, ngroups)
+                sentinel_ok = cnt > 0 if kind != "first_row" else (cnt > 0)
+                out_cols.append(Column(res.astype(data.dtype), sentinel_ok, aft, adic))
+            elif kind == "sumsq":
+                res, cnt = _segment_reduce("sumsq", data, valid, seg_a, ngroups)
+                out_cols.append(Column(res, cnt > 0, double_type()))
+            elif kind in ("bit_and", "bit_or", "bit_xor"):
+                res, cnt = _segment_reduce(kind, data, valid, seg_a, ngroups)
+                out_cols.append(Column(res, np.ones(ngroups, bool), bigint_type(nullable=False)))
+            elif kind == "group_concat":
+                gc_keys = []
+                for e, desc in a.order_by:
+                    oc = eval_to_column(e, batch, np)
+                    kd, kv = oc.data[perm], oc.validity[perm]
+                    if sel is not None:
+                        kd, kv = kd[sel], kv[sel]
+                    gc_keys.append((kd, kv, oc.dictionary, oc.ftype, desc))
+                out_cols.append(_group_concat_col(a, data, valid, seg_a, ngroups, aft, adic, gc_keys))
+    for gc in gcols:
+        first, cnt = _segment_reduce("first_row", gc.data[perm], gc.validity[perm], seg, ngroups)
+        out_cols.append(Column(first.astype(gc.data.dtype), cnt > 0, gc.ftype, gc.dictionary))
+    result = Chunk(out_cols)
+    if ex.agg_mode in (dagpb.AGG_COMPLETE,):
+        result = finalize_agg(result, aggs, [g.ftype for g in gcols], [g.dictionary for g in gcols])
+    return result
+
+
+def _group_concat_col(a: AggDesc, data, valid, seg, ngroups: int, aft, adic, gc_keys=()) -> Column:
+    """GROUP_CONCAT: per-group string join — row order by default, or by the
+    call's ORDER BY keys (``gc_keys``: aligned (data, valid, dict, ftype,
+    desc) per key; ref builtin group_concat with order-by properties)."""
+    from tidb_tpu_torch.types.field_type import string_type
+    from tidb_tpu_torch.utils.chunk import Dictionary
+    from tidb_tpu_torch.types.datum import format_physical
+
+    def fmt(x) -> bytes:
+        if aft.kind == TypeKind.STRING:
+            return adic.decode(int(x)) if adic is not None else str(int(x)).encode()
+        return format_physical(x, aft)
+
+    sep = a.sep.encode() if isinstance(a.sep, str) else a.sep
+    rows: list[list[int]] = [[] for _ in range(ngroups)]
+    for i in range(len(data)):
+        if valid[i]:
+            rows[int(seg[i])].append(i)
+    # ORDER BY inside the call: repeated stable sorts, last key first, so
+    # the first key dominates; NULLs first ASC / last DESC (reverse flips
+    # the (is_null, value) tuple ordering, matching MySQL)
+    for kd, kv, kdic, kft, desc in reversed(gc_keys):
+        def sort_key(i, kd=kd, kv=kv, kdic=kdic, kft=kft):
+            # NULL keys first ASC / last DESC (reverse flips the tuple),
+            # so the not-null flag leads: False (null) < True (value)
+            if not kv[i]:
+                return (False, b"" if kft.kind == TypeKind.STRING else 0)
+            if kft.kind == TypeKind.STRING:
+                v = kdic.decode(int(kd[i])) if kdic is not None else str(int(kd[i])).encode()
+            else:
+                v = kd[i].item() if hasattr(kd[i], "item") else kd[i]
+            return (True, v)
+        for lst in rows:
+            lst.sort(key=sort_key, reverse=desc)
+    parts: list[list[bytes]] = [[fmt(data[i]) for i in idx] for idx in rows]
+    dic = Dictionary()
+    out = np.zeros(ngroups, dtype=np.int32)
+    ok = np.zeros(ngroups, dtype=bool)
+    for g in range(ngroups):
+        if parts[g]:
+            out[g] = dic.encode(sep.join(parts[g]))
+            ok[g] = True
+    return Column(out, ok, string_type(), dic)
+
+
+def finalize_agg(partial: Chunk, aggs: list[AggDesc], group_fts: list[FieldType], group_dicts: list) -> Chunk:
+    """Collapse partial state lanes → final agg values (ref: the final-mode
+    HashAgg the executor runs above the coprocessor)."""
+    cols = partial.columns
+    out: list[Column] = []
+    i = 0
+    for a in aggs:
+        if a.name == "avg":
+            cnt, s = cols[i], cols[i + 1]
+            i += 2
+            ft = a.ftype
+            denom = np.maximum(cnt.data, 1)
+            if ft.kind == TypeKind.DECIMAL:
+                # sum lane has arg scale; result scale = arg_scale+4
+                num = s.data.astype(np.int64) * (10**4)
+                q = np.sign(num) * ((np.abs(num) + denom // 2) // denom)
+                out.append(Column(q, cnt.data > 0, ft))
+            else:
+                out.append(Column(s.data / denom, cnt.data > 0, ft))
+        elif a.name in ("var_pop", "var_samp", "stddev_pop", "stddev_samp"):
+            cnt, s, sq = cols[i], cols[i + 1], cols[i + 2]
+            i += 3
+            n = cnt.data.astype(np.float64)
+            scale = 10.0 ** a.arg.ftype.scale if a.arg.ftype.kind == TypeKind.DECIMAL else 1.0
+            sv = s.data.astype(np.float64) / scale
+            sqv = sq.data / (scale * scale)
+            mean = sv / np.maximum(n, 1)
+            varp = np.maximum(sqv / np.maximum(n, 1) - mean * mean, 0.0)
+            if a.name.endswith("_samp"):
+                # sample variance: n/(n-1) correction; NULL when n < 2
+                v = varp * n / np.maximum(n - 1, 1)
+                ok = cnt.data > 1
+            else:
+                v = varp
+                ok = cnt.data > 0
+            if a.name.startswith("stddev"):
+                v = np.sqrt(v)
+            out.append(Column(v, ok, a.ftype))
+        else:
+            c = cols[i]
+            i += 1
+            out.append(Column(c.data, c.validity, a.ftype if a.name != "first_row" else c.ftype, c.dictionary))
+    out.extend(cols[i:])  # group-by key columns
+    return Chunk(out)
+
+
+def sort_perm(chunk: Chunk, order_by: list) -> np.ndarray:
+    """Row permutation for ORDER BY (MySQL NULL placement: first on ASC,
+    last on DESC). Priority tuple per key is (null_lane, data_lane)."""
+    batch = EvalBatch.from_chunk(chunk)
+    priority: list[np.ndarray] = []
+    for pb, desc in order_by:
+        c = eval_to_column(expr_from_pb(pb), batch, np)
+        data = c.data
+        ci = c.ftype.kind == TypeKind.STRING and c.ftype.collation == "ci"
+        if c.ftype.kind == TypeKind.STRING and c.dictionary is not None and (ci or not c.dictionary.sorted):
+            # unsorted dictionary (or ci collation, whose order is weight
+            # order, not byte order): rank codes host-side
+            vals = c.dictionary.decode_many(data)
+            if ci:
+                from tidb_tpu_torch.utils.collate import weight_bytes
+
+                # equal-weight values share a rank → stable tie order
+                uniq_w = sorted({weight_bytes(v) for v in set(vals)})
+                wrank = {w: i for i, w in enumerate(uniq_w)}
+                rank = {v: wrank[weight_bytes(v)] for v in set(vals)}
+            else:
+                rank = {v: i for i, v in enumerate(sorted(set(vals)))}
+            data = np.array([rank[v] for v in vals], dtype=np.int64)
+        if desc:
+            priority.append((~c.validity).astype(np.int8))  # NULLs last
+            # ints: bitwise complement reverses order without INT64_MIN
+            # overflow; floats: negate
+            priority.append(-data if data.dtype == np.float64 else ~data)
+        else:
+            priority.append(c.validity.astype(np.int8))  # NULLs first
+            priority.append(data)
+    # np.lexsort: LAST key is primary → reverse the priority list
+    return np.lexsort(tuple(reversed(priority)))
+
+
+def _topn(chunk: Chunk, ex: dagpb.ExecutorPB) -> Chunk:
+    if len(chunk) == 0:
+        return chunk
+    perm = sort_perm(chunk, ex.order_by)
+    return chunk.take(perm[: ex.limit])
+
+
+def _window(chunk: Chunk, ex: dagpb.ExecutorPB) -> Chunk:
+    """WINDOW executor: appends one column per func (ref: the role tipb
+    window pushdown plays for TiFlash). Reuses the executor-layer host sweep
+    (WindowExec) over the materialized chunk — same code path the root
+    executor runs, so cop-pushed windows agree with it bit-for-bit."""
+    from tidb_tpu_torch.executor.executors import WindowExec
+    from tidb_tpu_torch.planner.plans import PhysWindow, WindowFuncDesc
+
+    funcs = [
+        WindowFuncDesc(f["name"], [expr_from_pb(a) for a in f["args"]], _ft_from_pb(f["ft"]))
+        for f in ex.win_funcs
+    ]
+    frame = ex.frame
+    plan = PhysWindow(
+        funcs=funcs,
+        partition_by=[expr_from_pb(p) for p in ex.partition_by],
+        order_by=[(expr_from_pb(p), d) for p, d in ex.order_by],
+        whole_partition=frame == "whole",
+        rows_frame=frame == "rows_cur",
+        frame=tuple(frame[1:]) if isinstance(frame, tuple) else None,
+        schema=[],
+    )
+
+    class _ChunkChild:
+        schema: list = []
+
+        def execute(self_inner) -> Chunk:
+            return chunk
+
+    return WindowExec(plan, _ChunkChild(), None).execute()
+
+
+def run_operators(chunk: Chunk, executors: list, output_offsets: list[int], warn=None) -> Chunk:
+    """Apply post-scan DAG operators to a materialized chunk — shared by the
+    per-region host path and the union-scan (dirty-txn) path."""
+    for ex in executors:
+        if ex.tp == dagpb.SELECTION:
+            chunk = _selection(chunk, ex.conditions, warn=warn)
+        elif ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG):
+            chunk = _aggregate(chunk, ex, warn=warn)
+        elif ex.tp == dagpb.TOPN:
+            chunk = _topn(chunk, ex)
+        elif ex.tp == dagpb.LIMIT:
+            chunk = chunk.slice(0, min(ex.limit, len(chunk)))
+        elif ex.tp == dagpb.PROJECTION:
+            batch = EvalBatch.from_chunk(chunk, warn=warn)
+            chunk = Chunk([eval_to_column(expr_from_pb(pb), batch, np) for pb in ex.exprs])
+        elif ex.tp == dagpb.WINDOW:
+            chunk = _window(chunk, ex)
+        else:
+            raise NotImplementedError(f"host engine: executor {ex.tp}")
+    if output_offsets:
+        chunk = Chunk([chunk.columns[i] for i in output_offsets])
+    return chunk
+
+
+def execute_dag(store: MemStore, dag: dagpb.DAGRequest, region: Region, ranges: list[KeyRange], read_ts: int, warn=None) -> Chunk:
+    from tidb_tpu_torch.utils import execdetails as _ed
+
+    det = _ed.current_cop()
+    if det is None:
+        return _execute_dag(store, dag, region, ranges, read_ts, warn)
+    import time as _t
+
+    t0 = _t.perf_counter()
+    try:
+        with _ed.trace_span("host-exec"):
+            return _execute_dag(store, dag, region, ranges, read_ts, warn)
+    finally:
+        # host-engine attribution into the task's ExecDetails sidecar — runs
+        # for direct host tasks AND for TPU-engine shape fallbacks (which
+        # check this delta to cede the engine label)
+        det.host_ms += (_t.perf_counter() - t0) * 1000.0
+        det.engine = "host"
+
+
+def _execute_dag(store: MemStore, dag: dagpb.DAGRequest, region: Region, ranges: list[KeyRange], read_ts: int, warn=None) -> Chunk:
+    if not (dag.executors and dag.executors[0].tp in (dagpb.TABLE_SCAN, dagpb.INDEX_SCAN)):
+        raise ValueError("DAG must start with a TableScan or IndexScan executor")
+    if dag.executors[0].tp == dagpb.INDEX_SCAN:
+        chunk = _index_scan(store, region, dag.executors[0], ranges, read_ts)
+    else:
+        chunk = _scan(store, region, dag.executors[0], ranges, read_ts)
+    return run_operators(chunk, dag.executors[1:], dag.output_offsets, warn=warn)

@@ -1,29 +1,44 @@
-"""Expression tree + evaluator (port of tidb_tpu/expression/expr.py).
+"""Expression tree + the backend-agnostic evaluator.
 
-``eval_expr`` walks the tree over an ``EvalBatch`` of (data, validity)
-pairs. On the device path those are torch tensors on the caller's device;
-the binder's exact corner evaluation passes numpy object arrays. Wire form
-(``to_pb`` / ``expr_from_pb``) is the reference's, byte for byte.
+Reference parity: pkg/expression/expression.go (Expression, Column, Constant,
+ScalarFunction) and the VecEval* machinery; serialization mirrors
+expr_to_pb.go but to plain JSON-able dicts instead of tipb.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from decimal import Decimal
-from typing import Any, Optional
+from typing import Any, Optional, Sequence
 
-import tidb_tpu_torch.expression.eval  # noqa: F401  (populates REGISTRY)
-from tidb_tpu_torch.expression.registry import REGISTRY
+import numpy as np
+
 from tidb_tpu_torch.types import Datum, FieldType, TypeKind
-from tidb_tpu_torch.types.field_type import bigint_type, decimal_type, double_type
-from tidb_tpu_torch.utils.chunk import Dictionary
+from tidb_tpu_torch.types.field_type import (
+    bigint_type,
+    bool_type,
+    decimal_type,
+    double_type,
+    merge_types,
+    string_type,
+)
+from tidb_tpu_torch.types.datum import date_to_days, datetime_to_micros
+from tidb_tpu_torch.utils.chunk import Column as ChunkColumn, Dictionary
+from tidb_tpu_torch.expression.registry import REGISTRY, FuncSpec
+import tidb_tpu_torch.expression.eval  # noqa: F401  (populates REGISTRY)
 
 
 class Expression:
     ftype: FieldType
 
+    def children(self) -> Sequence["Expression"]:
+        return ()
+
     def to_pb(self) -> dict:
         raise NotImplementedError
+
+    # pretty-printing for EXPLAIN
+    def __str__(self) -> str:
+        return repr(self)
 
 
 @dataclass
@@ -32,15 +47,23 @@ class ColumnRef(Expression):
 
     index: int
     ftype: FieldType
+    name: str = ""
 
     def to_pb(self) -> dict:
         return {"tp": "col", "idx": self.index, "ft": _ft_pb(self.ftype)}
+
+    def __repr__(self):
+        return self.name or f"col#{self.index}"
 
 
 @dataclass
 class Constant(Expression):
     value: Any  # logical python value; None == NULL
     ftype: FieldType
+    # EXECUTE-parameter provenance (-1 = plain constant): a cached
+    # value-agnostic prepared plan rewrites ``value`` in place per execution
+    # for every Constant carrying a parameter index (planner/prepcache.py)
+    param_idx: int = -1
 
     def to_pb(self) -> dict:
         v = self.value
@@ -48,9 +71,14 @@ class Constant(Expression):
             v = v.decode("utf-8", "surrogateescape")
         elif hasattr(v, "isoformat"):
             v = v.isoformat()
+        from decimal import Decimal
+
         if isinstance(v, Decimal):
             v = str(v)
         return {"tp": "const", "val": v, "ft": _ft_pb(self.ftype)}
+
+    def __repr__(self):
+        return "NULL" if self.value is None else repr(self.value)
 
 
 @dataclass
@@ -59,8 +87,57 @@ class ScalarFunc(Expression):
     args: list[Expression]
     ftype: FieldType
 
+    def children(self):
+        return self.args
+
     def to_pb(self) -> dict:
         return {"tp": "func", "sig": self.sig, "children": [a.to_pb() for a in self.args], "ft": _ft_pb(self.ftype)}
+
+    def __repr__(self):
+        return f"{self.sig}({', '.join(map(repr, self.args))})"
+
+
+# -- constructors -----------------------------------------------------------
+
+
+def col(index: int, ftype: FieldType, name: str = "") -> ColumnRef:
+    return ColumnRef(index, ftype, name)
+
+
+def const(value: Any, ftype: Optional[FieldType] = None) -> Constant:
+    if ftype is None:
+        if value is None:
+            ftype = FieldType(TypeKind.NULLTYPE)
+        elif isinstance(value, bool):
+            ftype = bool_type()
+        elif isinstance(value, int):
+            ftype = bigint_type().not_null()
+        elif isinstance(value, float):
+            ftype = double_type().not_null()
+        elif isinstance(value, (str, bytes)):
+            ftype = string_type().not_null()
+        else:
+            from decimal import Decimal
+
+            if isinstance(value, Decimal):
+                s = -value.as_tuple().exponent if value.as_tuple().exponent < 0 else 0
+                ftype = decimal_type(max(len(value.as_tuple().digits), s + 1), s).not_null()
+            else:
+                raise TypeError(f"cannot infer type for constant {value!r}")
+    return Constant(value, ftype)
+
+
+def func(sig: str, *args: Expression, ret: Optional[FieldType] = None) -> ScalarFunc:
+    spec = REGISTRY.get(sig)
+    if spec is None:
+        raise KeyError(f"unknown builtin {sig!r}")
+    arglist = list(args)
+    if ret is None:
+        ret = spec.infer([a.ftype for a in arglist])
+    return ScalarFunc(sig, arglist, ret)
+
+
+# -- serialization ----------------------------------------------------------
 
 
 def _ft_pb(ft: FieldType) -> list:
@@ -93,15 +170,56 @@ def expr_from_pb(pb: dict) -> Expression:
     raise ValueError(f"bad expr pb {pb!r}")
 
 
+# -- pushdown legality (ref: infer_pushdown.go:85) --------------------------
+
+_TPU_STRING_OK = {"eq", "ne", "in", "isnull", "ifnull", "coalesce", "if", "case_when"}
+_TPU_STRING_ORDER = {"lt", "le", "gt", "ge"}  # legal only with sorted dicts (bind-time check)
+
+
+def can_push_down(expr: Expression, engine: str) -> bool:
+    if isinstance(expr, ScalarFunc):
+        spec = REGISTRY.get(expr.sig)
+        if spec is None or engine not in spec.engines:
+            return False
+        if engine == "gpu":
+            has_str = any(a.ftype.kind == TypeKind.STRING for a in expr.args)
+            if has_str and expr.sig not in (_TPU_STRING_OK | _TPU_STRING_ORDER):
+                return False
+            # ci collation folds at compare time — dictionary codes on the
+            # device are raw-bytes identities, so these stay host-side
+            # (ref: pushdown disabled for new collations, infer_pushdown.go)
+            if any(
+                a.ftype.kind == TypeKind.STRING and a.ftype.collation == "ci" for a in expr.args
+            ):
+                return False
+        return all(can_push_down(a, engine) for a in expr.args)
+    return True
+
+
+# ---------------------------------------------------------------------------
+# evaluation
+# ---------------------------------------------------------------------------
+
+
 @dataclass
 class EvalBatch:
     """Input columns for one operator: parallel (data, validity) pairs.
-    validity None = all valid; ``dicts[i]`` is set for string columns."""
+    validity None = all valid. ``dicts[i]`` set for string columns.
+    ``warn(level, code, msg)``: per-statement warning sink (ref: stmtctx
+    AppendWarning, pkg/sessionctx/stmtctx/stmtctx.go:1025) — host-side eval
+    reports truncation/zero-division through it; device traces leave it
+    None (a jitted program cannot append per-row diagnostics)."""
 
     cols: list[tuple]
     dicts: list[Optional[Dictionary]]
     n: int
     warn: Optional[object] = None
+
+    @staticmethod
+    def from_chunk(chunk, warn=None) -> "EvalBatch":
+        cols = [(c.data, c.validity) for c in chunk.columns]
+        dicts = [c.dictionary for c in chunk.columns]
+        return EvalBatch(cols, dicts, len(chunk), warn)
 
 
 class _Ctx:
@@ -119,10 +237,11 @@ class _Ctx:
 
 def _const_physical(c: Constant, xp):
     """Lower a constant to its device scalar. Strings yield raw bytes — the
-    binder maps them onto a dictionary."""
+    caller (binder or host evaluator) maps them onto a dictionary."""
     if c.value is None:
         return 0, False
-    if c.ftype.kind == TypeKind.STRING:
+    k = c.ftype.kind
+    if k == TypeKind.STRING:
         v = c.value
         if isinstance(v, str):
             v = v.encode("utf-8")
@@ -130,8 +249,9 @@ def _const_physical(c: Constant, xp):
     return Datum(c.value, c.ftype).physical(), None
 
 
-def eval_expr(expr: Expression, batch: EvalBatch, xp=None):
-    """→ (data, validity, dictionary|None)."""
+def eval_expr(expr: Expression, batch: EvalBatch, xp=np):
+    """→ (data, validity, dictionary|None). Fully traceable under jax.jit
+    when every builtin in the tree is tpu-legal and strings are pre-bound."""
     if isinstance(expr, ColumnRef):
         d, v = batch.cols[expr.index]
         return d, v, batch.dicts[expr.index]
@@ -142,9 +262,7 @@ def eval_expr(expr: Expression, batch: EvalBatch, xp=None):
             return dic.encode(pv), valid, dic
         return pv, valid, None
     if isinstance(expr, ScalarFunc):
-        spec = REGISTRY.get(expr.sig)
-        if spec is None:
-            raise NotImplementedError(f"builtin {expr.sig} is not ported")
+        spec = REGISTRY[expr.sig]
         args = []
         dicts = []
         for a in expr.args:
@@ -158,7 +276,46 @@ def eval_expr(expr: Expression, batch: EvalBatch, xp=None):
     raise TypeError(f"cannot evaluate {expr!r}")
 
 
-# aggregates (descriptors; execution lives in ops/dag_kernel.py)
+def eval_to_column(expr: Expression, batch: EvalBatch, xp=np) -> ChunkColumn:
+    """Host-side convenience: evaluate and materialize a chunk Column."""
+    d, v, dic = eval_expr(expr, batch, xp)
+    n = batch.n
+    d = np.asarray(d)
+    if d.ndim == 0:
+        d = np.broadcast_to(d, (n,)).copy()
+    if v is None:
+        v = np.ones(n, dtype=bool)
+    elif v is False or (np.isscalar(v) and not v):
+        v = np.zeros(n, dtype=bool)
+    else:
+        v = np.asarray(v)
+        if v.ndim == 0:
+            v = np.broadcast_to(v, (n,)).copy()
+    dtype = {TypeKind.FLOAT: np.float64, TypeKind.STRING: np.int32}.get(expr.ftype.kind, np.int64)
+    return ChunkColumn(d.astype(dtype), v.astype(bool), expr.ftype, dic)
+
+
+# ---------------------------------------------------------------------------
+# aggregates (descriptors; execution lives in the engines)
+# ---------------------------------------------------------------------------
+
+AGG_FUNCS = {
+    "count",
+    "sum",
+    "avg",
+    "min",
+    "max",
+    "first_row",
+    "group_concat",
+    "stddev_pop",
+    "stddev_samp",
+    "var_pop",
+    "var_samp",
+    "bit_and",
+    "bit_or",
+    "bit_xor",
+}
+# variance family shares the (count, sum, sumsq) partial state
 VAR_AGGS = {"stddev_pop", "stddev_samp", "var_pop", "var_samp"}
 BIT_AGGS = {"bit_and", "bit_or", "bit_xor"}
 
@@ -166,12 +323,14 @@ BIT_AGGS = {"bit_and", "bit_or", "bit_xor"}
 @dataclass
 class AggDesc:
     """ref: pkg/expression/aggregation.AggFuncDesc. ``partial_kinds`` names
-    the state lanes the partial stage produces."""
+    the device-state lanes the partial stage produces; the final stage merges
+    them (two-phase agg: copr partial on shards → final at root / exchange)."""
 
     name: str
     arg: Optional[Expression]  # None for COUNT(*)
     distinct: bool = False
-    sep: str = ","
+    sep: str = ","  # GROUP_CONCAT separator
+    # GROUP_CONCAT(... ORDER BY e [DESC], ...): [(Expression, desc)]
     order_by: list = field(default_factory=list)
 
     @property
@@ -179,7 +338,7 @@ class AggDesc:
         if self.name == "count":
             return bigint_type(nullable=False)
         if self.name == "group_concat":
-            from tidb_tpu_torch.types import string_type
+            from tidb_tpu_torch.types.field_type import string_type
 
             return string_type()
         at = self.arg.ftype
@@ -196,6 +355,8 @@ class AggDesc:
         if self.name in VAR_AGGS:
             return double_type()
         if self.name in BIT_AGGS:
+            # MySQL bit aggregates are BIGINT UNSIGNED: the BIT_AND identity
+            # (all ones) must render as 18446744073709551615, not -1
             return FieldType(TypeKind.UINT, nullable=False)
         return at  # min/max/first_row
 
@@ -214,6 +375,8 @@ class AggDesc:
         if self.name in BIT_AGGS:
             return [self.name]
         if self.name == "group_concat":
+            # no distributable partial state: the planner keeps group_concat
+            # at the complete (root) stage
             return ["group_concat"]
         raise ValueError(self.name)
 
@@ -235,3 +398,12 @@ class AggDesc:
             pb.get("sep", ","),
             order_by=[(expr_from_pb(e), d) for e, d in pb.get("order_by", [])],
         )
+
+    def __repr__(self):
+        inner = "*" if self.arg is None else repr(self.arg)
+        sep = f" separator={self.sep!r}" if self.name == "group_concat" and self.sep != "," else ""
+        ob = ""
+        if self.order_by:
+            keys = ", ".join(f"{e!r}{' desc' if d else ''}" for e, d in self.order_by)
+            ob = f" order by {keys}"
+        return f"{self.name}({'distinct ' if self.distinct else ''}{inner}{ob}{sep})"

@@ -1,24 +1,34 @@
-"""Builtin registry (port of tidb_tpu/expression/registry.py).
+"""Builtin function registry: implementation + type inference + engine support.
 
-Implementations receive ``(xp, args, ctx)`` and return ``(data, validity)``
-with MySQL NULL semantics (validity None = all valid). They are written with
-Python operators only, so one body serves torch tensors on any device and
-the numpy object arrays the binder's exact corner evaluation uses; ``xp``
-is kept for the reference's call contract and names that backend.
+Reference parity: the builtin tables in pkg/expression (funcs map) and the
+per-engine legality switches (infer_pushdown.go:160 scalarExprSupportedByTiKV,
+:266 scalarExprSupportedByFlash). An entry declares which engines may execute
+it; the planner refuses to push a fragment containing an unsupported builtin
+to that engine (expression.can_push_down).
 
-Only the builtins this slice's DAGs use are registered; the binder rejects
-any other signature with ``UnsupportedForDevice``.
+Implementations receive ``(xp, args, ctx)``:
+- ``xp``: numpy or jax.numpy — the ONLY difference between host and TPU
+  execution of a scalar builtin;
+- ``args``: list of (data, validity) pairs, validity=None meaning all-valid;
+- ``ctx``: EvalContext (row count, scale info, string dictionaries host-side).
+
+Returns (data, validity) with MySQL NULL semantics (validity=None allowed).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, Optional
 
-from tidb_tpu_torch.types import FieldType
-from tidb_tpu_torch.types.field_type import bool_type, merge_types
+from tidb_tpu_torch.types import FieldType, TypeKind
+from tidb_tpu_torch.types.field_type import bool_type, double_type, merge_types
 
-GPU_ENGINE = frozenset({"gpu"})
+ALL_ENGINES = frozenset({"host", "gpu"})
+HOST_ONLY = frozenset({"host"})
+# the builtins the GPU engine's device evaluation carries (torch-capable
+# bodies in eval.py); every other builtin is host-only here, so the
+# planner's legality gate keeps it off the device at plan time
+GPU_BUILTINS = frozenset({"plus", "minus", "mul", "lt", "le", "ge"})
 
 
 @dataclass
@@ -26,18 +36,28 @@ class FuncSpec:
     name: str
     impl: Callable  # (xp, args, ctx) -> (data, validity)
     infer: Callable  # (arg_ftypes) -> FieldType
-    engines: frozenset = GPU_ENGINE
+    engines: frozenset = ALL_ENGINES
+    # TPU support may be conditional (e.g. string compares need sorted dicts);
+    # checked at DAG-bind time, not plan time
+    variadic: bool = False
+    arity: int = 2
 
 
 REGISTRY: dict[str, FuncSpec] = {}
 
 
-def register(name: str, infer, engines=GPU_ENGINE):
+def register(name: str, infer, engines=ALL_ENGINES, variadic=False, arity=2):
+    if name not in GPU_BUILTINS:
+        engines = engines - {"gpu"}
+
     def deco(fn):
-        REGISTRY[name] = FuncSpec(name, fn, infer, engines)
+        REGISTRY[name] = FuncSpec(name, fn, infer, engines, variadic, arity)
         return fn
 
     return deco
+
+
+# -- validity helpers -------------------------------------------------------
 
 
 def and_valid(xp, *vs):
@@ -50,11 +70,22 @@ def and_valid(xp, *vs):
     return out
 
 
-def infer_bool(args) -> FieldType:
+# -- type inference helpers -------------------------------------------------
+
+
+def infer_bool(args):
     return bool_type()
 
 
-def infer_merge(args) -> FieldType:
+def infer_double(args):
+    return double_type()
+
+
+def infer_first(args):
+    return args[0]
+
+
+def infer_merge(args):
     t = args[0]
     for a in args[1:]:
         t = merge_types(t, a)

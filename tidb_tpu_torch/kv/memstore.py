@@ -1,0 +1,1664 @@
+"""Embedded MVCC store — the in-process engine host (unistore analog).
+
+Reference parity: pkg/store/mockstore/unistore/tikv/mvcc.go (MVCCStore,
+Prewrite :768, Commit :1240), region.go (region management), pd.go (mock PD).
+Badger-LSM is replaced by an in-memory hash map + lazily-sorted key index:
+bulk loads append O(1) per key and the sorted view rebuilds once per scan
+epoch, which matches the analytics-heavy profile of the TPU engine.
+
+Percolator semantics (server side):
+- ``prewrite``: lock check → write-conflict check → stage lock+value.
+- ``commit``: move staged value into the write column at commit_ts.
+- ``rollback`` / ``resolve_locks`` / ``check_txn_status``: crash recovery.
+
+Regions: half-open key ranges with a data_version bumped on every committed
+write batch — the TPU engine's columnar cache keys off (region_id,
+data_version) to reuse device-resident columns across queries (TiFlash's
+delta/stable analog, rebuilt rather than merged).
+"""
+
+from __future__ import annotations
+
+import bisect
+import threading
+import time
+from collections import deque
+from dataclasses import dataclass, field
+from typing import Iterator, Optional, Sequence
+
+import numpy as np
+
+from tidb_tpu_torch.kv.kv import (
+    KeyLockedError,
+    KeyRange,
+    LockWaitTimeoutError,
+    RegionError,
+    StoreType,
+    TimestampOracle,
+    TxnAbortedError,
+    WriteConflictError,
+)
+from tidb_tpu_torch.kv.detector import DeadlockDetector
+from tidb_tpu_torch.kv import tablecodec
+from tidb_tpu_torch.utils import execdetails as _ed
+
+OP_PUT = "P"
+OP_DEL = "D"
+OP_PESSIMISTIC_LOCK = "L"  # lock-only; carries no data, invisible to readers
+
+# per-(region, table) change-log itemization bound: past this many pending
+# record changes the log degrades to a handle-span watermark (the columnar
+# delta path then falls back to a merge instead of a delta read)
+_CHANGE_ITEMS_CAP = 65536
+
+
+class _ChangeLog:
+    """Committed record-key changes for one (region, table) since the last
+    columnar merge — the write→delta notification seam the device column
+    cache (copr/colcache.py) feeds from, the in-process analog of TiFlash's
+    raft-learner change stream. Guarded by the owning store's ``_mu``.
+
+    Two fidelity levels: itemized ``(commit_ts, handle, op)`` tuples while
+    small, degrading to a handle-span watermark (``lo``/``hi`` + ``lost``)
+    past the cap — watermarks still bound which device blocks a merge must
+    re-upload even when individual changes can no longer be enumerated."""
+
+    __slots__ = ("items", "lost", "lost_max_ts", "lo", "hi")
+
+    def __init__(self):
+        self.items: list[tuple[int, int, str]] = []  # (commit_ts, handle, op)
+        self.lost = False
+        self.lost_max_ts = 0
+        self.lo: int | None = None  # handle watermark over ALL unpruned changes
+        self.hi: int | None = None
+
+    def note(self, ts: int, handle: int, op: str) -> None:
+        self.lo = handle if self.lo is None else min(self.lo, handle)
+        self.hi = handle if self.hi is None else max(self.hi, handle)
+        if self.lost:
+            self.lost_max_ts = max(self.lost_max_ts, ts)
+            return
+        if len(self.items) >= _CHANGE_ITEMS_CAP:
+            self.items.clear()
+            self.lost = True
+            self.lost_max_ts = ts
+            return
+        self.items.append((ts, handle, op))
+
+    def note_span(self, ts: int, lo: int, hi: int) -> None:
+        """Bulk change too large to itemize: watermark only."""
+        self.lo = lo if self.lo is None else min(self.lo, lo)
+        self.hi = hi if self.hi is None else max(self.hi, hi)
+        self.items.clear()
+        self.lost = True
+        self.lost_max_ts = max(self.lost_max_ts, ts)
+
+
+# heatmap bound: past this many live (region, table) pairs, NEW pairs are
+# dropped (existing rings keep accumulating) — the retention math stays exact
+# and a pathological keyspace cannot balloon the store's memory
+_TRAFFIC_RINGS_CAP = 4096
+
+
+class TrafficStats:
+    """Per-(region, table) keyspace traffic rings — the Key Visualizer
+    substrate (ref: the Dashboard heatmap fed by per-region read/write
+    statistics). Read and write keys+bytes are bucketed by the
+    ``[observability] keyviz-interval-s`` knob with bounded retention
+    (``keyviz-retention-s``), sampled at the snapshot/scan/cop/commit seams
+    and shipped fleet-wide via the ``sys_snapshot`` "heatmap" section.
+
+    Lockless on purpose (the eventlog discipline): notes ride the hottest
+    read path of the store, so they rely on GIL-atomic dict/deque ops
+    instead of a mutex — a lock here costs more than the accounting,
+    especially under the tier-1 lock-order detector. Counter bumps are
+    plain read-modify-writes, so a racing pair can drop a count into a
+    just-rolled bucket or lose one — the heatmap is advisory traffic
+    telemetry, not billing; ``enabled`` is the first check on every note
+    so a disabled recorder (interval <= 0) costs one attribute read."""
+
+    __slots__ = ("interval_s", "retention_s", "enabled", "_rings")
+
+    def __init__(self, interval_s: float | None = None, retention_s: float | None = None):
+        from tidb_tpu_torch import config as _config
+
+        cfg = _config.current()
+        self.interval_s = cfg.keyviz_interval_s if interval_s is None else interval_s
+        self.retention_s = cfg.keyviz_retention_s if retention_s is None else retention_s
+        self.enabled = self.interval_s > 0
+        # (region_id, table_id) → deque of mutable rows
+        # [bucket_ts, read_keys, read_bytes, write_keys, write_bytes]
+        self._rings: dict[tuple[int, int], deque] = {}
+
+    def _note(self, region_id: int, table_id: int, ki: int, bi: int, keys: int, nbytes: int) -> None:
+        now = time.time()
+        bts = now - (now % self.interval_s)
+        ring = self._rings.get((region_id, table_id))
+        if ring is None:
+            if len(self._rings) >= _TRAFFIC_RINGS_CAP:
+                return
+            depth = max(1, int(self.retention_s / self.interval_s))
+            # setdefault: a racing creator's ring wins, ours is discarded
+            ring = self._rings.setdefault((region_id, table_id), deque(maxlen=depth))
+        row = ring[-1] if ring else None
+        if row is None or row[0] != bts:
+            row = [bts, 0, 0, 0, 0]
+            ring.append(row)
+        row[ki] += keys
+        row[bi] += nbytes
+
+    def note_read(self, region_id: int, table_id: int, keys: int, nbytes: int) -> None:
+        if self.enabled and keys > 0:
+            self._note(region_id, table_id, 1, 2, int(keys), int(nbytes))
+
+    def note_write(self, region_id: int, table_id: int, keys: int, nbytes: int) -> None:
+        if self.enabled and keys > 0:
+            self._note(region_id, table_id, 3, 4, int(keys), int(nbytes))
+
+    def drop_table(self, table_id: int) -> None:
+        """Migration purge / DDL drop forgets the table's rings — post-
+        cutover traffic belongs to the new owner's store."""
+        for k in [k for k in self._rings if k[1] == table_id]:
+            self._rings.pop(k, None)
+
+    def snapshot(self, since: float = 0.0) -> list[dict]:
+        """JSON-able ring dump (buckets at or after ``since``): the
+        sys_snapshot "heatmap" section / GET /keyviz payload."""
+        out: list[dict] = []
+        for (rid, tid), ring in list(self._rings.items()):
+            buckets = [list(r) for r in list(ring) if r[0] >= since]
+            if buckets:
+                out.append({"region_id": rid, "table_id": tid, "buckets": buckets})
+        return out
+
+
+@dataclass(frozen=True)
+class Write:
+    """One committed version. Chains in MemStore._writes are strictly
+    ascending by commit_ts — every append site must preserve this, it is what
+    prewrite's conflict check, Snapshot._visible and gc() rely on. Rollback
+    tombstones live out-of-band in MemStore._rollbacks."""
+
+    commit_ts: int
+    start_ts: int
+    op: str
+    value: bytes = b""
+
+
+@dataclass
+class Lock:
+    primary: bytes
+    start_ts: int
+    op: str
+    value: bytes
+    ttl_ms: int = 3000
+    created_ms: float = 0.0  # wall-clock at prewrite; TTL expiry base
+
+    def expired(self) -> bool:
+        import time
+
+        return (time.time() * 1000 - self.created_ms) >= self.ttl_ms
+
+
+@dataclass
+class Mutation:
+    op: str  # OP_PUT / OP_DEL
+    key: bytes
+    value: bytes = b""
+
+
+@dataclass
+class Region:
+    """ref: unistore/tikv/region.go; metadata served by the embedded PD."""
+
+    region_id: int
+    start: bytes
+    end: bytes  # b"" == +inf
+    data_version: int = 0
+    max_commit_ts: int = 0
+    key_count: int = 0
+
+    def contains(self, key: bytes) -> bool:
+        return self.start <= key and (self.end == b"" or key < self.end)
+
+    def range(self) -> KeyRange:
+        return KeyRange(self.start, self.end if self.end else b"\xff" * 32)
+
+
+class PlacementDriver:
+    """Embedded PD: region metadata + id allocation (ref: unistore/pd.go).
+    Region→node placement for MPP lives in tidb_tpu.parallel."""
+
+    def __init__(self, store: "MemStore"):
+        self._store = store
+
+    def regions_in_ranges(self, ranges: Sequence[KeyRange]) -> list[tuple[Region, list[KeyRange]]]:
+        """Split key ranges by region boundary (ref: copr/coprocessor.go:334
+        buildCopTasks / region_cache.SplitKeyRangesByBuckets). A range whose
+        table is placement-FENCED here (its region moved to another store)
+        raises RegionError instead of splitting — the routing caller
+        re-resolves placement under boRegionMiss; silently returning no
+        tasks would read as an empty table."""
+        for kr in ranges:
+            self._store._check_fence_range(kr)
+        out: list[tuple[Region, list[KeyRange]]] = []
+        for region in self._store.regions():
+            rr = region.range()
+            pieces = [p for kr in ranges if (p := kr.intersect(rr)) is not None]
+            if pieces:
+                out.append((region, pieces))
+        return out
+
+
+class BulkRows:
+    """Zero-loop handoff of a record scan: concatenated row values + offsets,
+    ready for rowcodec.decode_fixed_bulk. ``tombstones`` are handles whose
+    visible version is a delete — the columnar merge masks stable rows with
+    them (PUT handles mask implicitly via ``handles``)."""
+
+    __slots__ = ("handles", "starts", "ends", "buf", "tombstones", "put_ts", "tomb_ts")
+
+    def __init__(
+        self,
+        handles: np.ndarray,
+        starts: np.ndarray,
+        ends: np.ndarray,
+        buf: bytes,
+        tombstones: np.ndarray | None = None,
+        put_ts: np.ndarray | None = None,
+        tomb_ts: np.ndarray | None = None,
+    ):
+        self.handles, self.starts, self.ends, self.buf = handles, starts, ends, buf
+        self.tombstones = tombstones if tombstones is not None else np.empty(0, np.int64)
+        # commit_ts of each PUT / tombstone verdict: the stable merge is
+        # newest-version-wins PER HANDLE, so a delta verdict only overrides
+        # stable rows from blocks committed before it (and vice versa)
+        self.put_ts = put_ts if put_ts is not None else np.empty(0, np.int64)
+        self.tomb_ts = tomb_ts if tomb_ts is not None else np.empty(0, np.int64)
+
+    def __len__(self) -> int:
+        return len(self.handles)
+
+
+class StableBlock:
+    """One columnar ingest: decoded, device-ready columns for a handle span
+    of one table — the TiFlash *stable layer* analog. Row-delta writes after
+    ingest live in the MVCC dict and override by handle at read time.
+
+    ``cols``: column position → (data, valid); STRING columns hold int32
+    dictionary codes against the shared per-(table, column) dictionary (the
+    ``dicts`` mapping), so the columnar cache can hand slices straight to the
+    device. ``schema`` lets point reads re-encode a row on demand.
+    """
+
+    __slots__ = ("table_id", "handles", "cols", "schema", "dicts", "commit_ts")
+
+    def __init__(self, table_id: int, handles: np.ndarray, cols: dict, schema, dicts: dict, commit_ts: int):
+        self.table_id = table_id
+        self.handles = handles  # ascending int64
+        self.cols = cols
+        self.schema = schema
+        self.dicts = dicts
+        self.commit_ts = commit_ts
+
+    def __len__(self) -> int:
+        return len(self.handles)
+
+    def row_values(self, idx: int) -> list:
+        """Logical-physical values of one row (for encode-on-demand reads)."""
+        out = []
+        for pos in range(self.schema.n):
+            data, valid = self.cols[pos]
+            if not valid[idx]:
+                out.append(None)
+            elif data.dtype == np.int32:  # dictionary code
+                out.append(self.dicts[pos].decode(int(data[idx])))
+            elif data.dtype == np.float64:
+                out.append(float(data[idx]))
+            else:
+                out.append(int(data[idx]))
+        return out
+
+
+class Snapshot:
+    """Consistent read view at read_ts (ref: kv.Snapshot; unistore mvcc
+    reader)."""
+
+    def __init__(self, store: "MemStore", read_ts: int):
+        self._store = store
+        self.read_ts = read_ts
+
+    def _visible(self, writes: list[Write]) -> Optional[Write]:
+        # writes ascend by commit_ts; walk from the end
+        for w in reversed(writes):
+            if w.commit_ts <= self.read_ts:
+                return w
+        return None
+
+    def _get_locked(self, key: bytes) -> Optional[bytes]:
+        """One key's read under the store mutex (caller holds it)."""
+        self._store._check_fence_key(key)
+        self._store._check_lock(key, self.read_ts)
+        writes = self._store._writes.get(key)
+        w = self._visible(writes) if writes else None
+        # newest-version-wins across layers: a dict verdict only hides a
+        # stable row committed before it
+        floor_ts = w.commit_ts if w is not None else 0
+        stable = self._store._stable_get(key, self.read_ts, after_ts=floor_ts)
+        if stable is not None:
+            return stable
+        if w is not None:
+            return None if w.op == OP_DEL else w.value
+        return None
+
+    def get(self, key: bytes) -> Optional[bytes]:
+        with self._store._mu:
+            v = self._get_locked(key)
+        self._store._note_read_traffic(key, 1, len(v) if v is not None else 0)
+        return v
+
+    def get_many(self, keys) -> list:
+        """Vectorized multi-key read: ONE lock acquisition for the whole
+        batch (the embedded analog of a batched store RPC). Per-key lock
+        conflicts come back as ``KeyLockedError`` OUTCOMES in the result
+        list — one session's locked key must never fail the other sessions'
+        reads coalesced into the same batch."""
+        out: list = []
+        first = None
+        nb = 0
+        with self._store._mu:
+            for k in keys:
+                if first is None:
+                    first = k
+                try:
+                    v = self._get_locked(k)
+                    if v is not None:
+                        nb += len(v)
+                    out.append(v)
+                except KeyLockedError as e:
+                    out.append(e)
+        if first is not None:
+            self._store._note_read_traffic(first, len(out), nb)
+        return out
+
+    def scan(self, kr: KeyRange, limit: int = 2**63, reverse: bool = False) -> list[tuple[bytes, bytes]]:
+        """Eager scan — materializes under the store lock, never holds it
+        across caller iterations. Merges the row-delta dict with stable
+        columnar blocks via a limit-aware k-way merge: newest version per key
+        wins, stable rows encode lazily only when yielded (a LIMIT-k scan of
+        a bulk-loaded table touches k rows, not the whole suffix)."""
+        import heapq
+
+        from tidb_tpu_torch.kv.rowcodec import encode_row
+
+        store = self._store
+        store._check_fence_range(kr)
+        out: list[tuple[bytes, bytes]] = []
+        with store._mu:
+            keys = store._sorted_slice(kr)
+            if reverse:
+                keys = keys[::-1]
+
+            def dict_iter():
+                for k in keys:
+                    store._check_lock(k, self.read_ts)
+                    w = self._visible(store._writes[k])
+                    if w is not None:
+                        yield (k, w.commit_ts, None if w.op == OP_DEL else w.value)
+
+            streams = [dict_iter()]
+            for table_id, blocks in store._stable.items():
+                hlo, hhi = tablecodec.range_to_handles(kr, table_id)
+                if hlo >= hhi:
+                    continue
+                for block in blocks:
+                    if block.commit_ts > self.read_ts:
+                        continue
+                    lo = int(np.searchsorted(block.handles, hlo, side="left"))
+                    hi = int(np.searchsorted(block.handles, hhi, side="left"))
+                    if lo >= hi:
+                        continue
+
+                    def block_iter(b=block, lo=lo, hi=hi):
+                        rng = range(hi - 1, lo - 1, -1) if reverse else range(lo, hi)
+                        for i in rng:
+                            yield (tablecodec.record_key(b.table_id, int(b.handles[i])), b.commit_ts, (b, i))
+                    streams.append(block_iter())
+
+            merged = heapq.merge(*streams, key=lambda e: e[0], reverse=reverse)
+            cur_key: bytes | None = None
+            cur_ts = -1
+            cur_val = None
+            for k, ts, v in merged:
+                if k != cur_key:
+                    if cur_key is not None and cur_val is not None:
+                        b, i = cur_val if isinstance(cur_val, tuple) else (None, None)
+                        out.append((cur_key, encode_row(b.schema, b.row_values(i)) if b is not None else cur_val))
+                        if len(out) >= limit:
+                            cur_key = None
+                            break
+                    cur_key, cur_ts, cur_val = k, ts, v
+                elif ts > cur_ts:
+                    cur_ts, cur_val = ts, v
+            if cur_key is not None and cur_val is not None and len(out) < limit:
+                b, i = cur_val if isinstance(cur_val, tuple) else (None, None)
+                out.append((cur_key, encode_row(b.schema, b.row_values(i)) if b is not None else cur_val))
+        if out:
+            store._note_read_traffic(out[0][0], len(out), sum(len(v) for _, v in out))
+        return out
+
+    def scan_record_rows(self, kr: KeyRange) -> BulkRows:
+        """Scan record keys in [kr) from the row-delta dict and pack visible
+        row values contiguously — the hot path feeding the columnar cache.
+        Stable columnar blocks are NOT included (the cache merges them via
+        :meth:`MemStore.stable_parts`); visible deletes come back as
+        ``tombstones`` so the merge can mask stable rows."""
+        handles: list[int] = []
+        chunks: list[bytes] = []
+        starts: list[int] = []
+        ends: list[int] = []
+        put_ts: list[int] = []
+        tombs: list[int] = []
+        tomb_ts: list[int] = []
+        off = 0
+        self._store._check_fence_range(kr)
+        with self._store._mu:
+            keys = self._store._sorted_slice(kr)
+            writes_map = self._store._writes
+            locks = self._store._locks
+            read_ts = self.read_ts
+            for k in keys:
+                if locks and k in locks:
+                    self._store._check_lock(k, read_ts)
+                w = self._visible(writes_map[k])
+                if w is None:
+                    continue
+                if not tablecodec.is_record_key(k):
+                    continue
+                if w.op != OP_PUT:
+                    tombs.append(tablecodec.decode_record_key(k)[1])
+                    tomb_ts.append(w.commit_ts)
+                    continue
+                handles.append(tablecodec.decode_record_key(k)[1])
+                put_ts.append(w.commit_ts)
+                chunks.append(w.value)
+                starts.append(off)
+                off += len(w.value)
+                ends.append(off)
+        if handles or tombs:
+            self._store._note_read_traffic(kr.start, len(handles) + len(tombs), off)
+        return BulkRows(
+            np.asarray(handles, dtype=np.int64),
+            np.asarray(starts, dtype=np.int64),
+            np.asarray(ends, dtype=np.int64),
+            b"".join(chunks),
+            np.asarray(tombs, dtype=np.int64),
+            np.asarray(put_ts, dtype=np.int64),
+            np.asarray(tomb_ts, dtype=np.int64),
+        )
+
+
+class MemStore:
+    """The storage node. One process can host several (multi-"node" tests)."""
+
+    def __init__(self, region_split_keys: int = 500_000, lock_ttl_ms: int = 3000):
+        import uuid
+
+        self.lock_ttl_ms = lock_ttl_ms
+        # distinguishes this store in process-global caches (device arrays):
+        # region/table ids restart per store and would otherwise collide
+        self.nonce = uuid.uuid4().hex
+        self._mu = threading.RLock()
+        self._writes: dict[bytes, list[Write]] = {}
+        # stable columnar layer: table_id → ingest-ordered StableBlocks
+        # (later blocks override earlier ones on handle collision)
+        self._stable: dict[int, list[StableBlock]] = {}
+        # key → start_ts set of rolled-back txns (out-of-band so write chains
+        # stay strictly ascending by commit_ts)
+        self._rollbacks: dict[bytes, set[int]] = {}
+        self._locks: dict[bytes, Lock] = {}
+        # GC pins from services (log backup checkpoints): name → ts
+        self._service_safepoints: dict[str, int] = {}
+        # columnar change logs: (region_id, table_id) → pending record-key
+        # changes since the last delta merge (see _ChangeLog)
+        self._changes: dict[tuple[int, int], _ChangeLog] = {}
+        self._sorted: list[bytes] | None = []
+        self.tso = TimestampOracle()
+        self._region_split_keys = region_split_keys
+        self._regions: list[Region] = [Region(region_id=1, start=b"", end=b"")]
+        self._next_region_id = 2
+        self.pd = PlacementDriver(self)
+        self._client = None  # installed by copr.CopClient wiring
+        self.detector = DeadlockDetector()
+        # cluster-singleton election lives WITH the data (ref: etcd-backed
+        # owner.Manager — here the store process is the etcd analog, so N
+        # SQL layers sharing this store elect exactly one TTL/stats/GC/DDL
+        # owner; kv/owner.py holds the lease machinery)
+        from tidb_tpu_torch.kv.election import ElectionReplica
+        from tidb_tpu_torch.kv.owner import OwnerManager
+
+        self.owner_mgr = OwnerManager()
+        # this store's share of the QUORUM election keyspace: a sharded
+        # fleet (kv/sharded.py) replicates lease/term state to a majority of
+        # these replicas instead of using the local OwnerManager above
+        # (kv/election.py — the PD/etcd-member role)
+        self.election_replica = ElectionReplica()
+        # this store's share of the quorum PLACEMENT keyspace: epoch-
+        # versioned table→shard bindings the elastic-placement driver
+        # (kv/placement.py) replicates to a majority — the PD region-epoch
+        # analog that makes ownership movable at runtime
+        from tidb_tpu_torch.kv.placement import PlacementReplica
+
+        self.placement_replica = PlacementReplica()
+        # placement fences: table_id → expiry (monotonic seconds; None =
+        # permanent). A fenced table's reads AND writes raise RegionError —
+        # the cutover signal stale routing clients re-resolve on. TTL
+        # fences self-heal when a migration driver dies mid-move.
+        self._fences: dict[int, float | None] = {}
+        # keyspace traffic heatmap rings (Key Visualizer substrate) — fed by
+        # the read/write seams below, served via sys_snapshot "heatmap"
+        self.traffic = TrafficStats()
+        # one-entry (table-prefix, region-range) resolution memo for the
+        # lockless read seam: (key9, start, end, region_id, table_id) —
+        # invalidated on region splits and table purges
+        self._traffic_memo: tuple | None = None
+
+    # -- owner election (ref: pkg/owner/manager.go:49) ----------------------
+    def owner_campaign(
+        self, key: str, node_id: str, lease_s: float | None = None, term: int | None = None
+    ) -> bool:
+        return self.owner_mgr.campaign(key, node_id, lease_s, term=term)
+
+    def owner_of(self, key: str):
+        return self.owner_mgr.owner(key)
+
+    def owner_resign(self, key: str, node_id: str) -> None:
+        self.owner_mgr.resign(key, node_id)
+
+    def owner_term(self, key: str) -> int:
+        """The key's current fencing token (ref: the etcd campaign's lease
+        revision — owners carry it so stale renewals are rejectable)."""
+        return self.owner_mgr.term(key)
+
+    def owner_granted_term(self, key: str, node_id: str):
+        """Fencing token for a node that just won ``key`` (local lookup; the
+        quorum backend caches this to avoid a post-grant majority sweep)."""
+        return self.owner_mgr.term(key) if self.owner_mgr.owner(key) == node_id else None
+
+    # -- election replica verbs (quorum keyspace; see kv/election.py) -------
+    def election_propose(self, key: str, node_id: str, term: int, deadline: float):
+        return self.election_replica.propose(key, node_id, term, deadline)
+
+    def election_read(self, key: str):
+        return self.election_replica.read(key)
+
+    # -- placement replica verbs (quorum keyspace; see kv/placement.py) ------
+    def placement_propose(self, table_id: int, shard: int, epoch: int):
+        return self.placement_replica.propose(table_id, shard, epoch)
+
+    def placement_read(self, table_id: int | None = None):
+        if table_id is None:
+            return self.placement_replica.read_all()
+        return self.placement_replica.read(table_id)
+
+    # -- placement fences (the cutover write/read barrier) -------------------
+    def fence_table(self, table_id: int, ttl_s: float | None = None) -> None:
+        """Fence one table's keyspace: reads and writes raise RegionError
+        until unfenced. ``ttl_s`` bounds a migration's cutover blackout (a
+        dead driver's fence expires on its own); ``None`` is permanent —
+        the post-move state of the OLD owner, so a stale client always gets
+        a typed re-route signal instead of a silently empty table."""
+        import time as _time
+
+        with self._mu:
+            self._fences[table_id] = None if ttl_s is None else _time.monotonic() + ttl_s
+
+    def unfence_table(self, table_id: int) -> None:
+        with self._mu:
+            self._fences.pop(table_id, None)
+
+    def _fence_live(self, table_id: int) -> bool:
+        import time as _time
+
+        ent = self._fences.get(table_id, False)
+        if ent is False:
+            return False
+        if ent is not None and _time.monotonic() >= ent:
+            with self._mu:  # expired TTL fence: migration aborted, reopen
+                cur = self._fences.get(table_id)
+                if cur is not None and _time.monotonic() >= cur:
+                    self._fences.pop(table_id, None)
+            return False
+        return True
+
+    def _check_fence_table(self, table_id: int) -> None:
+        """The one home of the fence verdict (clients may match its text)."""
+        if self._fences and self._fence_live(table_id):
+            raise RegionError(
+                table_id, f"table {table_id} placement moved (fenced on this store)"
+            )
+
+    def _check_fence_key(self, key: bytes) -> None:
+        if not self._fences or key[:1] != tablecodec.TABLE_PREFIX or len(key) < 9:
+            return
+        from tidb_tpu_torch.utils import codec
+
+        self._check_fence_table(codec.decode_int_raw(key, 1))
+
+    def _check_fence_range(self, kr: KeyRange) -> None:
+        """Raise when ``kr`` lies WITHIN one fenced table's keyspace (the
+        per-table scan every data path issues). Broader multi-table ranges
+        pass — after the purge there is nothing left to return, and during
+        the ms-scale cutover blackout the source's copy is still exact."""
+        if not self._fences or kr.start[:1] != tablecodec.TABLE_PREFIX or len(kr.start) < 9:
+            return
+        from tidb_tpu_torch.utils import codec
+
+        tid = codec.decode_int_raw(kr.start, 1)
+        if kr.end <= tablecodec.table_prefix(tid + 1):
+            self._check_fence_table(tid)
+
+    # -- region migration verbs (kv/placement.py migrate_table) --------------
+    def migrate_export(self, table_id: int, after_ts: int = 0, upto_ts: int | None = None,
+                       cursor=None, limit: int = 4096, include_locks: bool = False) -> dict:
+        """One page of ``table_id``'s committed state for a region move:
+        ``(key, op, value, commit_ts, start_ts)`` items carrying their
+        ORIGINAL timestamps (concurrent snapshots must read identically
+        from either side, and check_txn_status must stay truthful at the
+        destination). Pages walk the row-delta dict first, then the stable
+        columnar blocks (encoded as row puts at the block's commit ts);
+        the FINAL page of a fenced window additionally ships the in-flight
+        prewrite locks, so a 2PC commit that re-routes finds them waiting.
+        Pure read — replay-safe over the wire. ``cursor`` is opaque:
+        ``None`` starts, the returned cursor continues, ``None`` back means
+        done."""
+        hi_ts = upto_ts if upto_ts is not None else 2**63
+        lo_key = tablecodec.table_prefix(table_id)
+        hi_key = tablecodec.table_prefix(table_id + 1)
+        phase, pos = ("dict", lo_key) if cursor is None else (cursor[0], cursor[1:])
+        items: list = []
+        next_cur = None
+        stable_jobs: list = []
+        with self._mu:
+            if phase == "dict":
+                start = pos if isinstance(pos, bytes) else pos[0]
+                for k in self._sorted_slice(KeyRange(max(lo_key, start), hi_key)):
+                    if len(items) >= limit:
+                        next_cur = ("dict", k)
+                        break
+                    for w in self._writes.get(k, ()):
+                        if after_ts < w.commit_ts <= hi_ts:
+                            items.append((k, w.op, w.value, w.commit_ts, w.start_ts))
+                else:
+                    next_cur = ("stable", 0, 0)
+            else:
+                bi, ri = int(pos[0]), int(pos[1])
+                blocks = self._stable.get(table_id, [])
+                budget = limit
+                while bi < len(blocks) and budget > 0:
+                    b = blocks[bi]
+                    if not (after_ts < b.commit_ts <= hi_ts):
+                        bi, ri = bi + 1, 0
+                        continue
+                    take = min(budget, len(b.handles) - ri)
+                    stable_jobs.append((b, ri, ri + take))
+                    budget -= take
+                    ri += take
+                    if ri >= len(b.handles):
+                        bi, ri = bi + 1, 0
+                if bi < len(blocks):
+                    next_cur = ("stable", bi, ri)
+        # stable blocks are immutable once ingested: encode OUTSIDE the lock
+        if stable_jobs:
+            from tidb_tpu_torch.kv.rowcodec import encode_row
+
+            for b, lo, hi in stable_jobs:
+                for i in range(lo, hi):
+                    items.append(
+                        (
+                            tablecodec.record_key(table_id, int(b.handles[i])),
+                            OP_PUT,
+                            encode_row(b.schema, b.row_values(i)),
+                            b.commit_ts,
+                            b.commit_ts,
+                        )
+                    )
+        locks: list = []
+        if include_locks and next_cur is None:
+            with self._mu:
+                for k, l in self._locks.items():
+                    if lo_key <= k < hi_key:
+                        locks.append((k, l))
+        return {"items": items, "locks": locks, "cursor": next_cur}
+
+    def migrate_apply(self, items, locks=()) -> int:
+        """Install migrated versions (and in-flight locks) preserving their
+        original timestamps. Idempotent: a (key, commit_ts) already present
+        is skipped, so the wire verb is replay-safe. Region bookkeeping
+        mirrors commit — data_version bumps, change logs note the rows, so
+        the destination's device column cache revalidates."""
+        applied = 0
+        with self._mu:
+            touched: dict[int, Region] = {}
+            for k, op, v, cts, sts in items:
+                chain = self._writes.get(k)
+                is_new = chain is None
+                if is_new:
+                    chain = self._writes[k] = []
+                    if self._sorted is not None:
+                        if self._sorted and self._sorted[-1] < k:
+                            self._sorted.append(k)
+                        else:
+                            self._sorted = None
+                elif any(w.commit_ts == cts for w in chain):
+                    continue
+                chain.insert(
+                    bisect.bisect_left([w.commit_ts for w in chain], cts),
+                    Write(cts, sts, op, v),
+                )
+                applied += 1
+                r = self.region_for_key(k)
+                r.max_commit_ts = max(r.max_commit_ts, cts)
+                if is_new:
+                    r.key_count += 1
+                touched[id(r)] = r
+                self._note_change(r.region_id, k, op, cts)
+            for k, lock in locks:
+                cur = self._locks.get(k)
+                if cur is not None and cur.start_ts != lock.start_ts:
+                    continue  # a newer txn holds the key here: never clobber
+                if any(w.start_ts == lock.start_ts for w in self._writes.get(k, ())):
+                    # the lock's txn already COMMITTED on this store (a
+                    # post-cutover sweep re-shipping the source's stale copy
+                    # of a lock the client resolved here): re-installing it
+                    # would re-lock a decided key
+                    continue
+                if lock.start_ts in self._rollbacks.get(k, ()):
+                    continue  # likewise a decided rollback
+                self._locks[k] = lock
+            for r in touched.values():
+                r.data_version += 1
+                self._maybe_auto_split(r)
+        return applied
+
+    def purge_table(self, table_id: int) -> None:
+        """Drop every version/lock/stable block of ``table_id`` — post-
+        cutover hygiene on the OLD owner. Callers must keep the permanent
+        fence: without it a stale client would read a silently EMPTY table
+        instead of getting the typed re-route signal."""
+        lo, hi = tablecodec.table_prefix(table_id), tablecodec.table_prefix(table_id + 1)
+        with self._mu:
+            doomed = self._sorted_slice(KeyRange(lo, hi))
+            for k in doomed:
+                self._writes.pop(k, None)
+            for k in [k for k in self._locks if lo <= k < hi]:
+                del self._locks[k]
+            for k in [k for k in self._rollbacks if lo <= k < hi]:
+                del self._rollbacks[k]
+            self._stable.pop(table_id, None)
+            for ck in [ck for ck in self._changes if ck[1] == table_id]:
+                del self._changes[ck]
+            if doomed:
+                self._sorted = None
+            for r in self._regions:
+                rr = r.range()
+                if rr.start < hi and rr.end > lo:
+                    self._recount_region(r)
+                    r.data_version += 1
+        self.traffic.drop_table(table_id)
+        self._traffic_memo = None
+
+    # -- workload attribution (read seam) ------------------------------------
+    def _note_read_traffic(self, key: bytes, keys: int, nbytes: int) -> None:
+        """Attribute a read at ``key``'s region/table into the traffic rings
+        AND the active cop-task sidecar (the keys/bytes-scanned RU inputs).
+        Rides the hottest read path of the store, so it is lockless end to
+        end: a one-entry (table-prefix, region-range) memo resolves the
+        repeat-key / scan-locality case with a slice compare and two bytes
+        compares, and memo misses walk ``_regions`` WITHOUT the store mutex
+        (GIL-snapshot iteration — re-acquiring ``_mu`` here doubled the
+        per-get cost under the tier-1 lock-order detector, and a racing
+        split at worst misattributes a few advisory counts)."""
+        det = _ed.current_cop()
+        if det is not None:
+            det.keys_scanned += keys
+            det.bytes_scanned += nbytes
+        tr = self.traffic
+        if not tr.enabled or keys <= 0:
+            return
+        memo = self._traffic_memo
+        if (
+            memo is not None
+            and memo[1] <= key
+            and key[:9] == memo[0]
+            and (memo[2] == b"" or key < memo[2])
+        ):
+            tr._note(memo[3], memo[4], 1, 2, keys, nbytes)
+            return
+        tid = tablecodec.table_id_of(key)
+        if tid < 0:
+            return
+        rid = -1
+        for r in self._regions:
+            if r.start <= key and (r.end == b"" or key < r.end):
+                rid = r.region_id
+                self._traffic_memo = (key[:9], r.start, r.end, rid, tid)
+                break
+        tr._note(rid, tid, 1, 2, keys, nbytes)
+
+    def note_region_read(self, region_id: int, table_id: int, keys: int, nbytes: int) -> None:
+        """Logical read traffic with region/table already resolved — the
+        cop-serve seam (copr/colcache.get_split). Device-cache hits never
+        touch the MVCC seams above, yet a hammered-but-cached region IS hot:
+        the heatmap (and the balancer reading it) must see every serve, not
+        just the physical builds."""
+        tr = self.traffic
+        if tr.enabled:
+            tr.note_read(region_id, table_id, keys, nbytes)
+
+    # -- columnar change log (write→delta notification seam) ----------------
+    def _note_change(self, region_id: int, key: bytes, op: str, ts: int) -> None:
+        """Record one committed record-key change (caller holds ``_mu``)."""
+        if not tablecodec.is_record_key(key):
+            return
+        tid, h = tablecodec.decode_record_key(key)
+        self._changes.setdefault((region_id, tid), _ChangeLog()).note(ts, h, op)
+
+    def _note_bulk(self, table_id: int, handles: np.ndarray, regions, ts: int) -> None:
+        """Record a bulk ingest's handle set per touched region (caller holds
+        ``_mu``; ``handles`` sorted ascending). Small slices itemize (they can
+        serve the delta read path); big ones degrade to span watermarks."""
+        for r in regions:
+            hlo, hhi = tablecodec.range_to_handles(r.range(), table_id)
+            if hlo >= hhi:
+                continue
+            lo = int(np.searchsorted(handles, hlo, side="left"))
+            hi = int(np.searchsorted(handles, hhi, side="left"))
+            if lo >= hi:
+                continue
+            log = self._changes.setdefault((r.region_id, table_id), _ChangeLog())
+            if hi - lo > _CHANGE_ITEMS_CAP:
+                log.note_span(ts, int(handles[lo]), int(handles[hi - 1]))
+            else:
+                for h in handles[lo:hi]:
+                    log.note(ts, int(h), OP_PUT)
+
+    def col_changes_since(self, region_id: int, table_id: int, after_ts: int):
+        """Changes with commit_ts > after_ts for one (region, table):
+        ``("none", None)`` | ``("items", [(ts, handle, op), ...])`` |
+        ``("span", (lo, hi))`` — span means itemization was lost; only the
+        handle watermark is reliable (merge, don't delta-read)."""
+        with self._mu:
+            log = self._changes.get((region_id, table_id))
+            if log is None or log.lo is None:
+                return ("none", None)
+            if log.lost and log.lost_max_ts > after_ts:
+                return ("span", (log.lo, log.hi))
+            items = [it for it in log.items if it[0] > after_ts]
+            if not items:
+                return ("none", None)
+            return ("items", items)
+
+    def col_changes_prune(self, region_id: int, table_id: int, upto_ts: int) -> None:
+        """Forget changes at or below ``upto_ts`` — they were folded into a
+        freshly merged columnar base."""
+        with self._mu:
+            log = self._changes.get((region_id, table_id))
+            if log is None:
+                return
+            if log.lost:
+                if log.lost_max_ts > upto_ts:
+                    return  # cannot prune what we cannot itemize
+                log.lost = False
+                log.lost_max_ts = 0
+                log.items = []
+                log.lo = log.hi = None
+                return
+            log.items = [it for it in log.items if it[0] > upto_ts]
+            if log.items:
+                hs = [it[1] for it in log.items]
+                log.lo, log.hi = min(hs), max(hs)
+            else:
+                log.lo = log.hi = None
+
+    def col_changes_drop(self, table_id: int) -> None:
+        """DDL (drop/truncate) discards the table's change logs."""
+        with self._mu:
+            for k in [k for k in self._changes if k[1] == table_id]:
+                del self._changes[k]
+
+    # -- kv.Storage surface ------------------------------------------------
+    def current_ts(self) -> int:
+        return self.tso.ts()
+
+    def get_snapshot(self, ts: int) -> Snapshot:
+        return Snapshot(self, ts)
+
+    def snap_batch_get(self, pairs) -> list:
+        """Batched snapshot point reads: ``[(read_ts, key)]`` →
+        ``[bytes | None | KeyLockedError]`` in request order. Same-ts keys
+        share one snapshot and one lock acquisition (Snapshot.get_many) —
+        the vectorized multi-key lookup the cross-session point-get batcher
+        (copr/client.py) amortizes N sessions' reads onto."""
+        out: list = [None] * len(pairs)
+        by_ts: dict = {}
+        for i, (ts, k) in enumerate(pairs):
+            by_ts.setdefault(ts, []).append((i, k))
+        for ts, items in by_ts.items():
+            vals = self.get_snapshot(ts).get_many([k for _, k in items])
+            for (i, _), v in zip(items, vals):
+                out[i] = v
+        return out
+
+    def begin(self):
+        from tidb_tpu_torch.kv.txn import Txn
+
+        return Txn(self)
+
+    def get_client(self):
+        if self._client is None:
+            from tidb_tpu_torch.copr.client import CopClient
+
+            self._client = CopClient(self)
+        return self._client
+
+    # -- sorted key index --------------------------------------------------
+    def _ensure_sorted(self) -> list[bytes]:
+        if self._sorted is None:
+            self._sorted = sorted(self._writes.keys())
+        return self._sorted
+
+    def _sorted_slice(self, kr: KeyRange) -> list[bytes]:
+        keys = self._ensure_sorted()
+        lo = bisect.bisect_left(keys, kr.start)
+        hi = bisect.bisect_left(keys, kr.end)
+        return keys[lo:hi]
+
+    # -- region management -------------------------------------------------
+    def regions(self) -> list[Region]:
+        with self._mu:
+            return list(self._regions)
+
+    def region_for_key(self, key: bytes) -> Region:
+        with self._mu:
+            for r in self._regions:
+                if r.contains(key):
+                    return r
+            raise KeyError(f"no region for {key!r}")
+
+    def split_region(self, split_key: bytes) -> None:
+        """Manual split (ref: failpoint-forced splits in tests)."""
+        with self._mu:
+            for i, r in enumerate(self._regions):
+                if r.contains(split_key) and split_key > r.start:
+                    new = Region(
+                        region_id=self._next_region_id,
+                        start=split_key,
+                        end=r.end,
+                        data_version=r.data_version,
+                        max_commit_ts=r.max_commit_ts,
+                    )
+                    self._next_region_id += 1
+                    r.end = split_key
+                    self._regions.insert(i + 1, new)
+                    self._traffic_memo = None
+                    self._recount_region(r)
+                    self._recount_region(new)
+                    return
+
+    def _recount_region(self, r: Region) -> None:
+        # approximate: a handle present in both the delta dict and a stable
+        # block counts twice. key_count only drives the auto-split heuristic,
+        # where a ≤2× overestimate just splits a little early.
+        n = len(self._sorted_slice(r.range()))
+        rr = r.range()
+        for tid, blocks in self._stable.items():
+            hlo, hhi = tablecodec.range_to_handles(rr, tid)
+            if hlo >= hhi:
+                continue
+            for b in blocks:
+                n += int(np.searchsorted(b.handles, hhi)) - int(np.searchsorted(b.handles, hlo))
+        r.key_count = n
+
+    def _stable_handles_in(self, r: Region) -> tuple[int | None, np.ndarray | None]:
+        """(table_id, handles) of the most-populous stable table inside r."""
+        best_tid, best_cnt, best = None, 0, None
+        rr = r.range()
+        for tid, blocks in self._stable.items():
+            hlo, hhi = tablecodec.range_to_handles(rr, tid)
+            if hlo >= hhi:
+                continue
+            parts = []
+            for b in blocks:
+                lo = int(np.searchsorted(b.handles, hlo))
+                hi = int(np.searchsorted(b.handles, hhi))
+                if lo < hi:
+                    parts.append(b.handles[lo:hi])
+            cnt = sum(len(p) for p in parts)
+            if cnt > best_cnt:
+                best_tid, best_cnt, best = tid, cnt, parts
+        if best is None:
+            return None, None
+        return best_tid, np.sort(np.concatenate(best))
+
+    def _maybe_auto_split(self, r: Region) -> None:
+        if r.key_count <= self._region_split_keys:
+            return
+        keys = self._sorted_slice(r.range())
+        tid, stable_handles = self._stable_handles_in(r)
+        if stable_handles is not None and len(stable_handles) > len(keys):
+            # columnar-dominant region: split at the median stable handle
+            split = tablecodec.record_key(tid, int(stable_handles[len(stable_handles) // 2]))
+            if r.contains(split) and split > r.start:
+                self.split_region(split)
+            return
+        if len(keys) < 2:
+            return
+        self.split_region(keys[len(keys) // 2])
+
+    # -- percolator (server side; ref: mvcc.go:768 Prewrite, :1240 Commit) --
+    def _check_lock(self, key: bytes, read_ts: int) -> None:
+        lock = self._locks.get(key)
+        if lock is not None and lock.start_ts <= read_ts and lock.op != OP_PESSIMISTIC_LOCK:
+            # pessimistic (lock-only) locks carry no data → readers pass
+            raise KeyLockedError(key, lock)
+
+    def prewrite(self, mutations: Sequence[Mutation], primary: bytes, start_ts: int) -> dict:
+        """Stage locks; returns write-side accounting (``keys``/``bytes``
+        staged) — the counts ride the response headers so the txn layer can
+        attribute write RUs without a second pass over the mutations."""
+        nbytes = 0
+        with self._mu:
+            for m in mutations:
+                self._check_fence_key(m.key)
+                lock = self._locks.get(m.key)
+                if lock is not None and lock.start_ts != start_ts:
+                    raise KeyLockedError(m.key, lock)
+                if lock is not None and lock.op == OP_PESSIMISTIC_LOCK:
+                    # upgrading our own pessimistic lock: the conflict window
+                    # was already checked against for_update_ts at lock time
+                    continue
+                writes = self._writes.get(m.key)
+                if writes and writes[-1].commit_ts > start_ts:
+                    raise WriteConflictError(m.key, writes[-1].commit_ts, start_ts)
+                if start_ts in self._rollbacks.get(m.key, ()):
+                    raise TxnAbortedError(f"txn {start_ts} already rolled back at {m.key!r}")
+            now_ms = time.time() * 1000
+            for m in mutations:
+                nbytes += len(m.key) + len(m.value)
+                self._locks[m.key] = Lock(
+                    primary=primary,
+                    start_ts=start_ts,
+                    op=m.op,
+                    value=m.value,
+                    ttl_ms=self.lock_ttl_ms,
+                    created_ms=now_ms,
+                )
+        return {"keys": len(mutations), "bytes": nbytes}
+
+    def acquire_pessimistic_lock(
+        self,
+        keys: Sequence[bytes],
+        primary: bytes,
+        start_ts: int,
+        for_update_ts: int,
+        wait_timeout_ms: int = 3000,
+    ) -> None:
+        """Statement-time lock acquisition (ref: unistore mvcc.go
+        PessimisticLock). Blocks (polling) on foreign locks until timeout;
+        wait edges feed the deadlock detector, whose victim is the requester
+        that closes a cycle. Write-conflict check runs against for_update_ts,
+        not start_ts — that is what lets pessimistic txns proceed where
+        optimistic ones must restart."""
+        import time
+
+        deadline = time.time() * 1000 + wait_timeout_ms
+        placed: list[bytes] = []  # locks created by THIS call, for unwind
+        try:
+            for key in keys:
+                while True:
+                    with self._mu:
+                        self._check_fence_key(key)
+                        lock = self._locks.get(key)
+                        if lock is None or lock.start_ts == start_ts:
+                            writes = self._writes.get(key)
+                            if writes and writes[-1].commit_ts > for_update_ts:
+                                raise WriteConflictError(key, writes[-1].commit_ts, start_ts)
+                            if start_ts in self._rollbacks.get(key, ()):
+                                raise TxnAbortedError(f"txn {start_ts} already rolled back at {key!r}")
+                            if lock is None:  # keep prewrite-upgraded locks as-is
+                                self._locks[key] = Lock(
+                                    primary=primary,
+                                    start_ts=start_ts,
+                                    op=OP_PESSIMISTIC_LOCK,
+                                    value=b"",
+                                    ttl_ms=self.lock_ttl_ms,
+                                    created_ms=time.time() * 1000,
+                                )
+                                placed.append(key)
+                            self.detector.unregister(start_ts)
+                            break
+                        holder = lock.start_ts
+                        expired = lock.expired()
+                    # outside the store lock: deadlock check, resolution, backoff
+                    self.detector.register(start_ts, holder, key)
+                    if expired:
+                        self.resolve_lock(key, lock)
+                        continue
+                    if time.time() * 1000 >= deadline:
+                        self.detector.unregister(start_ts)
+                        raise LockWaitTimeoutError(key)
+                    time.sleep(0.002)
+        except Exception:
+            # a failed statement must not leave locks the caller doesn't
+            # know about (it only records keys on full success)
+            self.pessimistic_rollback(placed, start_ts)
+            raise
+
+    def pessimistic_rollback(self, keys: Sequence[bytes], start_ts: int) -> None:
+        """Release lock-only locks without leaving rollback tombstones (the
+        txn may still commit other keys)."""
+        with self._mu:
+            for k in keys:
+                self._check_fence_key(k)
+                lock = self._locks.get(k)
+                if lock is not None and lock.start_ts == start_ts and lock.op == OP_PESSIMISTIC_LOCK:
+                    del self._locks[k]
+        self.detector.clean_up(start_ts)
+
+    def commit(self, keys: Sequence[bytes], start_ts: int, commit_ts: int) -> dict:
+        """Move staged values into the write column. Returns write-side
+        accounting of keys NEWLY committed by THIS call — the idempotent
+        re-commit path contributes nothing, so a boRegionMiss re-routed
+        commit never double-counts in RU metering or the traffic rings."""
+        committed = 0
+        committed_bytes = 0
+        # (region_id, table_id) → [keys, bytes] for the heatmap write seam
+        wtraf: dict[tuple[int, int], list[int]] = {}
+        with self._mu:
+            touched: set[int] = set()
+            for k in keys:
+                # fenced table: this region moved (its locks moved WITH it,
+                # see migrate_export) — the typed refusal makes the client
+                # re-resolve placement and commit at the new owner
+                self._check_fence_key(k)
+                lock = self._locks.get(k)
+                if lock is None or lock.start_ts != start_ts:
+                    # idempotent re-commit or lost lock
+                    if any(w.start_ts == start_ts for w in self._writes.get(k, [])):
+                        continue  # already committed
+                    raise TxnAbortedError(f"commit of {k!r}@{start_ts}: lock not found")
+                del self._locks[k]
+                chain = self._writes.setdefault(k, [])
+                is_new = not chain
+                op = OP_PUT if lock.op == OP_PUT else OP_DEL
+                chain.append(Write(commit_ts, start_ts, op, lock.value))
+                if is_new and self._sorted is not None:
+                    # cheap append keeps sortedness only if appending at tail
+                    if self._sorted and self._sorted[-1] < k:
+                        self._sorted.append(k)
+                    else:
+                        self._sorted = None
+                region = self.region_for_key(k)
+                region.max_commit_ts = max(region.max_commit_ts, commit_ts)
+                if is_new:
+                    region.key_count += 1
+                touched.add(id(region))
+                self._note_change(region.region_id, k, op, commit_ts)
+                nb = len(k) + len(lock.value)
+                committed += 1
+                committed_bytes += nb
+                if self.traffic.enabled:
+                    tid = tablecodec.table_id_of(k)
+                    if tid >= 0:
+                        acc = wtraf.setdefault((region.region_id, tid), [0, 0])
+                        acc[0] += 1
+                        acc[1] += nb
+            for r in self._regions:
+                if id(r) in touched:
+                    r.data_version += 1
+                    self._maybe_auto_split(r)
+        for (rid, tid), (nk, nb) in wtraf.items():
+            self.traffic.note_write(rid, tid, nk, nb)
+        return {"keys": committed, "bytes": committed_bytes}
+
+    def ingest(self, keys: Sequence[bytes], values: Sequence[bytes]) -> int:
+        """Bulk ingest of pre-encoded committed rows at one fresh commit ts —
+        the local-SST-ingest path (ref: lightning local backend + unistore's
+        IngestSST): bypasses prewrite/commit per key. Refuses when any
+        ingested key holds a lock (writers would race the ingest)."""
+        with self._mu:
+            start_ts = self.tso.ts()
+            commit_ts = self.tso.ts()
+            if self._fences:
+                for k in keys:
+                    self._check_fence_key(k)
+            if self._locks:
+                for k in keys:
+                    if k in self._locks:
+                        raise KeyLockedError(k, self._locks[k])
+            writes = self._writes
+            lo: bytes | None = None
+            hi: bytes | None = None
+            for k, v in zip(keys, values):
+                chain = writes.get(k)
+                if chain is None:
+                    writes[k] = [Write(commit_ts, start_ts, OP_PUT, v)]
+                else:
+                    chain.append(Write(commit_ts, start_ts, OP_PUT, v))
+                if lo is None or k < lo:
+                    lo = k
+                if hi is None or k > hi:
+                    hi = k
+            if lo is None:
+                return commit_ts
+            # region bookkeeping in one sweep over the regions the ingested
+            # span touches (per-key region lookup is the slow path the txn
+            # commit pays); untouched regions keep their data_version so
+            # their columnar/device caches stay warm
+            self._sorted = None
+            touched = [
+                r
+                for r in self._regions
+                if (not r.end or lo < r.end) and (not r.start or hi >= r.start)
+            ]
+            for r in touched:
+                self._recount_region(r)
+                r.max_commit_ts = max(r.max_commit_ts, commit_ts)
+                r.data_version += 1
+            # change-log the ingested record keys per (region, table)
+            by_table: dict[int, list[int]] = {}
+            for k in keys:
+                if tablecodec.is_record_key(k):
+                    tid, h = tablecodec.decode_record_key(k)
+                    by_table.setdefault(tid, []).append(h)
+            per_key_bytes = (
+                sum(len(k) + len(v) for k, v in zip(keys, values)) / max(1, len(keys))
+                if self.traffic.enabled
+                else 0.0
+            )
+            for tid, hs in by_table.items():
+                arr = np.sort(np.asarray(hs, dtype=np.int64))
+                self._note_bulk(tid, arr, touched, commit_ts)
+                if self.traffic.enabled:
+                    for r in touched:
+                        hlo, hhi = tablecodec.range_to_handles(r.range(), tid)
+                        if hlo >= hhi:
+                            continue
+                        blo = int(np.searchsorted(arr, hlo, side="left"))
+                        bhi = int(np.searchsorted(arr, hhi, side="left"))
+                        if bhi > blo:
+                            self.traffic.note_write(
+                                r.region_id, tid, bhi - blo, int((bhi - blo) * per_key_bytes)
+                            )
+            for r in touched:
+                self._maybe_auto_split(r)
+            return commit_ts
+
+    def ingest_columnar(self, table_id: int, handles: np.ndarray, cols: dict, schema, dicts: dict | None = None, on_existing: str | None = None) -> int:
+        """Bulk ingest of decoded columns as a stable block at one fresh
+        commit ts — the columnar twin of :meth:`ingest` (TiFlash stable layer;
+        ref: lightning local backend writing SSTs below the LSM). Rows never
+        take the per-key dict path: reads overlay the MVCC row-delta dict on
+        top of the block. Handles must be unique; they are sorted here.
+
+        ``on_existing`` governs handles already in a stable block:
+
+        - ``'skip'``: drop them from THIS ingest (first-writer-wins). Safe
+          only for task-reserved handle ranges, where presence proves the
+          same subtask already wrote the identical row — a restarted import
+          subtask becomes idempotent WITHOUT rewriting committed history, so
+          in-flight snapshots stay consistent (ref: lightning re-importing a
+          failed engine's deterministic keys).
+        - ``'verify'``: skip rows whose stored values match this ingest
+          row-for-row; raise on any mismatch — the duplicate-PK conflict
+          surface for user-keyed tables (ref: lightning duplicate detection).
+        - ``None``: append blindly."""
+        handles = np.asarray(handles, dtype=np.int64)
+        if len(handles) == 0:
+            return self.tso.ts()
+        if not np.all(handles[:-1] < handles[1:]):
+            order = np.argsort(handles, kind="stable")
+            handles = handles[order]
+            cols = {s: (d[order], v[order]) for s, (d, v) in cols.items()}
+            if np.any(handles[:-1] == handles[1:]):
+                raise ValueError("ingest_columnar: duplicate handles")
+        with self._mu:
+            self._check_fence_table(table_id)
+            if on_existing is not None:
+                present = self._stable_present_locked(
+                    table_id, handles, cols if on_existing == "verify" else None
+                )
+                if present.all():
+                    return self.tso.ts()  # full duplicate: nothing to do
+                if present.any():
+                    keep = ~present
+                    handles = handles[keep]
+                    cols = {s: (d[keep], v[keep]) for s, (d, v) in cols.items()}
+            self.tso.ts()  # burn a start_ts to mirror the txn path
+            commit_ts = self.tso.ts()
+            lo_key = tablecodec.record_key(table_id, int(handles[0]))
+            hi_key = tablecodec.record_key(table_id, int(handles[-1]))
+            if self._locks:
+                for k in self._locks:
+                    if lo_key <= k <= hi_key:
+                        raise KeyLockedError(k, self._locks[k])
+            block = StableBlock(table_id, handles, cols, schema, dicts or {}, commit_ts)
+            self._stable.setdefault(table_id, []).append(block)
+            touched = [
+                r
+                for r in self._regions
+                if (not r.end or lo_key < r.end) and (not r.start or hi_key >= r.start)
+            ]
+            for r in touched:
+                self._recount_region(r)
+                r.max_commit_ts = max(r.max_commit_ts, commit_ts)
+                r.data_version += 1
+            self._note_bulk(table_id, handles, touched, commit_ts)
+            if self.traffic.enabled:
+                ncols = max(1, len(cols))
+                for r in touched:
+                    hlo, hhi = tablecodec.range_to_handles(r.range(), table_id)
+                    if hlo >= hhi:
+                        continue
+                    blo = int(np.searchsorted(handles, hlo, side="left"))
+                    bhi = int(np.searchsorted(handles, hhi, side="left"))
+                    if bhi > blo:
+                        # decoded columns: ~8 data bytes per cell
+                        self.traffic.note_write(
+                            r.region_id, table_id, bhi - blo, (bhi - blo) * 8 * ncols
+                        )
+            for r in touched:
+                self._maybe_auto_split(r)
+            return commit_ts
+
+    def _stable_present_locked(self, table_id: int, handles: np.ndarray, verify_cols: dict | None = None) -> np.ndarray:
+        """Bool mask: which of these (sorted) handles already sit in a stable
+        block. Span-disjoint blocks (the common first-run case — subtasks
+        write disjoint reserved ranges) skip in O(1). With ``verify_cols``,
+        every present handle's stored values must equal this ingest's values
+        (string codes share the per-table dictionary, so codes compare) —
+        a mismatch raises the duplicate-key conflict."""
+        present = np.zeros(len(handles), dtype=bool)
+        lo, hi = int(handles[0]), int(handles[-1])
+        for b in self._stable.get(table_id, ()):
+            if not len(b.handles) or int(b.handles[-1]) < lo or int(b.handles[0]) > hi:
+                continue
+            i = np.searchsorted(b.handles, handles)
+            i = np.minimum(i, len(b.handles) - 1)
+            hit = b.handles[i] == handles
+            if verify_cols is not None and hit.any():
+                new_idx = np.nonzero(hit)[0]
+                blk_idx = i[hit]
+                for slot, (nd, nv) in verify_cols.items():
+                    bd, bv = b.cols[slot]
+                    same_valid = bv[blk_idx] == nv[new_idx]
+                    both = bv[blk_idx] & nv[new_idx]
+                    same_val = ~both | (bd[blk_idx] == nd[new_idx])
+                    bad = ~(same_valid & same_val)
+                    if bad.any():
+                        k = int(handles[new_idx[np.nonzero(bad)[0][0]]])
+                        raise ValueError(
+                            f"duplicate key conflict on handle {k}: existing row differs"
+                        )
+            present |= hit
+        return present
+
+    def stable_parts(self, table_id: int, kr: KeyRange, read_ts: int) -> list[tuple["StableBlock", int, int]]:
+        """[(block, lo, hi)] index slices of stable rows with record keys in
+        [kr) visible at ``read_ts``, in ingest order."""
+        self._check_fence_table(table_id)
+        hlo, hhi = tablecodec.range_to_handles(kr, table_id)
+        out = []
+        with self._mu:
+            for block in self._stable.get(table_id, ()):
+                if block.commit_ts > read_ts:
+                    continue
+                lo = int(np.searchsorted(block.handles, hlo, side="left"))
+                hi = int(np.searchsorted(block.handles, hhi, side="left"))
+                if lo < hi:
+                    out.append((block, lo, hi))
+        if out:
+            nk = sum(hi - lo for _, lo, hi in out)
+            # decoded columns: ~8 data bytes per cell
+            nb = sum((hi - lo) * 8 * max(1, len(b.cols)) for b, lo, hi in out)
+            self._note_read_traffic(kr.start, nk, nb)
+        return out
+
+    def stable_row_count(self, table_id: int) -> int:
+        with self._mu:
+            return sum(len(b) for b in self._stable.get(table_id, ()))
+
+    def drop_stable(self, table_id: int) -> None:
+        """DDL (drop/truncate) discards the table's stable blocks."""
+        with self._mu:
+            if self._stable.pop(table_id, None) is not None:
+                for r in self._regions:
+                    self._recount_region(r)
+                    r.data_version += 1
+        self.col_changes_drop(table_id)
+
+    def _stable_holds(self, key: bytes) -> bool:
+        """Does ANY stable block contain this record key's handle?"""
+        if not self._stable or not tablecodec.is_record_key(key):
+            return False
+        table_id, handle = tablecodec.decode_record_key(key)
+        for block in self._stable.get(table_id, ()):
+            i = int(np.searchsorted(block.handles, handle))
+            if i < len(block.handles) and int(block.handles[i]) == handle:
+                return True
+        return False
+
+    def _stable_get(self, key: bytes, read_ts: int, after_ts: int = 0) -> Optional[bytes]:
+        """Point read from the stable layer (encode-on-demand). Latest visible
+        block wins; blocks at or before ``after_ts`` lose to the caller's dict
+        verdict (newest-version-wins across layers)."""
+        if not self._stable or not tablecodec.is_record_key(key):
+            return None
+        table_id, handle = tablecodec.decode_record_key(key)
+        from tidb_tpu_torch.kv.rowcodec import encode_row
+
+        for block in reversed(self._stable.get(table_id, ())):
+            if block.commit_ts > read_ts or block.commit_ts <= after_ts:
+                continue
+            i = int(np.searchsorted(block.handles, handle))
+            if i < len(block.handles) and int(block.handles[i]) == handle:
+                return encode_row(block.schema, block.row_values(i))
+        return None
+
+    def rollback(self, keys: Sequence[bytes], start_ts: int) -> None:
+        with self._mu:
+            for k in keys:
+                self._check_fence_key(k)
+                lock = self._locks.get(k)
+                if lock is not None and lock.start_ts == start_ts:
+                    del self._locks[k]
+                self._rollbacks.setdefault(k, set()).add(start_ts)
+
+    def check_txn_status(self, primary: bytes, start_ts: int) -> tuple[str, int]:
+        """→ ("committed", commit_ts) | ("rolled_back", 0) | ("locked", 0).
+        (ref: unistore CheckTxnStatus; TTL expiry handled by caller policy)"""
+        with self._mu:
+            # fenced primary: its lock/write state moved with the region —
+            # answering "rolled_back" from the stale copy could erase a
+            # commit that landed at the new owner; force the re-route
+            self._check_fence_key(primary)
+            lock = self._locks.get(primary)
+            if lock is not None and lock.start_ts == start_ts:
+                if lock.expired():
+                    # dead txn: roll back its primary so the decision is durable
+                    del self._locks[primary]
+                    self._rollbacks.setdefault(primary, set()).add(start_ts)
+                    return "rolled_back", 0
+                return "locked", 0
+            for w in self._writes.get(primary, []):
+                if w.start_ts == start_ts:
+                    return "committed", w.commit_ts
+            return "rolled_back", 0  # no lock, no write → treat as rolled back
+
+    def resolve_lock(self, key: bytes, lock: Lock) -> None:
+        """Resolve one stuck lock by consulting its primary."""
+        status, commit_ts = self.check_txn_status(lock.primary, lock.start_ts)
+        if status == "committed":
+            self.commit([key], lock.start_ts, commit_ts)
+        elif status == "rolled_back":
+            self.rollback([key], lock.start_ts)
+        # "locked": primary still alive → caller backs off and retries
+
+    # -- GC (ref: pkg/store/gcworker) ---------------------------------------
+    def gc(self, safe_ts: int) -> int:
+        """Drop versions no snapshot at ts ≥ safe_ts can see. Returns number
+        of pruned version records."""
+        pruned = 0
+        with self._mu:
+            dead_keys = []
+            for k, writes in self._writes.items():
+                # find newest write with commit_ts <= safe_ts; keep it (unless DEL), drop older
+                keep_from = 0
+                for i in range(len(writes) - 1, -1, -1):
+                    if writes[i].commit_ts <= safe_ts:
+                        keep_from = i
+                        if writes[i].op == OP_DEL and not self._stable_holds(k):
+                            # a tombstone masking a stable row must survive GC
+                            # or the deleted row would resurrect from the block
+                            keep_from = i + 1
+                        break
+                if keep_from > 0:
+                    pruned += keep_from
+                    del writes[:keep_from]
+                if not writes:
+                    dead_keys.append(k)
+            for k in dead_keys:
+                del self._writes[k]
+            # rollback tombstones older than the GC horizon can never matter
+            # to a future prewrite (its start_ts would conflict anyway)
+            for k in list(self._rollbacks):
+                self._rollbacks[k] = {ts for ts in self._rollbacks[k] if ts > safe_ts}
+                if not self._rollbacks[k]:
+                    del self._rollbacks[k]
+            if dead_keys:
+                self._sorted = None
+                for r in self._regions:
+                    self._recount_region(r)
+        return pruned
+
+    # -- raw ops (catalog/meta convenience; single-key autocommit) ----------
+    def resolved_ts(self) -> int:
+        """A ts every commit at or below which has fully APPLIED (ref: the
+        resolved-ts concept in TiKV). Percolator draws commit_ts after
+        prewrite locks are placed, so any drawn-but-unapplied commit still
+        holds locks — the minimum live lock start_ts bounds it."""
+        with self._mu:
+            if self._locks:
+                return min(l.start_ts for l in self._locks.values()) - 1
+            return self.tso.ts()
+
+    def register_service_safepoint(self, name: str, ts: int) -> None:
+        """Pin GC: versions newer than ``ts`` stay until the service (e.g. a
+        log-backup task's checkpoint) advances (ref: PD service safepoints
+        that br registers for log backup)."""
+        with self._mu:
+            self._service_safepoints[name] = ts
+
+    def remove_service_safepoint(self, name: str) -> None:
+        with self._mu:
+            self._service_safepoints.pop(name, None)
+
+    def min_service_safepoint(self) -> Optional[int]:
+        with self._mu:
+            return min(self._service_safepoints.values()) if self._service_safepoints else None
+
+    def changes_since(self, after_ts: int, upto_ts: int, record_only: bool = True):
+        """Committed versions with after_ts < commit_ts <= upto_ts, commit-ts
+        ordered — the log-backup change feed (ref: br log backup observing
+        the KV change stream). Stable-block ingests emit as row puts at the
+        block's commit ts. ``record_only`` filters to table record keys (the
+        PITR replay recomputes index entries from rows)."""
+        out: list[tuple[bytes, str, bytes, int]] = []
+        in_window: list[tuple[int, "StableBlock"]] = []
+        with self._mu:
+            for key, chain in self._writes.items():
+                if record_only and not tablecodec.is_record_key(key):
+                    continue
+                for w in chain:
+                    if after_ts < w.commit_ts <= upto_ts:
+                        out.append((key, w.op, w.value, w.commit_ts))
+            for tid, blocks in self._stable.items():
+                for b in blocks:
+                    if after_ts < b.commit_ts <= upto_ts:
+                        in_window.append((tid, b))
+        # blocks are immutable once ingested: encode OUTSIDE the store lock
+        from tidb_tpu_torch.kv.rowcodec import encode_row
+
+        for tid, b in in_window:
+            for i in range(len(b.handles)):
+                out.append(
+                    (
+                        tablecodec.record_key(tid, int(b.handles[i])),
+                        OP_PUT,
+                        encode_row(b.schema, b.row_values(i)),
+                        b.commit_ts,
+                    )
+                )
+        out.sort(key=lambda e: e[3])
+        return out
+
+    def raw_put(self, key: bytes, value: bytes) -> None:
+        with self._mu:  # ts drawn under the lock keeps chains ascending
+            self._check_fence_key(key)
+            ts = self.tso.ts()
+            chain = self._writes.setdefault(key, [])
+            if not chain and self._sorted is not None:
+                if self._sorted and self._sorted[-1] < key:
+                    self._sorted.append(key)
+                else:
+                    self._sorted = None
+            chain.append(Write(ts, ts, OP_PUT, value))
+            r = self.region_for_key(key)
+            r.max_commit_ts = max(r.max_commit_ts, ts)
+            r.data_version += 1
+            self._note_change(r.region_id, key, OP_PUT, ts)
+
+    def raw_get(self, key: bytes) -> Optional[bytes]:
+        return Snapshot(self, self.tso.ts()).get(key)
+
+    def raw_cas(self, key: bytes, expected: Optional[bytes], value: bytes) -> bool:
+        """Atomic compare-and-swap on a raw key (``expected`` None = key must
+        be absent). The catalog's cross-process DDL guard hangs off this —
+        two read-then-write RPCs cannot serialize schema rewrites."""
+        with self._mu:
+            self._check_fence_key(key)
+            ts = self.tso.ts()
+            cur = None
+            chain = self._writes.get(key)
+            if chain:
+                for w in reversed(chain):
+                    if w.commit_ts <= ts:
+                        cur = None if w.op == OP_DEL else w.value
+                        break
+            if cur != expected:
+                return False
+            chain = self._writes.setdefault(key, [])
+            if not chain and self._sorted is not None:
+                if self._sorted and self._sorted[-1] < key:
+                    self._sorted.append(key)
+                else:
+                    self._sorted = None
+            chain.append(Write(ts, ts, OP_PUT, value))
+            r = self.region_for_key(key)
+            r.max_commit_ts = max(r.max_commit_ts, ts)
+            r.data_version += 1
+            self._note_change(r.region_id, key, OP_PUT, ts)
+            return True
+
+    def raw_delete(self, key: bytes) -> None:
+        with self._mu:
+            self._check_fence_key(key)
+            ts = self.tso.ts()
+            self._writes.setdefault(key, []).append(Write(ts, ts, OP_DEL))
+            r = self.region_for_key(key)
+            r.data_version += 1
+            self._note_change(r.region_id, key, OP_DEL, ts)
+
+    def raw_scan(self, kr: KeyRange, limit: int = 2**63) -> list[tuple[bytes, bytes]]:
+        return Snapshot(self, self.tso.ts()).scan(kr, limit)

@@ -1,0 +1,578 @@
+"""Elastic data placement: the PD-analog placement driver.
+
+Reference parity: PD's region scheduler — the component that makes TiKV
+placement *elastic*: every region binding carries a placement epoch
+(``metapb.RegionEpoch``), routing clients cache the map and treat an epoch
+mismatch as a region error (re-resolve under ``boRegionMiss``), and the
+balance-region/balance-hot-region schedulers move peers between stores on
+load skew. This module is that control plane for the table-granular sharded
+fleet (kv/sharded.py), layered on the same quorum-replica machinery the
+election keyspace uses (kv/election.py):
+
+- Each store shard hosts a :class:`PlacementReplica`: per table id it
+  records ``(epoch, shard)``. The **epoch is the fencing token** — a
+  proposal is accepted iff its epoch is strictly higher than the local one
+  (re-proposing the accepted record re-accepts, so the wire verb is
+  replay-safe). Epochs therefore never regress, fleet-wide.
+- :class:`PlacementClient` is the client half: majority reads resolve
+  highest-epoch-wins with read-repair of stragglers, majority writes bump
+  the epoch, and a locally cached map serves the hot routing path with
+  zero quorum traffic. ``refresh()`` is what a routing caller runs after a
+  ``RegionError`` — the ``boRegionMiss`` re-resolve.
+- :func:`migrate_table` is the region-move primitive: snapshot copy (rows
+  keep their ORIGINAL commit timestamps, so in-flight snapshots stay
+  consistent across the move), bounded change catch-up rounds, then an
+  epoch-bump cutover that **fences the old owner** (reads and writes of the
+  moved table raise ``RegionError`` there) and carries in-flight prewrite
+  locks to the destination — a 2PC commit that started before the move
+  re-routes and finds its locks waiting (the "commit replay on region
+  move" RESILIENCE.md gap, closed).
+- :func:`balancer_sweep` is the scheduler: owner-gated (one mover per
+  cluster), fed by ``DB.health`` store reports and per-table weights, it
+  moves the heaviest movable table off the most loaded shard when the
+  max/min skew crosses ``[cluster] balancer-skew-ratio``.
+
+Crash safety: the cutover fence carries a TTL ([cluster]
+placement-fence-ttl-s) — a migration driver that dies between fencing and
+the epoch bump leaves a fence that expires on its own, and the table
+returns to its old owner with nothing lost (the destination's partial copy
+is unreachable until some later migration finishes the job; re-applying is
+idempotent). A cutover whose epoch bump cannot reach a majority first
+tries to re-assert the OLD owner at a higher epoch; failing that it leaves
+the fence to expire and surfaces a typed ConnectionError — a minority
+partition can never decide a move.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional
+
+from tidb_tpu_torch.utils import eventlog as _ev
+from tidb_tpu_torch.utils import failpoint
+
+
+class PlacementLostRace(Exception):
+    """Another driver's move won the epoch race for this table. The loser
+    must ABORT cleanly: leave its TTL fence to expire and touch neither the
+    winner's fences nor the epoch — re-asserting the old owner here would
+    outbid the winner and route the fleet at a purged copy."""
+
+
+class PlacementReplica:
+    """One shard's share of the placement keyspace (the PD-member role).
+
+    Deliberately dumb, like :class:`~tidb_tpu.kv.election.ElectionReplica`:
+    it enforces only the epoch accept rule and stores what it accepted —
+    all move reasoning lives client-side, so a majority of ANY replicas
+    reconstructs the truth."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._recs: dict[int, tuple[int, int]] = {}  # table_id → (epoch, shard)
+
+    def propose(self, table_id: int, shard: int, epoch: int) -> tuple[bool, int]:
+        """→ (accepted, replica's current epoch). Accept iff ``epoch`` beats
+        the local epoch, or equals it with the SAME shard (idempotent
+        replay of an accepted record — the wire verb is replay-safe)."""
+        with self._mu:
+            cur = self._recs.get(table_id, (0, -1))
+            if epoch > cur[0] or (epoch == cur[0] and shard == cur[1]):
+                self._recs[table_id] = (epoch, shard)
+                return True, epoch
+            return False, cur[0]
+
+    def read(self, table_id: int) -> tuple[int, Optional[int]]:
+        with self._mu:
+            rec = self._recs.get(table_id)
+            return (rec[0], rec[1]) if rec else (0, None)
+
+    def read_all(self) -> list[tuple[int, int, int]]:
+        """→ [(table_id, epoch, shard)] — the enumeration a fresh routing
+        client bootstraps its cached map from."""
+        with self._mu:
+            return [(tid, e, s) for tid, (e, s) in self._recs.items()]
+
+
+class PlacementClient:
+    """Client half of the placement keyspace: majority reads/writes over
+    the fleet's store list plus the locally cached routing map every data
+    verb consults. Holds a REFERENCE to the fleet's store list (like
+    QuorumElection), so store swaps in tests are visible immediately."""
+
+    def __init__(self, stores: list, explicit: Optional[dict] = None):
+        self.stores = stores
+        self._mu = threading.Lock()
+        # table_id → (epoch, shard): the cached routing map. Explicit
+        # constructor placement seeds at epoch 0 (a static pin any real
+        # quorum record outranks).
+        self._map: dict[int, tuple[int, int]] = {
+            tid: (0, si) for tid, si in (explicit or {}).items()
+        }
+        # epoch transitions this client has observed: table_id →
+        # [(epoch, shard, wall_ts)] — the cluster_placement history surface
+        self.history: dict[int, list[tuple[int, int, float]]] = {}
+        # in-flight moves started by THIS process (cluster_placement rows)
+        self.moving: dict[int, dict] = {}
+        # bumped whenever the cached map changes — routing callers can use
+        # it as a cheap "did anything move" witness
+        self.version = 0
+
+    @property
+    def quorum(self) -> int:
+        return len(self.stores) // 2 + 1
+
+    # -- local cache --------------------------------------------------------
+    def shard_of(self, table_id: int) -> Optional[int]:
+        with self._mu:
+            ent = self._map.get(table_id)
+            return ent[1] if ent is not None else None
+
+    def epoch_of(self, table_id: int) -> int:
+        with self._mu:
+            ent = self._map.get(table_id)
+            return ent[0] if ent is not None else 0
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {
+                "tables": {tid: {"epoch": e, "shard": s} for tid, (e, s) in self._map.items()},
+                "history": {tid: list(h) for tid, h in self.history.items()},
+                "moving": {tid: dict(m) for tid, m in self.moving.items()},
+            }
+
+    def _adopt(self, table_id: int, epoch: int, shard: int) -> bool:
+        """Install a resolved record into the local map — MONOTONE ONLY: a
+        lower epoch can never displace a higher one (placement epochs never
+        regress; a regression here would re-route writes to a fenced
+        ex-owner)."""
+        from tidb_tpu_torch.utils import metrics as _m
+
+        with self._mu:
+            cur = self._map.get(table_id, (0, -1))
+            if epoch < cur[0] or (epoch, shard) == cur:
+                return False
+            self._map[table_id] = (epoch, shard)
+            self.version += 1
+            self.history.setdefault(table_id, []).append((epoch, shard, time.time()))
+        _m.PLACEMENT_EPOCH.set(epoch, table=str(table_id))
+        return True
+
+    # -- quorum plumbing ----------------------------------------------------
+    def _sweep(self, call):
+        """Run ``call(store)`` on every replica → (results, reached, last
+        ConnectionError). Each store's own Backoffer already bounds the
+        probe; a dead replica contributes only to ``last``."""
+        out, last = [], None
+        for i, st in enumerate(self.stores):
+            try:
+                out.append((i, call(st)))
+            except ConnectionError as e:
+                last = e
+        return out, last
+
+    def read_majority(self, table_id: int) -> tuple[int, Optional[int]]:
+        """Resolve one table's binding from a majority (highest epoch wins)
+        and read-repair stragglers. Raises ConnectionError below quorum."""
+        reads, last = self._sweep(lambda st: st.placement_read(table_id))
+        if len(reads) < self.quorum:
+            raise ConnectionError(
+                f"placement keyspace below quorum for table {table_id}: "
+                f"{len(reads)}/{len(self.stores)} replicas reachable (need {self.quorum})"
+            ) from last
+        epoch, shard = max((rec for _, rec in reads), key=lambda r: r[0])
+        if shard is not None:
+            for i, (e, _) in reads:
+                if e < epoch:
+                    try:
+                        self.stores[i].placement_propose(table_id, shard, epoch)
+                    except ConnectionError:
+                        pass
+            self._adopt(table_id, epoch, shard)
+        return epoch, shard
+
+    def refresh(self) -> bool:
+        """Re-resolve the WHOLE placement map from a majority — the
+        ``boRegionMiss`` re-resolve a routing caller runs after a
+        RegionError (or after a dead owner, to learn whether the region
+        moved). Returns True iff the cached map changed. Below quorum the
+        stale cache is kept (False) — routing on the last known map beats
+        refusing reads the fleet can still serve."""
+        from tidb_tpu_torch.utils import metrics as _m
+
+        reads, _last = self._sweep(lambda st: st.placement_read(None))
+        if len(reads) < self.quorum:
+            _m.PLACEMENT_REFRESH.inc(outcome="below_quorum")
+            return False
+        best: dict[int, tuple[int, int]] = {}
+        for _, recs in reads:
+            for tid, e, s in recs:
+                if tid not in best or e > best[tid][0]:
+                    best[tid] = (e, s)
+        changed = False
+        for tid, (e, s) in best.items():
+            # read repair: push the resolved record at replicas behind it
+            for i, recs in reads:
+                seen = {t: ep for t, ep, _ in recs}
+                if seen.get(tid, 0) < e:
+                    try:
+                        self.stores[i].placement_propose(tid, s, e)
+                    except ConnectionError:
+                        pass
+            changed |= self._adopt(tid, e, s)
+        _m.PLACEMENT_REFRESH.inc(outcome="changed" if changed else "clean")
+        return changed
+
+    def propose(self, table_id: int, shard: int, epoch: int) -> bool:
+        """Majority write of a new binding; True iff a majority accepted.
+        Below quorum raises — a minority partition must not believe it
+        moved a region it cannot prove moved."""
+        results, last = self._sweep(
+            lambda st: st.placement_propose(table_id, shard, epoch)
+        )
+        if len(results) < self.quorum:
+            raise ConnectionError(
+                f"placement keyspace below quorum for table {table_id}: "
+                f"{len(results)}/{len(self.stores)} replicas reachable (need {self.quorum})"
+            ) from last
+        acks = sum(1 for _, (ok, _e) in results if ok)
+        if acks >= self.quorum:
+            self._adopt(table_id, epoch, shard)
+            return True
+        return False
+
+    def repair_replica(self, si: int) -> int:
+        """Returning-replica anti-entropy for the placement keyspace: push
+        every locally known binding onto shard ``si`` (its accept rule keeps
+        the higher epoch). → number of records pushed."""
+        with self._mu:
+            recs = [(tid, e, s) for tid, (e, s) in self._map.items()]
+        n = 0
+        for tid, e, s in recs:
+            try:
+                self.stores[si].placement_propose(tid, s, e)
+                n += 1
+            except ConnectionError:
+                break
+        return n
+
+    # -- move bookkeeping ---------------------------------------------------
+    def note_moving(self, table_id: int, src: int, dst: int, epoch: int) -> None:
+        with self._mu:
+            self.moving[table_id] = {
+                "src": src, "dst": dst, "epoch": epoch, "phase": "copy",
+                "started": time.time(),
+            }
+
+    def note_phase(self, table_id: int, phase: str) -> None:
+        with self._mu:
+            if table_id in self.moving:
+                self.moving[table_id]["phase"] = phase
+
+    def note_move_done(self, table_id: int) -> None:
+        with self._mu:
+            self.moving.pop(table_id, None)
+
+
+# -- the region-move primitive ------------------------------------------------
+
+
+def _copy_rounds(src, dst, table_id: int, after_ts: int, upto_ts, batch: int,
+                 include_locks: bool = False) -> int:
+    """Stream one catch-up window of ``table_id`` from src to dst in pages:
+    committed versions (original commit_ts preserved) plus, on the final
+    page of a fenced window, the in-flight prewrite locks. → rows copied.
+    The ``placement_migrate_batch`` failpoint fires per page — chaos tests
+    widen the kill window here."""
+    copied = 0
+    cursor = None
+    while True:
+        failpoint.inject("placement_migrate_batch", table_id, cursor)
+        page = src.migrate_export(
+            table_id, after_ts=after_ts, upto_ts=upto_ts, cursor=cursor,
+            limit=batch, include_locks=include_locks,
+        )
+        if page["items"] or page.get("locks"):
+            dst.migrate_apply(page["items"], page.get("locks", ()))
+            copied += len(page["items"])
+        cursor = page.get("cursor")
+        if cursor is None:
+            return copied
+
+
+def migrate_table(store, table_id: int, dst: int, *, batch_keys: Optional[int] = None,
+                  fence_ttl_s: Optional[float] = None) -> dict:
+    """Move one table's region from its current owner to shard ``dst``.
+
+    Protocol (the PD region-move analog, collapsed to one leader-less
+    driver because regions here have exactly one replica):
+
+    1. **Snapshot copy** at a fleet timestamp — every visible version ships
+       with its ORIGINAL (commit_ts, start_ts), so concurrent snapshots
+       read identically from either side and ``check_txn_status`` stays
+       truthful at the destination.
+    2. **Catch-up rounds** — committed changes since the last window, until
+       a round comes back small (the write rate bounds the blackout).
+    3. **Fenced cutover** — the source fences the table (reads AND writes
+       raise RegionError; the fence carries a TTL so a dead driver
+       self-heals), the final window ships together with the in-flight
+       prewrite LOCKS (a 2PC commit that re-routes finds them waiting),
+       the destination is unfenced, and the placement epoch bumps via a
+       majority write. Stale routing clients keep hitting the source,
+       get RegionError, re-resolve under boRegionMiss, and land here.
+    4. **Hygiene** — the source keeps a PERMANENT fence (a stale client
+       must get a typed re-route signal, never a silently empty scan) and
+       purges its copy.
+
+    Returns ``{"moved", "src", "dst", "epoch", "rows", "wall_ms",
+    "blackout_ms"}``; raises typed errors (ConnectionError below quorum or
+    on a dead peer) and never leaves the fleet split-brained: an ambiguous
+    epoch bump first tries to re-assert the old owner at a higher epoch,
+    else leaves the TTL fence to expire.
+    """
+    from tidb_tpu_torch import config as _config
+    from tidb_tpu_torch.utils import metrics as _m
+
+    cfg = _config.current()
+    batch = batch_keys if batch_keys is not None else cfg.migrate_batch_keys
+    ttl = fence_ttl_s if fence_ttl_s is not None else cfg.placement_fence_ttl_s
+    cache = store.placement_cache
+    dst = dst % len(store.stores)
+    src = store.shard_of_table(table_id)
+    if src == dst:
+        return {"moved": False, "src": src, "dst": dst, "reason": "already placed there"}
+    # quorum-confirm the epoch we are about to outbid (our cache may lag a
+    # move another driver finished)
+    epoch, owner = cache.read_majority(table_id)
+    if owner is not None and owner % len(store.stores) != src:
+        src = owner % len(store.stores)
+        if src == dst:
+            return {"moved": False, "src": src, "dst": dst, "reason": "already placed there"}
+    s_src, s_dst = store.stores[src], store.stores[dst]
+    cache.note_moving(table_id, src, dst, epoch + 1)
+    lg = _ev.on(_ev.INFO)
+    if lg is not None:
+        lg.emit(
+            _ev.INFO, "placement", "migrate_begin",
+            table=table_id, src=src, dst=dst, epoch=epoch + 1,
+        )
+    t0 = time.perf_counter()
+    blackout_ms = 0.0
+    rows = 0
+    try:
+        # 1+2: snapshot copy, then catch-up until a round comes back small
+        last_ts = 0
+        for _round in range(8):
+            upto = store.current_ts()
+            n = _copy_rounds(s_src, s_dst, table_id, last_ts, upto, batch)
+            rows += n
+            last_ts = upto
+            if _round > 0 and n <= max(batch // 8, 64):
+                break
+        # 3: fenced cutover. The final window must PROVABLY complete inside
+        # the fence TTL: a fence that lapsed mid-copy lets writes slip back
+        # onto the source, and the purge below would silently erase them —
+        # so the copy repeats under a fresh fence until a round finishes
+        # with at least half the TTL remaining (re-copying the same window
+        # is idempotent and picks up anything that slipped).
+        cache.note_phase(table_id, "cutover")
+        lg = _ev.on(_ev.INFO)
+        if lg is not None:
+            lg.emit(_ev.INFO, "placement", "fence", table=table_id, src=src, ttl_s=ttl)
+        tb0 = time.perf_counter()
+        try:
+            for _attempt in range(4):
+                s_src.fence_table(table_id, ttl)
+                t_fence = time.monotonic()
+                rows += _copy_rounds(
+                    s_src, s_dst, table_id, last_ts, None, batch, include_locks=True
+                )
+                if time.monotonic() - t_fence < ttl * 0.5:
+                    break
+            else:
+                raise ConnectionError(
+                    f"cutover for table {table_id} could not finish its final "
+                    f"catch-up inside the fence TTL ({ttl}s); aborting the move"
+                )
+            failpoint.inject("placement_cutover", table_id)
+            s_dst.unfence_table(table_id)
+            if not cache.propose(table_id, dst, epoch + 1):
+                # lost an epoch race to another driver: re-resolve; if the
+                # winner moved it where we wanted, that is still a success
+                e2, o2 = cache.read_majority(table_id)
+                if o2 is not None and o2 % len(store.stores) == dst:
+                    epoch = e2 - 1
+                else:
+                    # the winner owns the table's state now (it may already
+                    # have fenced+purged our src) — abort WITHOUT touching
+                    # fences or the epoch; our TTL fence expires on its own
+                    lg = _ev.on(_ev.WARN)
+                    if lg is not None:
+                        lg.emit(
+                            _ev.WARN, "placement", "lost_race",
+                            table=table_id, epoch=e2, winner_shard=o2,
+                        )
+                    raise PlacementLostRace(
+                        f"placement epoch bump for table {table_id} lost the race "
+                        f"(now epoch {e2} → shard {o2})"
+                    )
+            lg = _ev.on(_ev.INFO)
+            if lg is not None:
+                lg.emit(
+                    _ev.INFO, "placement", "cutover",
+                    table=table_id, src=src, dst=dst, epoch=epoch + 1,
+                )
+        except ConnectionError:
+            # below quorum / dead peer mid-cutover: try to re-assert the OLD
+            # owner at a higher epoch (a clean cancel); if even that cannot
+            # reach a majority the TTL fence expires on its own. Only the
+            # quorum-loss path may do this — a LOST RACE must not outbid the
+            # winner (PlacementLostRace bypasses this handler).
+            try:
+                if cache.propose(table_id, src, epoch + 2):
+                    s_src.unfence_table(table_id)
+            except ConnectionError:
+                pass
+            raise
+        except PlacementLostRace:
+            raise
+        except BaseException:
+            try:
+                s_src.unfence_table(table_id)  # pre-cutover abort: reopen src
+            except ConnectionError:
+                pass
+            raise
+        blackout_ms = (time.perf_counter() - tb0) * 1000.0
+        # 4: permanent fence, then ONE more (normally empty) catch-up sweep
+        # before the purge — if the TTL fence somehow lapsed in the ms
+        # between the liveness check and the epoch bump, whatever slipped
+        # onto the source is carried over instead of erased. Only then is
+        # the purge provably loss-free. A stale client's read must
+        # re-route, never see an empty table — hence the permanent fence.
+        try:
+            s_src.fence_table(table_id, None)
+            rows += _copy_rounds(
+                s_src, s_dst, table_id, last_ts, None, batch, include_locks=True
+            )
+            s_src.purge_table(table_id)
+            lg = _ev.on(_ev.INFO)
+            if lg is not None:
+                lg.emit(_ev.INFO, "placement", "purge", table=table_id, src=src)
+        except ConnectionError:
+            pass  # src died right after cutover: nothing routes there anyway
+    except BaseException:
+        cache.note_move_done(table_id)
+        _m.REGION_MIGRATE.inc(outcome="failed")
+        raise
+    cache.note_move_done(table_id)
+    wall_ms = (time.perf_counter() - t0) * 1000.0
+    _m.REGION_MIGRATE.inc(outcome="moved")
+    _m.REGION_MIGRATE_SECONDS.observe(wall_ms / 1000.0)
+    return {
+        "moved": True, "src": src, "dst": dst, "epoch": epoch + 1,
+        "rows": rows, "wall_ms": round(wall_ms, 3), "blackout_ms": round(blackout_ms, 3),
+    }
+
+
+# -- the balancer -------------------------------------------------------------
+
+
+def _shard_weights(db, store):
+    """Per-shard placement weight plus the movable tables behind it:
+    → (weights list, [(weight, table_id, shard, name)]). Weight per table =
+    stats row count (the durable skew signal) plus a hot boost from the
+    stores' MEASURED per-(region, table) traffic rings (kv/memstore
+    TrafficStats, swept as the ``heatmap`` sys_snapshot section) — keys
+    touched over the retained window, reads and writes alike. This replaced
+    the old cop-digest exec-count heuristic: the heatmap weighs actual keys
+    moved, counts write traffic the cop ring never saw, and decays as the
+    rings roll. Partitioned tables are immovable for now — their physical
+    views would each need their own binding."""
+    traffic: dict[int, int] = {}
+    try:
+        for o in db.health.sweep(sections=("heatmap",)):
+            if not o["ok"]:
+                continue
+            for ent in o["report"].get("heatmap", ()):
+                n = sum(b[1] + b[3] for b in ent["buckets"])  # read+write keys
+                traffic[ent["table_id"]] = traffic.get(ent["table_id"], 0) + n
+    # load probes are advisory: the balancer still sees row weights, and a
+    # dead store's missing report must never abort the sweep
+    except Exception:  # graftcheck: off=except-swallow
+        pass
+    weights = [0.0] * len(store.stores)
+    tables = []
+    for db_name in db.catalog.databases():
+        for tname in db.catalog.tables(db_name):
+            t = db.catalog.table(db_name, tname)
+            st = db.stats.get(t.id)
+            w = float(max(st.row_count if st is not None else 0, 1))
+            w += float(traffic.get(t.id, 0))
+            si = store.shard_of_table(t.id)
+            weights[si] += w
+            if t.partition is None:
+                tables.append((w, t.id, si, f"{db_name}.{tname}"))
+    return weights, tables
+
+
+def balancer_sweep(db, max_moves: int = 1) -> dict:
+    """One owner-gated balancer pass: when the max/min shard weight ratio
+    crosses ``[cluster] balancer-skew-ratio``, move the heaviest movable
+    table off the hottest shard onto the lightest LIVE shard — at most
+    ``max_moves`` migrations per sweep (one region move per tick keeps the
+    blackout windows disjoint, the PD store-limit idiom). Dead/stale shards
+    are excluded as destinations (their data cannot be verified); sources
+    must be live too — an unreplicated region on a dead store has nothing
+    to stream from."""
+    from tidb_tpu_torch import config as _config
+    from tidb_tpu_torch.utils import metrics as _m
+
+    store = db.store
+    if not hasattr(store, "placement_cache") or len(getattr(store, "stores", ())) < 2:
+        return {"skipped": "not a sharded fleet"}
+    ratio = _config.current().balancer_skew_ratio
+    # liveness per shard: one cheap sweep (sections=()) — a shard that
+    # cannot answer a load probe is neither a source nor a destination
+    live = [True] * len(store.stores)
+    try:
+        for o in db.health.sweep(sections=()):
+            if 0 <= o.get("shard", -1) < len(live):
+                live[o["shard"]] = bool(o["ok"])
+    # health is advisory too: with no sweep every shard stays eligible,
+    # which only risks a move the next tick would undo
+    except Exception:  # graftcheck: off=except-swallow
+        pass
+    moves: list[dict] = []
+    for _ in range(max_moves):
+        weights, tables = _shard_weights(db, store)
+        live_shards = [i for i in range(len(weights)) if live[i]]
+        if len(live_shards) < 2:
+            break
+        hot = max(live_shards, key=lambda i: weights[i])
+        cold = min(live_shards, key=lambda i: weights[i])
+        if weights[hot] <= ratio * max(weights[cold], 1.0):
+            break  # balanced
+        movable = sorted(
+            (e for e in tables if e[2] == hot), key=lambda e: e[0], reverse=True
+        )
+        picked = None
+        for w, tid, _si, name in movable:
+            # the move must IMPROVE the spread, not just swap the extremes
+            if max(weights[hot] - w, weights[cold] + w) < weights[hot]:
+                picked = (w, tid, name)
+                break
+        if picked is None:
+            break
+        w, tid, name = picked
+        out = migrate_table(store, tid, cold)
+        out["table"] = name
+        moves.append(out)
+        _m.BALANCER_MOVES.inc(reason="skew")
+        lg = _ev.on(_ev.INFO)
+        if lg is not None:
+            lg.emit(
+                _ev.INFO, "placement", "balancer_move",
+                table=name, src=hot, dst=cold, reason="skew",
+            )
+    return {"moves": moves, "balanced": not moves or len(moves) < max_moves}

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under ``_build/`` (listed
-in ``.gitignore``) and loaded with ctypes. The library's file name carries a
+in ``.gitignore``; the package's ``_build/``, beside the host row codec's
+library) and loaded with ctypes. The library's file name carries a
 hash of its source and flags, so an edited source never loads a stale
 build. A failed compile raises with the compiler's output; there is no
 fallback.
@@ -19,7 +20,7 @@ import threading
 import time
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parent
+_PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (

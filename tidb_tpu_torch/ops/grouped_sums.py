@@ -163,7 +163,7 @@ def _check(seg, pairs, B: int, n_pad: int, bounds, device: torch.device) -> None
 
 
 def _lib():
-    from tidb_tpu_torch import native
+    from tidb_tpu_torch.native import cuda as native
 
     return entry(native.load("grouped_sums"))
 

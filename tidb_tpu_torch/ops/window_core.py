@@ -1,6 +1,7 @@
 """Segmented order statistics and running reductions over group-sorted rows
-(port of the two pieces of tidb_tpu/ops/window_core.py that the lex-sort
-grouped aggregation reads; the window program itself is not ported).
+(port of the pieces of tidb_tpu/ops/window_core.py that the lex-sort
+grouped aggregation and the binder read; the window program itself is not
+ported).
 
 Both take rows already sorted by group, so every group is one contiguous
 run: ``seg`` is the nondecreasing group index per row and ``ps`` the
@@ -36,3 +37,19 @@ def _seg_running(x: torch.Tensor, ps: torch.Tensor, op: Callable, n: int) -> tor
         y = torch.where(src >= ps, op(y, prev), y)
         step <<= 1
     return y
+
+
+def widen_bounds(bounds):
+    """Round (lo, hi) outward to power-of-two envelopes so measured bounds
+    stay stable across small data changes: bounds are part of a DAG's
+    fingerprint, and coarse buckets keep the program cache warm."""
+    out = []
+    for b in bounds:
+        if b is None:
+            out.append(None)
+            continue
+        lo, hi = int(b[0]), int(b[1])
+        lo2 = 0 if lo >= 0 else -(1 << (-lo).bit_length())
+        hi2 = (1 << (hi + 1).bit_length()) - 1 if hi >= 0 else 0
+        out.append((lo2, hi2))
+    return out

@@ -1,0 +1,1191 @@
+"""Logical optimization + physical planning.
+
+Reference parity: pkg/planner/core/optimizer.go — the rule list at :84 runs
+column pruning, predicate pushdown, agg/topN/limit pushdown in that spirit;
+physicalOptimize (:1125) is replaced by deterministic pushdown-greedy
+construction (cost-based search is a later round once statistics exist).
+The engine-isolation hook (planbuilder.go:1357 filterPathByIsolationRead)
+lives in ``_pick_engine``: a fragment goes to the TPU engine iff the session
+allows it and every pushed expression is device-legal.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+from tidb_tpu_torch.expression.expr import AggDesc, ColumnRef, Constant, Expression, ScalarFunc, can_push_down
+from tidb_tpu_torch.kv import tablecodec
+from tidb_tpu_torch.kv.kv import KeyRange, StoreType
+from tidb_tpu_torch.planner import ranger
+from tidb_tpu_torch.planner.plans import (
+    LogicalAggregation,
+    LogicalDistinct,
+    LogicalDual,
+    LogicalJoin,
+    LogicalLimit,
+    LogicalMemSource,
+    LogicalPlan,
+    LogicalProjection,
+    LogicalScan,
+    LogicalSelection,
+    LogicalSetOp,
+    LogicalSort,
+    LogicalWindow,
+    OutCol,
+    PhysDual,
+    PhysDistinct,
+    PhysFinalAgg,
+    PhysHashJoin,
+    PhysIndexJoin,
+    PhysIndexLookUp,
+    PhysIndexMerge,
+    PhysIndexReader,
+    PhysMergeJoin,
+    PhysLimit,
+    PhysMemSource,
+    PhysPointGet,
+    PhysProjection,
+    PhysSelection,
+    PhysSetOp,
+    PhysSort,
+    PhysWindow,
+    PhysTableReader,
+    PhysicalPlan,
+    PlanError,
+)
+from tidb_tpu_torch.types import TypeKind
+from tidb_tpu_torch.utils import sysvar_int
+
+
+def optimize(plan: LogicalPlan, engines: list[str], stats=None, vars=None) -> PhysicalPlan:
+    """engines: allowed read engines in preference order (session var
+    tidb_isolation_read_engines analog). ``stats``: StatsHandle feeding the
+    cost-based access-path choice (pseudo-stats heuristics when absent);
+    ``vars``: session variables for planner toggles."""
+    plan, _ = _prune(plan, None)
+    plan = _push_selections(plan)
+    fast = _try_point_get(plan)
+    if fast is not None:
+        return fast
+    return _physical(plan, engines, stats, vars or {})
+
+
+# ---------------------------------------------------------------------------
+# column pruning (ref: rule_column_pruning.go)
+# ---------------------------------------------------------------------------
+
+
+def _remap_expr(e: Expression, mapping: dict[int, int]) -> Expression:
+    if isinstance(e, ColumnRef):
+        return ColumnRef(mapping[e.index], e.ftype, e.name)
+    if isinstance(e, ScalarFunc):
+        return ScalarFunc(e.sig, [_remap_expr(a, mapping) for a in e.args], e.ftype)
+    return e
+
+
+def _subst_refs(e: Expression, exprs: list[Expression]):
+    """Rewrite ColumnRefs through a projection's exprs (None = not mappable)."""
+    if isinstance(e, ColumnRef):
+        return exprs[e.index] if e.index < len(exprs) else None
+    if isinstance(e, ScalarFunc):
+        args = [_subst_refs(a, exprs) for a in e.args]
+        if any(a is None for a in args):
+            return None
+        return ScalarFunc(e.sig, args, e.ftype)
+    return e
+
+
+def _expr_cols(e: Expression, out: set[int]) -> None:
+    if isinstance(e, ColumnRef):
+        out.add(e.index)
+    for c in e.children():
+        _expr_cols(c, out)
+
+
+def _prune(plan: LogicalPlan, needed: Optional[set[int]]):
+    """Bottom-up pruning. Returns (plan, mapping old_idx→new_idx for the
+    node's output schema)."""
+    if isinstance(plan, LogicalScan):
+        if needed is None:
+            return plan, {i: i for i in range(len(plan.schema))}
+        keep = sorted(needed)
+        if not keep and plan.schema:
+            # COUNT(*) / constant projections need no columns, but a
+            # zero-column source loses the row count — keep one column
+            # (ref: rule_column_pruning.go PruneColumns keeps one)
+            keep = [0]
+        mapping = {old: new for new, old in enumerate(keep)}
+        plan.schema = [plan.schema[i] for i in keep]
+        return plan, mapping
+    if isinstance(plan, LogicalDual):
+        return plan, {}
+    if isinstance(plan, LogicalMemSource):
+        if needed is None:
+            return plan, {i: i for i in range(len(plan.schema))}
+        keep = sorted(needed)
+        if not keep and plan.schema:
+            keep = [0]  # see LogicalScan: never prune to zero columns
+        mapping = {old: new for new, old in enumerate(keep)}
+        plan.schema = [plan.schema[i] for i in keep]
+        plan.rows = [tuple(r[i] for i in keep) for r in plan.rows]
+        return plan, mapping
+    if isinstance(plan, LogicalProjection):
+        if needed is None:
+            keep = list(range(len(plan.exprs)))
+        else:
+            keep = sorted(needed)
+            if not keep and plan.exprs:
+                keep = [0]  # see LogicalScan: never prune to zero columns
+        child_needed: set[int] = set()
+        for i in keep:
+            _expr_cols(plan.exprs[i], child_needed)
+        child, cmap = _prune(plan.children[0], child_needed)
+        plan.children = [child]
+        plan.exprs = [_remap_expr(plan.exprs[i], cmap) for i in keep]
+        plan.schema = [plan.schema[i] for i in keep]
+        return plan, {old: new for new, old in enumerate(keep)}
+    if isinstance(plan, LogicalSelection):
+        child_needed = None if needed is None else set(needed)
+        if child_needed is not None:
+            for c in plan.conditions:
+                _expr_cols(c, child_needed)
+        child, cmap = _prune(plan.children[0], child_needed)
+        plan.children = [child]
+        plan.conditions = [_remap_expr(c, cmap) for c in plan.conditions]
+        return plan, cmap
+    if isinstance(plan, LogicalAggregation):
+        child_needed: set[int] = set()
+        for g in plan.group_by:
+            _expr_cols(g, child_needed)
+        for a in plan.aggs:
+            if a.arg is not None:
+                _expr_cols(a.arg, child_needed)
+            for e, _ in a.order_by:
+                _expr_cols(e, child_needed)
+        child, cmap = _prune(plan.children[0], child_needed)
+        plan.children = [child]
+        plan.group_by = [_remap_expr(g, cmap) for g in plan.group_by]
+        plan.aggs = [
+            AggDesc(
+                a.name,
+                _remap_expr(a.arg, cmap) if a.arg is not None else None,
+                a.distinct,
+                a.sep,
+                order_by=[(_remap_expr(e, cmap), d) for e, d in a.order_by],
+            )
+            for a in plan.aggs
+        ]
+        return plan, {i: i for i in range(len(plan.schema))}
+    if isinstance(plan, (LogicalSort, LogicalLimit, LogicalDistinct)):
+        child_needed = None if needed is None else set(needed)
+        if isinstance(plan, LogicalSort) and child_needed is not None:
+            for e, _ in plan.by:
+                _expr_cols(e, child_needed)
+        child, cmap = _prune(plan.children[0], child_needed)
+        plan.children = [child]
+        if isinstance(plan, LogicalSort):
+            plan.by = [(_remap_expr(e, cmap), d) for e, d in plan.by]
+        return plan, cmap
+    if isinstance(plan, LogicalSetOp):
+        # row identity spans every column — children keep their full schemas
+        for i, c in enumerate(plan.children):
+            plan.children[i], _ = _prune(c, set(range(len(c.schema))))
+        return plan, {i: i for i in range(len(plan.schema))}
+    if isinstance(plan, LogicalWindow):
+        # appended columns index past the child schema — keep the child whole
+        plan.children[0], _ = _prune(
+            plan.children[0], set(range(len(plan.children[0].schema)))
+        )
+        return plan, {i: i for i in range(len(plan.schema))}
+    if isinstance(plan, LogicalJoin) and plan.kind in ("semi", "anti"):
+        # output schema is the LEFT side only; right contributes join keys
+        # (and any columns the non-eq other_conds evaluate over)
+        nleft = len(plan.children[0].schema)
+        ln = set(needed) if needed is not None else set(range(nleft))
+        rn: set[int] = set()
+        for l, r in plan.eq_conds:
+            ln.add(l)
+            rn.add(r)
+        for c in plan.other_conds:
+            s: set[int] = set()
+            _expr_cols(c, s)
+            for i in s:
+                (ln if i < nleft else rn).add(i if i < nleft else i - nleft)
+        lchild, lmap = _prune(plan.children[0], ln)
+        rchild, rmap = _prune(plan.children[1], rn)
+        plan.children = [lchild, rchild]
+        plan.eq_conds = [(lmap[l], rmap[r]) for l, r in plan.eq_conds]
+        full_map = dict(lmap)
+        for old, new in rmap.items():
+            full_map[old + nleft] = new + len(lchild.schema)
+        plan.other_conds = [_remap_expr(c, full_map) for c in plan.other_conds]
+        plan.schema = [plan.schema[i] for i in sorted(lmap)]
+        return plan, {old: new for new, old in enumerate(sorted(lmap))}
+    if isinstance(plan, LogicalJoin):
+        nleft = len(plan.children[0].schema)
+        ln: set[int] = set()
+        rn: set[int] = set()
+        if needed is None:
+            ln = set(range(nleft))
+            rn = set(range(len(plan.children[1].schema)))
+        else:
+            for i in needed:
+                (ln if i < nleft else rn).add(i if i < nleft else i - nleft)
+        for l, r in plan.eq_conds:
+            ln.add(l)
+            rn.add(r)
+        for c in plan.other_conds:
+            s: set[int] = set()
+            _expr_cols(c, s)
+            for i in s:
+                (ln if i < nleft else rn).add(i if i < nleft else i - nleft)
+        lchild, lmap = _prune(plan.children[0], ln)
+        rchild, rmap = _prune(plan.children[1], rn)
+        plan.children = [lchild, rchild]
+        new_nleft = len(lchild.schema)
+        full_map = {}
+        for old, new in lmap.items():
+            full_map[old] = new
+        for old, new in rmap.items():
+            full_map[old + nleft] = new + new_nleft
+        plan.eq_conds = [(lmap[l], rmap[r]) for l, r in plan.eq_conds]
+        plan.other_conds = [_remap_expr(c, full_map) for c in plan.other_conds]
+        plan.schema = [plan.schema[i] for i in sorted(full_map)]
+        return plan, {old: new for new, old in enumerate(sorted(full_map))}
+    raise PlanError(f"prune: unhandled node {type(plan).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# predicate pushdown (ref: rule_predicate_push_down.go)
+# ---------------------------------------------------------------------------
+
+
+def _push_selections(plan: LogicalPlan) -> LogicalPlan:
+    for i, c in enumerate(getattr(plan, "children", [])):
+        plan.children[i] = _push_selections(c)
+    if isinstance(plan, LogicalSelection) and isinstance(plan.children[0], LogicalJoin):
+        join = plan.children[0]
+        nleft = len(join.children[0].schema)
+        if join.kind in ("semi", "anti", "left"):
+            # left-side-only conditions commute with the join: semi/anti
+            # joins only FILTER left rows, and a left join preserves every
+            # left row while such conditions never read the NULL-extended
+            # side. Pushing them below (and recursing) lets residual WHERE
+            # equalities reach a cross join a subquery rewrite left
+            # underneath — where they become equi-join keys — instead of
+            # stranding above the semi/anti/left join as a host Selection.
+            down: list[Expression] = []
+            stay: list[Expression] = []
+            for cond in plan.conditions:
+                s: set[int] = set()
+                _expr_cols(cond, s)
+                (down if s and max(s) < nleft else stay).append(cond)
+            if down:
+                join.children[0] = _push_selections(
+                    LogicalSelection(conditions=down, children=[join.children[0]])
+                )
+                if not stay:
+                    return join
+                plan.conditions = stay
+            return plan
+        keep: list[Expression] = []
+        for cond in plan.conditions:
+            s: set[int] = set()
+            _expr_cols(cond, s)
+            if join.kind in ("inner", "cross") and s and max(s) < nleft:
+                join.children[0] = LogicalSelection(conditions=[cond], children=[join.children[0]])
+            elif join.kind in ("inner", "cross") and s and min(s) >= nleft:
+                remapped = _remap_expr(cond, {i: i - nleft for i in s})
+                join.children[1] = LogicalSelection(conditions=[remapped], children=[join.children[1]])
+            elif (
+                join.kind in ("inner", "cross")
+                and isinstance(cond, ScalarFunc)
+                and cond.sig == "eq"
+                and all(isinstance(a, ColumnRef) for a in cond.args)
+                and len({a.index < nleft for a in cond.args}) == 2  # type: ignore[union-attr]
+            ):
+                # WHERE equality across a comma/cross join → join key
+                # (ref: ppdSolver turning cartesian + filter into equi-join)
+                l, r = cond.args
+                if l.index >= nleft:  # type: ignore[union-attr]
+                    l, r = r, l
+                join.eq_conds.append((l.index, r.index - nleft))  # type: ignore[union-attr]
+                join.kind = "inner"
+            elif join.kind in ("inner", "cross") and s and len({i < nleft for i in s}) == 2:
+                join.other_conds.append(cond)
+                join.kind = "inner"
+            else:
+                keep.append(cond)
+        # merge adjacent selections on the same side
+        for side in (0, 1):
+            ch = join.children[side]
+            if isinstance(ch, LogicalSelection) and isinstance(ch.children[0], LogicalSelection):
+                inner = ch.children[0]
+                inner.conditions = ch.conditions + inner.conditions
+                join.children[side] = inner
+        if not keep:
+            return join
+        plan.conditions = keep
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# point-get fast path (ref: point_get_plan.go:957 TryFastPlan)
+# ---------------------------------------------------------------------------
+
+
+def _try_point_get(plan: LogicalPlan):
+    proj = plan
+    if not isinstance(proj, LogicalProjection):
+        return None
+    sel = proj.children[0]
+    if not (isinstance(sel, LogicalSelection) and isinstance(sel.children[0], LogicalScan)):
+        return None
+    scan = sel.children[0]
+    if not scan.table.pk_is_handle or len(sel.conditions) != 1 or scan.partition_select is not None:
+        return None
+    cond = sel.conditions[0]
+    if not (isinstance(cond, ScalarFunc) and cond.sig == "eq"):
+        return None
+    a, b = cond.args
+    colref, const = (a, b) if isinstance(a, ColumnRef) else (b, a)
+    if not (isinstance(colref, ColumnRef) and isinstance(const, Constant)) or const.value is None:
+        return None
+    if scan.schema[colref.index].slot != scan.table.pk_offset:
+        return None
+    if not all(isinstance(e, ColumnRef) for e in proj.exprs):
+        return None
+    table = scan.table
+    handle = int(const.value)
+    if table.partition is not None:
+        # route the handle to its partition's physical table (ref: point-get
+        # partition pruning, planner/core/point_get_plan.go)
+        p = table.partition
+        if p.col_offset != table.pk_offset:
+            return None
+        if p.type == "hash":
+            d = p.defs[handle % len(p.defs)]
+        else:
+            d = next(
+                (d for d in p.defs if d.less_than is None or handle < d.less_than), None
+            )
+            if d is None:
+                return None  # no partition holds this value → empty result
+        table = table.partition_view(d.id)
+    pg = PhysPointGet(db=scan.db, table=table, handle=handle, schema=proj.schema)
+    pg.scan_slots = [scan.schema[e.index].slot for e in proj.exprs]  # type: ignore[attr-defined]
+    return pg
+
+
+# ---------------------------------------------------------------------------
+# access-path selection (ref: planbuilder getPossibleAccessPaths +
+# find_best_task; cost-based when ANALYZE stats exist, skyline heuristics
+# otherwise)
+# ---------------------------------------------------------------------------
+
+# relative per-row cost factors (ref: plan_cost_ver2 coefficients, rescaled
+# for a columnar device engine: sequential scans are cheap, random handle
+# lookups are not)
+_COST_TABLE_ROW = 1.0
+_COST_IDX_ROW = 1.5
+_COST_LOOKUP_ROW = 6.0
+_COST_SETUP = 40.0
+
+
+def _has_collation_override(e, schema) -> bool:
+    """True when any column reference in the expression compares under a
+    collation other than the column's declared one — the footprint of an
+    explicit COLLATE override (builder._collate_expr rewrites the ref's
+    ftype; optimization rules copy refs, so the ftype diff is the durable
+    signal). Index ranges are ordered by the DECLARED collation, so such
+    conditions must not drive index access."""
+    if isinstance(e, ColumnRef) and e.ftype.kind == TypeKind.STRING:
+        if 0 <= e.index < len(schema) and schema[e.index].ftype.kind == TypeKind.STRING:
+            if e.ftype.collation != schema[e.index].ftype.collation:
+                return True
+    return any(_has_collation_override(c, schema) for c in e.children())
+
+
+def _idx_eligible(scan, idx) -> bool:
+    """Hint-aware candidate filter: public state, not IGNOREd, and inside
+    the USE/FORCE restriction when one is present (an empty restriction —
+    USE INDEX () — allows nothing, forcing the table scan)."""
+    if idx.state != "public" or idx.name in scan.ignored_indexes:
+        return False
+    return scan.allowed_indexes is None or idx.name in scan.allowed_indexes
+
+
+def _choose_index_path(scan: LogicalScan, conds: list[Expression], stats=None):
+    """Access-path choice. With statistics: estimate rows per candidate index
+    from histograms and compare costs against the columnar full scan (ref:
+    find_best_task + cardinality.Selectivity). Without: an index wins only on
+    point (eq/IN) leading-column conditions — the one reliably-cheaper case.
+    PK handle ranges are handled by _derive_ranges on the table-reader path."""
+    t = scan.table
+    if scan.use_index is not None:
+        # the forced pick still honors IGNORE/USE sets (IGNORE beats USE)
+        idx = next((i for i in t.indexes if i.name == scan.use_index and _idx_eligible(scan, i)), None)
+        if idx is not None:
+            forced = _index_path_for(scan, idx, conds)
+            if forced is not None:
+                return forced
+    if t.partition is not None:
+        # partitioned tables read via pruned per-partition table scans;
+        # local-index access paths are a later round (ref: TiDB dynamic
+        # prune mode restricting plans similarly)
+        return None
+    tstats = stats.get(t.id) if stats is not None else None
+    best = None
+    if tstats is not None and tstats.row_count > 0:
+        from tidb_tpu_torch.statistics.selectivity import estimate_selectivity
+
+        total = tstats.row_count
+        # full columnar scan baseline: sequential, device-friendly —
+        # unless FORCE INDEX demotes it to a last resort
+        best_cost = float("inf") if scan.force_index else float(total) * _COST_TABLE_ROW
+        for idx in t.indexes:
+            if not _idx_eligible(scan, idx):
+                continue  # in-flight online-DDL / hint-ignored indexes
+            acc = ranger.detach_index_conditions(conds, scan.schema, t, idx)
+            if acc is None or not acc.used:
+                continue
+            rows = total * estimate_selectivity(acc.used, scan.schema, tstats)
+            covering = all(
+                oc.slot in idx.column_offsets or (t.pk_is_handle and oc.slot == t.pk_offset)
+                for oc in scan.schema
+            )
+            cost = _COST_SETUP + rows * (_COST_IDX_ROW if covering else _COST_LOOKUP_ROW)
+            if cost < best_cost:
+                best_cost = cost
+                best = ((), acc)
+    else:
+        for idx in t.indexes:
+            if not _idx_eligible(scan, idx):
+                continue  # in-flight online-DDL / hint-ignored indexes
+            acc = ranger.detach_index_conditions(conds, scan.schema, t, idx)
+            if acc is None or not acc.used:
+                continue
+            if acc.eq_prefix_len == 0 and not scan.force_index:
+                # range-only access wins no heuristic without stats — except
+                # under FORCE INDEX, where the table scan is the last resort
+                continue
+            key = (acc.eq_prefix_len, idx.unique, acc.has_range)
+            if best is None or key > best[0]:
+                best = (key, acc)
+    if best is None:
+        return None
+    # PK point conditions beat any secondary index (handled downstream)
+    if t.pk_is_handle:
+        hr = ranger.derive_handle_ranges(conds, scan.schema, t)
+        if hr is not None and hr[1] == 1:
+            return None
+    return _build_index_access(scan, best[1], conds)
+
+
+def _flatten_bool(e: Expression, sig: str, out: list) -> None:
+    if isinstance(e, ScalarFunc) and e.sig == sig:
+        for a in e.args:
+            _flatten_bool(a, sig, out)
+    else:
+        out.append(e)
+
+
+def _try_index_merge(scan: LogicalScan, conds: list[Expression], stats=None):
+    """Union-type IndexMerge (ref: planner/core/indexmerge_path.go
+    generateIndexMergeOrPaths): an OR condition whose every disjunct is
+    independently index- (or PK-) accessible becomes a union of handle sets
+    feeding one table lookup. Chosen when no single-index path exists (the
+    classic a=? OR b=? shape defeats single-index pruning) or when forced by
+    USE_INDEX_MERGE. Correctness does not depend on path tightness: the
+    executor re-applies the full condition list after the fetch."""
+    t = scan.table
+    if t.partition is not None:
+        return None
+    or_cond = None
+    for c in conds:
+        if isinstance(c, ScalarFunc) and c.sig == "or":
+            or_cond = c
+            break
+    if or_cond is None:
+        return None
+    disjuncts: list[Expression] = []
+    _flatten_bool(or_cond, "or", disjuncts)
+    if len(disjuncts) < 2:
+        return None
+    paths = []
+    makers = []
+    path_conds = []
+    est_rows = 0.0
+    tstats = stats.get(t.id) if stats is not None else None
+    for d in disjuncts:
+        conjs: list[Expression] = []
+        _flatten_bool(d, "and", conjs)
+        path, est = _merge_path_for(scan, conjs, tstats)
+        if path is None:
+            return None  # one unindexable disjunct sinks the whole merge
+        est_rows += est
+        paths.append(path)
+        path_conds.append(tuple(conjs))
+        # value-agnostic rebuild hook: pure function of the disjunct's
+        # conjunction, so cloned plan instances re-derive from their OWN
+        # cloned conditions (stats omitted — the shape is already chosen,
+        # the rebuild only refreshes ranges)
+        makers.append(lambda cs, scan=scan: _merge_path_for(scan, list(cs), None)[0])
+    # cost gate (ref: the index-merge path pruning by row estimates): random
+    # handle lookups must beat the columnar full scan
+    if not scan.use_index_merge and tstats is not None and tstats.row_count > 0:
+        if _COST_SETUP + est_rows * _COST_LOOKUP_ROW >= tstats.row_count * _COST_TABLE_ROW:
+            return None
+    return PhysIndexMerge(
+        db=scan.db,
+        table=t,
+        paths=paths,
+        scan_slots=[oc.slot for oc in scan.schema],
+        residual_conditions=list(conds),
+        all_conditions=list(conds),
+        schema=scan.schema,
+        path_makers=makers,
+        path_conds=path_conds,
+    )
+
+
+def _merge_path_for(scan: LogicalScan, conjs: list[Expression], tstats):
+    """One disjunct's index-merge access path: a bounded PK handle range
+    (point/two-sided only — a one-sided bound is a near-full scan and would
+    sink the union without stats) or the best single-index detachment.
+    Returns ``(path, est_rows)``; ``(None, 0.0)`` when the disjunct is
+    unindexable. Shared by plan-time derivation and the value-agnostic
+    rebuild (which passes ``tstats=None`` — the estimate is only consulted
+    by the plan-time cost gate)."""
+    t = scan.table
+    hr = _derive_ranges(scan, conjs)
+    if hr is not None:
+        spans = [tablecodec.range_to_handles(kr, t.id) for kr in hr]
+        if all(-(2**62) < lo and hi < 2**62 for lo, hi in spans):
+            est = 0.0
+            if tstats is not None and tstats.row_count > 0:
+                # PK paths cost lookups too: a wide handle range must
+                # count against the merge, not ride for free
+                est = min(float(sum(hi - lo for lo, hi in spans)), float(tstats.row_count))
+            return ("table", hr), est
+    best = None
+    for idx in t.indexes:
+        if not _idx_eligible(scan, idx):
+            continue
+        acc = ranger.detach_index_conditions(conjs, scan.schema, t, idx)
+        if acc is None or not acc.used:
+            continue
+        key = (acc.eq_prefix_len, idx.unique, acc.has_range)
+        if best is None or key > best[0]:
+            best = (key, acc)
+    if best is None:
+        return None, 0.0
+    est = 0.0
+    if tstats is not None and tstats.row_count > 0:
+        from tidb_tpu_torch.statistics.selectivity import estimate_selectivity
+
+        est = tstats.row_count * estimate_selectivity(best[1].used, scan.schema, tstats)
+    return ("idx", best[1].index, best[1].ranges), est
+
+
+def _index_path_for(scan: LogicalScan, idx, conds: list[Expression]):
+    """USE_INDEX hint: force an access path over ``idx`` when any range can
+    be derived from the conditions."""
+    acc = ranger.detach_index_conditions(conds, scan.schema, scan.table, idx)
+    if acc is None:
+        return None
+    return _build_index_access(scan, acc, conds)
+
+
+def _build_index_access(scan: LogicalScan, acc, conds: list[Expression]):
+    t = scan.table
+    covering = all(
+        oc.slot in acc.index.column_offsets or (t.pk_is_handle and oc.slot == t.pk_offset)
+        for oc in scan.schema
+    )
+    # value-agnostic prepared plans re-run the detachment over the plan
+    # instance's OWN condition objects (``range_conds``, cloned per
+    # execution) after parameter mutation; range_used_pos lets the rebuild
+    # verify the used/residual split did not shift under the new values
+    # (shifted split → the cached plan must not be reused). Positional,
+    # so the check survives copy-on-execute cloning.
+    maker = lambda cs, scan=scan, t=t, idx=acc.index: (  # noqa: E731
+        ranger.detach_index_conditions(list(cs), scan.schema, t, idx)
+    )
+    acc_used = {id(c) for c in acc.used}
+    used_pos = frozenset(i for i, c in enumerate(conds) if id(c) in acc_used)
+    if covering:
+        output_slots = [
+            -1 if (t.pk_is_handle and oc.slot == t.pk_offset) else oc.slot for oc in scan.schema
+        ]
+        return PhysIndexReader(
+            db=scan.db,
+            table=t,
+            index=acc.index,
+            ranges=acc.ranges,
+            output_slots=output_slots,
+            pushed_conditions=list(acc.residual),
+            all_conditions=list(conds),
+            schema=scan.schema,
+            range_maker=maker,
+            range_conds=tuple(conds),
+            range_used_pos=used_pos,
+        )
+    return PhysIndexLookUp(
+        db=scan.db,
+        table=t,
+        index=acc.index,
+        ranges=acc.ranges,
+        scan_slots=[oc.slot for oc in scan.schema],
+        residual_conditions=list(acc.residual),
+        all_conditions=list(conds),
+        schema=scan.schema,
+        range_maker=maker,
+        range_conds=tuple(conds),
+        range_used_pos=used_pos,
+    )
+
+
+# ---------------------------------------------------------------------------
+# physical planning
+# ---------------------------------------------------------------------------
+
+
+def _ci_order_keys(exprs) -> bool:
+    """Any general_ci string among ``exprs`` used as an ORDER key (TopN)?
+    Device order semantics come from sorted-dictionary byte ranks, but ci
+    orders by weight class ('a' ≡ 'A' < 'B'), so a device TopN could select
+    the wrong candidate SET, not just a different tie order — found by
+    graftfuzz; such keys stay host-side (the host sort paths rank by
+    weight). MIN/MAX arguments no longer demote: the binder compacts ci
+    dictionaries under the weight order itself (Dictionary.compact(ci=True)),
+    making code reduction collation-correct."""
+    return any(
+        e is not None and e.ftype.kind == TypeKind.STRING and e.ftype.collation == "ci"
+        for e in exprs
+    )
+
+
+def _demote_ci_order(st: StoreType, engines: list[str], exprs) -> Optional[StoreType]:
+    """GPU → HOST when ``exprs`` are ci-order-sensitive; None when no engine
+    can serve them (push must be skipped, the root executor handles it)."""
+    if st != StoreType.GPU or not _ci_order_keys(exprs):
+        return st
+    return StoreType.HOST if "host" in engines else None
+
+
+def _pick_engine(engines: list[str], exprs: list[Expression]) -> StoreType:
+    for name in engines:
+        if name == "gpu" and all(can_push_down(e, "gpu") for e in exprs):
+            return StoreType.GPU
+        if name == "host" and all(can_push_down(e, "host") for e in exprs):
+            return StoreType.HOST
+    # nothing fits wholly; host engine accepts the most
+    return StoreType.HOST
+
+
+def _derive_ranges(scan: LogicalScan, conds: list[Expression]) -> Optional[list[KeyRange]]:
+    """Handle-range derivation for pk_is_handle predicates (util/ranger lite).
+    Conservative: intersects simple top-level comparisons on the pk column."""
+    t = scan.table
+    if not t.pk_is_handle:
+        return None
+    pk_positions = [i for i, oc in enumerate(scan.schema) if oc.slot == t.pk_offset]
+    if not pk_positions:
+        return None
+    pk_idx = pk_positions[0]
+    lo, hi = -(2**63), 2**63 - 2  # hi inclusive
+    found = False
+    for c in conds:
+        if not (isinstance(c, ScalarFunc) and c.sig in ("eq", "lt", "le", "gt", "ge")):
+            continue
+        a, b = c.args
+        sig = c.sig
+        if isinstance(b, ColumnRef) and isinstance(a, Constant):
+            a, b = b, a
+            sig = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq"}[sig]
+        if not (isinstance(a, ColumnRef) and a.index == pk_idx and isinstance(b, Constant)):
+            continue
+        if b.value is None or a.ftype.kind not in (TypeKind.INT, TypeKind.UINT):
+            continue
+        v = int(b.value)
+        found = True
+        if sig == "eq":
+            lo, hi = max(lo, v), min(hi, v)
+        elif sig == "lt":
+            hi = min(hi, v - 1)
+        elif sig == "le":
+            hi = min(hi, v)
+        elif sig == "gt":
+            lo = max(lo, v + 1)
+        elif sig == "ge":
+            lo = max(lo, v)
+    if not found:
+        return None
+    if lo > hi:
+        return []
+    return [tablecodec.handle_range(t.id, lo, hi)]
+
+
+def _physical(plan: LogicalPlan, engines: list[str], stats=None, vars=None) -> PhysicalPlan:
+    vars = vars or {}
+    if isinstance(plan, LogicalDual):
+        return PhysDual(schema=plan.schema)
+    if isinstance(plan, LogicalMemSource):
+        return PhysMemSource(rows=plan.rows, schema=plan.schema)
+    if isinstance(plan, LogicalScan):
+        reader = PhysTableReader(
+            db=plan.db,
+            table=plan.table,
+            store_type=_pick_engine(engines, []),
+            scan_slots=[oc.slot for oc in plan.schema],
+            ranges=plan.ranges,
+            schema=plan.schema,
+        )
+        if plan.partition_select is not None:
+            sel = set(plan.partition_select)
+            reader.partitions = [
+                plan.table.partition_view(d.id)
+                for d in plan.table.partition.defs
+                if d.name.lower() in sel
+            ]
+        return reader
+    if isinstance(plan, LogicalSelection):
+        if (
+            isinstance(plan.children[0], LogicalScan)
+            and plan.children[0].partition_select is None
+            and not any(_has_collation_override(c, plan.children[0].schema) for c in plan.conditions)
+        ):
+            # an explicit COLLATE override changes comparison semantics away
+            # from the index's stored order — index ranges derived from such
+            # conditions would return wrong rows, so keep the full scan
+            ipath = _choose_index_path(plan.children[0], plan.conditions, stats)
+            if ipath is None and sysvar_int(vars, "tidb_enable_index_merge", 1):
+                # OR shapes defeat single-index pruning; a union of index
+                # paths can still serve them (ref: indexmerge_path.go)
+                ipath = _try_index_merge(plan.children[0], plan.conditions, stats)
+            if ipath is not None:
+                return ipath
+        child = _physical(plan.children[0], engines, stats, vars)
+        if (
+            isinstance(child, PhysTableReader)
+            and child.pushed_agg is None
+            and child.pushed_topn is None
+            and child.pushed_limit is None
+            and child.pushed_window is None
+        ):
+            st = _pick_engine(engines, plan.conditions)
+            pushable = [c for c in plan.conditions if can_push_down(c, st.value)]
+            host_side = [c for c in plan.conditions if not can_push_down(c, st.value)]
+            child.store_type = st
+            child.pushed_conditions.extend(pushable)
+            if isinstance(plan.children[0], LogicalScan):
+                scan0 = plan.children[0]
+                r = _derive_ranges(scan0, pushable)
+                if r is not None:
+                    child.ranges = r
+                # value-agnostic prepared plans re-derive handle ranges from
+                # the plan instance's OWN conditions (cloned per execution)
+                # after parameter mutation; table ranges only narrow the scan
+                # (conditions still filter), so any rebuild outcome —
+                # including None (full scan) — is safe
+                child.range_maker = (
+                    lambda cs, scan0=scan0: _derive_ranges(scan0, list(cs))
+                )
+                child.range_conds = tuple(pushable)
+                if plan.children[0].table.partition is not None:
+                    from tidb_tpu_torch.planner.partition import prune_partitions
+
+                    if scan0.partition_select is None:
+                        # value-agnostic rebuild hook: re-prune per execution
+                        # so a parameter moving to another partition re-routes
+                        # (explicit PARTITION (p, ...) selections stay baked —
+                        # such plans refuse the template)
+                        child.partition_pruner = (
+                            lambda cs, t=child.table, sch=plan.children[0].schema: (
+                                prune_partitions(t, sch, list(cs))
+                            )
+                        )
+                        child.partition_conds = tuple(plan.conditions)
+                    pruned = prune_partitions(
+                        child.table, plan.children[0].schema, plan.conditions
+                    )
+                    if pruned is not None:
+                        if child.partitions is not None:
+                            # intersect condition pruning with explicit
+                            # PARTITION (p, ...) selection
+                            keep_ids = {v.id for v in child.partitions}
+                            child.partitions = [v for v in pruned if v.id in keep_ids]
+                        else:
+                            child.partitions = pruned
+            if host_side:
+                # host-only residue forces the host engine for correctness of
+                # the whole fragment ordering? No — residue evaluates above
+                # the reader, engine-independent.
+                return PhysSelection(conditions=host_side, children=[child])
+            return child
+        return PhysSelection(conditions=plan.conditions, children=[child])
+    if isinstance(plan, LogicalAggregation) and plan.rollup:
+        return _physical_rollup(plan, engines, stats, vars)
+    if isinstance(plan, LogicalAggregation):
+        child = _physical(plan.children[0], engines, stats, vars)
+        # look through row-preserving projections (ref: projection elimination
+        # before agg pushdown): remap group/arg exprs through each projection
+        # so the agg can land in the reader fragment — the path that fuses
+        # Agg over a cop-pushed Window into one device program
+        reader = child
+        proj_stack: list[PhysProjection] = []
+        while isinstance(reader, PhysProjection):
+            proj_stack.append(reader)
+            reader = reader.children[0]
+
+        def _remap_through(e: Expression) -> Optional[Expression]:
+            for pr in proj_stack:
+                e = _subst_refs(e, pr.exprs)
+                if e is None:
+                    return None
+            return e
+
+        group_r = plan.group_by
+        aggs_r = plan.aggs
+        remap_ok = True
+        if proj_stack:
+            group_r = [_remap_through(g) for g in plan.group_by]
+            aggs_r = []
+            for a in plan.aggs:
+                na = _remap_through(a.arg) if a.arg is not None else None
+                if a.arg is not None and na is None:
+                    remap_ok = False
+                ob = [(_remap_through(e), d) for e, d in a.order_by]
+                if any(e is None for e, _ in ob):
+                    remap_ok = False
+                aggs_r.append(AggDesc(a.name, na, a.distinct, a.sep, order_by=ob))
+            remap_ok = remap_ok and all(g is not None for g in group_r)
+        can_push = (
+            remap_ok
+            and isinstance(reader, PhysTableReader)
+            and reader.pushed_agg is None
+            and reader.pushed_topn is None
+            and reader.pushed_limit is None
+            and not any(a.distinct for a in plan.aggs)
+            # group_concat has no distributable partial state (value order
+            # would be lost across task merges) — keep it at the root
+            and all(a.name != "group_concat" for a in plan.aggs)
+        )
+        if can_push:
+            exprs: list[Expression] = list(group_r) + [a.arg for a in aggs_r if a.arg is not None]
+            st = _pick_engine(engines, list(reader.pushed_conditions) + exprs)
+            # ci MIN/MAX args no longer demote: the binder rank-compacts the
+            # dictionary under the general_ci weight order (byte tiebreak),
+            # so device code reduction picks the same member the host's
+            # _string_minmax ranking would — found by graftfuzz, closed here
+            if st is not None and all(can_push_down(e, st.value) for e in exprs) and all(
+                can_push_down(c, st.value) for c in reader.pushed_conditions
+            ):
+                reader.store_type = st
+                pushed = LogicalAggregation(
+                    group_by=group_r, aggs=aggs_r, schema=plan.schema, children=[reader]
+                )
+                reader.pushed_agg = pushed
+                reader.pushed_agg_mode = "partial"
+                # reader output schema = partial lanes + keys
+                reader.schema = _partial_schema(pushed)
+                final = PhysFinalAgg(
+                    group_by=plan.group_by, aggs=plan.aggs, partial_input=True, schema=plan.schema, children=[reader]
+                )
+                return final
+        return PhysFinalAgg(group_by=plan.group_by, aggs=plan.aggs, partial_input=False, schema=plan.schema, children=[child])
+    if isinstance(plan, LogicalSort):
+        child = _physical(plan.children[0], engines, stats, vars)
+        return PhysSort(by=plan.by, children=[child])
+    if isinstance(plan, LogicalLimit):
+        child = _physical(plan.children[0], engines, stats, vars)
+        # limit+offset saturates at int64 max — MySQL's u64 "no limit" idiom
+        # must stay a valid device scalar (never reach a jit boundary wider)
+        total = min(plan.limit + plan.offset, 2**63 - 1)
+        # topN pushdown: Limit(Sort([Projection](reader))) → reader TopN +
+        # root merge sort; sort keys remap through the projection
+        if isinstance(child, PhysSort):
+            below = child.children[0]
+            by = child.by
+            reader = None
+            if isinstance(below, PhysTableReader):
+                reader = below
+            elif isinstance(below, PhysProjection) and isinstance(
+                below.children[0], PhysTableReader
+            ):
+                remapped = [(_subst_refs(e, below.exprs), d) for e, d in by]
+                if all(r is not None for r, _ in remapped):
+                    reader = below.children[0]
+                    by = remapped
+            if (
+                reader is not None
+                and reader.pushed_agg is None
+                and reader.pushed_topn is None
+                and reader.pushed_limit is None
+            ):
+                st = _pick_engine(engines, list(reader.pushed_conditions) + [e for e, _ in by])
+                st = _demote_ci_order(st, engines, [e for e, _ in by])
+                if st is not None and all(can_push_down(e, st.value) for e, _ in by) and all(
+                    can_push_down(c, st.value) for c in reader.pushed_conditions
+                ):
+                    reader.store_type = st
+                    reader.pushed_topn = (by, total)
+        else:
+            # plain LIMIT pushes through row-preserving projections into the
+            # reader (ref: limit pushdown, planner/core/rule/rule_topn_push_down)
+            below = child
+            while isinstance(below, PhysProjection):
+                below = below.children[0]
+            if (
+                isinstance(below, PhysTableReader)
+                and below.pushed_agg is None
+                and below.pushed_topn is None
+                and below.pushed_limit is None
+            ):
+                below.pushed_limit = total
+        return PhysLimit(limit=plan.limit, offset=plan.offset, children=[child])
+    if isinstance(plan, LogicalProjection):
+        child = _physical(plan.children[0], engines, stats, vars)
+        return PhysProjection(exprs=plan.exprs, schema=plan.schema, children=[child])
+    if isinstance(plan, LogicalDistinct):
+        child = _physical(plan.children[0], engines, stats, vars)
+        return PhysDistinct(children=[child])
+    if isinstance(plan, LogicalWindow):
+        child = _physical(plan.children[0], engines, stats, vars)
+        if _try_push_window(plan, child, engines):
+            return child  # the reader absorbed the window
+        return PhysWindow(
+            funcs=plan.funcs,
+            partition_by=plan.partition_by,
+            order_by=plan.order_by,
+            whole_partition=plan.whole_partition,
+            rows_frame=plan.rows_frame,
+            frame=plan.frame,
+            schema=plan.schema,
+            children=[child],
+        )
+    if isinstance(plan, LogicalSetOp):
+        return PhysSetOp(
+            op=plan.op,
+            all=plan.all,
+            schema=plan.schema,
+            children=[_physical(c, engines, stats, vars) for c in plan.children],
+        )
+    if isinstance(plan, LogicalJoin):
+        left = _physical(plan.children[0], engines, stats, vars)
+        right = _physical(plan.children[1], engines, stats, vars)
+        return _choose_join(plan, left, right, stats)
+    raise PlanError(f"physical: unhandled node {type(plan).__name__}")
+
+
+def _try_push_window(plan: LogicalWindow, child, engines: list[str]) -> bool:
+    """Window pushdown into the coprocessor fragment. The GPU engine carries
+    no window program yet, and a host cop window would just move the same
+    host sweep behind an extra indirection: every window stays on the root
+    (WindowExec's sweep over the reader's rows)."""
+    return False
+
+
+_INT_JOIN_KINDS = (TypeKind.INT, TypeKind.UINT, TypeKind.DECIMAL, TypeKind.DATE, TypeKind.DATETIME, TypeKind.DURATION)
+
+
+def _plain_reader(rd) -> bool:
+    return (
+        isinstance(rd, PhysTableReader)
+        and rd.pushed_agg is None
+        and rd.pushed_topn is None
+        and rd.pushed_limit is None
+        and rd.pushed_window is None
+        and rd.table.partition is None
+    )
+
+
+def _merge_join_ok(plan: LogicalJoin, left, right) -> bool:
+    """Both inputs stream in join-key order: single-key equi-join where each
+    side's key IS its table's integer handle (readers return handle order)."""
+    if plan.kind not in ("inner", "left") or len(plan.eq_conds) != 1 or plan.null_aware:
+        return False
+    l, r = plan.eq_conds[0]
+
+    def sorted_on_key(rd, pos):
+        return (
+            _plain_reader(rd)
+            and rd.table.pk_is_handle
+            and pos < len(rd.schema)
+            and rd.schema[pos].slot == rd.table.pk_offset
+        )
+
+    return sorted_on_key(left, l) and sorted_on_key(right, r)
+
+
+def _index_join_inner(plan: LogicalJoin, right):
+    """('pk', None) / ('idx', IndexInfo) when the inner (right) side is point-
+    readable on the join keys; None otherwise."""
+    if plan.kind not in ("inner", "left") or not plan.eq_conds or plan.null_aware:
+        return None
+    if not _plain_reader(right):
+        return None
+    if any(right.schema[r].ftype.kind not in _INT_JOIN_KINDS for _, r in plan.eq_conds):
+        return None
+    key_slots = [right.schema[r].slot for _, r in plan.eq_conds]
+    t = right.table
+    if len(key_slots) == 1 and t.pk_is_handle and key_slots[0] == t.pk_offset:
+        return ("pk", None)
+    for idx in t.indexes:
+        if idx.state == "public" and list(idx.column_offsets[: len(key_slots)]) == key_slots:
+            return ("idx", idx)
+    return None
+
+
+def _choose_join(plan: LogicalJoin, left, right, stats):
+    """Join algorithm by cost (ref: physical join enumeration in
+    find_best_task / builder.go:216-320), overridable by HASH_JOIN /
+    MERGE_JOIN / INL_JOIN hints. Index join wins when the outer side is
+    far smaller than the indexed inner (reads only matching inner rows);
+    merge join wins for handle-ordered inputs (no build memory); hash
+    otherwise."""
+    hash_join = PhysHashJoin(
+        kind=plan.kind,
+        eq_conds=plan.eq_conds,
+        other_conds=plan.other_conds,
+        null_aware=plan.null_aware,
+        schema=plan.schema,
+        children=[left, right],
+    )
+    if plan.kind in ("semi", "anti", "cross", "right"):
+        return hash_join
+    inner = _index_join_inner(plan, right)
+    merge_ok = _merge_join_ok(plan, left, right)
+
+    def mk(alg):
+        if alg == "merge" and merge_ok:
+            return PhysMergeJoin(
+                kind=plan.kind,
+                eq_conds=plan.eq_conds,
+                other_conds=plan.other_conds,
+                schema=plan.schema,
+                children=[left, right],
+            )
+        if alg == "index" and inner is not None:
+            return PhysIndexJoin(
+                kind=plan.kind,
+                eq_conds=plan.eq_conds,
+                other_conds=plan.other_conds,
+                inner_index=inner[1],
+                schema=plan.schema,
+                children=[left, right],
+            )
+        return hash_join
+
+    if plan.preferred:
+        return mk(plan.preferred)
+    l_rows = r_rows = None
+    if stats is not None:
+        if isinstance(left, PhysTableReader):
+            st = stats.get(left.table.id)
+            l_rows = st.row_count if st is not None else None
+        if isinstance(right, PhysTableReader):
+            st = stats.get(right.table.id)
+            r_rows = st.row_count if st is not None else None
+    if (
+        inner is not None
+        and l_rows is not None
+        and r_rows is not None
+        and l_rows <= 100_000
+        and l_rows * 16 < r_rows
+    ):
+        return mk("index")
+    if merge_ok:
+        return mk("merge")
+    return hash_join
+
+
+def _physical_rollup(plan: LogicalAggregation, engines, stats, vars) -> PhysicalPlan:
+    """GROUP BY ... WITH ROLLUP. Preferred route: push ONE rollup partial
+    aggregation into the reader — the device kernel computes every grouping
+    set in a single pass over the scan (a (G+1)-hot MXU dot; the Expand
+    fusion, ref: cophandler/mpp_exec.go:422-466) and the final merge groups
+    by (keys, flags). Fallback: the per-set UNION rewrite (one aggregation
+    per grouping set), which every engine already runs."""
+    G = len(plan.group_by)
+    # cheap shape gates FIRST: a non-fusable rollup must not pay a wasted
+    # full child-planning pass before the union fallback re-plans per set
+    fusable = (
+        sysvar_int(vars, "tidb_opt_fused_rollup", 1) != 0
+        and not any(a.distinct for a in plan.aggs)
+        and all(a.name != "group_concat" for a in plan.aggs)
+    )
+    child = _physical(plan.children[0], engines, stats, vars) if fusable else None
+    can_push = (
+        fusable
+        and isinstance(child, PhysTableReader)
+        and child.pushed_agg is None
+        and child.pushed_topn is None
+        and child.pushed_limit is None
+        and child.pushed_window is None
+    )
+    if can_push:
+        exprs: list[Expression] = list(plan.group_by) + [
+            a.arg for a in plan.aggs if a.arg is not None
+        ]
+        st = _pick_engine(engines, list(child.pushed_conditions) + exprs)
+        # ci MIN/MAX: device-legal via ci-weight dictionary compaction (see
+        # the plain agg-pushdown site above) — only ORDER keys still demote
+        if st is not None and all(can_push_down(e, st.value) for e in exprs) and all(
+            can_push_down(c, st.value) for c in child.pushed_conditions
+        ):
+            child.store_type = st
+            pushed = LogicalAggregation(
+                group_by=plan.group_by,
+                aggs=plan.aggs,
+                schema=plan.schema,
+                children=[child],
+                rollup=True,
+            )
+            child.pushed_agg = pushed
+            child.pushed_agg_mode = "partial"
+            child.schema = _partial_schema(pushed)
+            return PhysFinalAgg(
+                group_by=plan.group_by,
+                aggs=plan.aggs,
+                partial_input=True,
+                schema=plan.schema,
+                children=[child],
+                rollup=True,
+            )
+    # union fallback over the LOGICAL child (the per-branch deep copies
+    # re-derive their own physical plans)
+    from tidb_tpu_torch.planner.builder import _expand_rollup
+
+    plain = LogicalAggregation(
+        group_by=plan.group_by,
+        aggs=plan.aggs,
+        schema=plan.schema[: len(plan.schema) - G],
+        children=plan.children,
+    )
+    return _physical(_expand_rollup(plain), engines, stats, vars)
+
+
+def _partial_schema(agg: LogicalAggregation) -> list:
+    from tidb_tpu_torch.types.field_type import bigint_type
+
+    out = []
+    for i, a in enumerate(agg.aggs):
+        for pk in a.partial_kinds:
+            if pk == "count":
+                out.append(OutCol(f"p{i}_count", bigint_type(nullable=False)))
+            elif pk == "sum":
+                out.append(OutCol(f"p{i}_sum", AggDesc("sum", a.arg).ftype))
+            else:
+                ft = a.arg.ftype if a.arg is not None else bigint_type()
+                out.append(OutCol(f"p{i}_{pk}", ft))
+    for gi, g in enumerate(agg.group_by):
+        src = agg.children[0].schema[g.index] if isinstance(g, ColumnRef) else None
+        out.append(OutCol(f"gb#{gi}", g.ftype, slot=src.slot if src else -1, table=src.table if src else ""))
+    if agg.rollup:
+        # grouping flags ride after the keys: part of the merge identity
+        for gi in range(len(agg.group_by)):
+            out.append(OutCol(f"grouping#{gi}", bigint_type(nullable=False)))
+    return out

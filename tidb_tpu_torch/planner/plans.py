@@ -1,0 +1,549 @@
+"""Logical and physical plan nodes (ref: pkg/planner/core logical/physical
+operators, trimmed)."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+from tidb_tpu_torch.catalog.schema import TableInfo
+from tidb_tpu_torch.expression.expr import AggDesc, Expression
+from tidb_tpu_torch.kv.kv import KeyRange, StoreType
+from tidb_tpu_torch.types import FieldType
+
+
+class PlanError(Exception):
+    pass
+
+
+@dataclass
+class OutCol:
+    """One output column of a plan node."""
+
+    name: str
+    ftype: FieldType
+    table: str = ""  # qualifier (alias) for resolution
+    # storage slot when this is a direct table column (dictionary lookup)
+    slot: int = -1
+
+
+Schema = list  # list[OutCol]
+
+
+class LogicalPlan:
+    children: list["LogicalPlan"]
+    schema: Schema
+
+    def child(self) -> "LogicalPlan":
+        return self.children[0]
+
+
+@dataclass
+class LogicalScan(LogicalPlan):
+    db: str
+    table: TableInfo
+    alias: str
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+    # filled by predicate pushdown / range derivation
+    ranges: Optional[list[KeyRange]] = None
+    # optimizer hints targeting this table (ref: USE_INDEX/IGNORE_INDEX/
+    # USE_INDEX_MERGE)
+    use_index: Optional[str] = None  # preferred index (tried first)
+    # candidate restriction from USE/FORCE INDEX (None = every index);
+    # an EMPTY set (USE INDEX ()) allows none — forced table scan
+    allowed_indexes: Optional[frozenset] = None
+    ignored_indexes: frozenset = frozenset()
+    # FORCE INDEX: a table scan becomes the last resort, not a baseline
+    force_index: bool = False
+    use_index_merge: bool = False
+    # explicit `t PARTITION (p0, ...)` selection: lowercased partition names
+    # (ref: logical_plan_builder.go partition-name check + PartitionPruning)
+    partition_select: Optional[list] = None
+
+
+@dataclass
+class LogicalDual(LogicalPlan):
+    """SELECT with no FROM — one row, zero columns."""
+
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class LogicalMemSource(LogicalPlan):
+    """In-memory rowset source: recursive-CTE fixpoints, information_schema
+    memtables (ref: infoschema memtable retrievers + CTE storage)."""
+
+    rows: list  # list[tuple] of logical Python values
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class LogicalSelection(LogicalPlan):
+    conditions: list[Expression]
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class LogicalProjection(LogicalPlan):
+    exprs: list[Expression]
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class LogicalAggregation(LogicalPlan):
+    group_by: list[Expression]
+    aggs: list[AggDesc]
+    schema: Schema = field(default_factory=list)  # [aggs..., group keys...]
+    children: list = field(default_factory=list)
+    # GROUP BY ... WITH ROLLUP: schema additionally carries one GROUPING()
+    # flag column per key; the optimizer fuses the grouping-set expansion
+    # into ONE device pass or falls back to a per-set union (ref: the
+    # reference's Expand operator, cophandler/mpp_exec.go:422-466)
+    rollup: bool = False
+
+
+@dataclass
+class LogicalSort(LogicalPlan):
+    by: list[tuple[Expression, bool]]  # (expr, desc)
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class LogicalLimit(LogicalPlan):
+    limit: int
+    offset: int = 0
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class LogicalJoin(LogicalPlan):
+    kind: str  # inner/left/right/cross/semi/anti
+    # equi-join keys resolved to (left_idx, right_idx) pairs + other conds
+    eq_conds: list[tuple[int, int]] = field(default_factory=list)
+    other_conds: list[Expression] = field(default_factory=list)
+    # NOT IN: a NULL on either side of the key poisons the anti-match
+    null_aware: bool = False
+    # join-algorithm hint: "" (cost-based) | hash | merge | index
+    preferred: str = ""
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class WindowFuncDesc:
+    """One window call (ref: aggregation.WindowFuncDesc)."""
+
+    name: str
+    args: list  # resolved Expressions
+    ftype: FieldType
+
+    def __repr__(self):
+        return f"{self.name}({', '.join(map(repr, self.args))})"
+
+
+@dataclass
+class LogicalWindow(LogicalPlan):
+    """Window functions over one OVER spec; appends one output column per
+    func to the child schema (ref: LogicalWindow, rule_window builders)."""
+
+    funcs: list[WindowFuncDesc]
+    partition_by: list  # Expressions
+    order_by: list  # (Expression, desc) pairs
+    whole_partition: bool = False
+    rows_frame: bool = False
+    frame: object = None  # bounded ROWS frame tuple (see ast.WindowSpec)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class LogicalSetOp(LogicalPlan):
+    """UNION / INTERSECT / EXCEPT (ref: LogicalUnionAll + set-op builders in
+    logical_plan_builder.go). Children already project to a unified schema."""
+
+    op: str  # union | intersect | except
+    all: bool = False
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class LogicalDistinct(LogicalPlan):
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+# ---------------------------------------------------------------------------
+# physical plans
+# ---------------------------------------------------------------------------
+
+
+class PhysicalPlan:
+    children: list["PhysicalPlan"]
+    schema: Schema
+
+
+@dataclass
+class PhysTableReader(PhysicalPlan):
+    """The pushed-down fragment: executed by an engine via the cop client
+    (ref: PhysicalTableReader + ConstructDAGReq)."""
+
+    db: str
+    table: TableInfo
+    store_type: StoreType
+    # pushed operators, in DAG order after the implicit scan
+    pushed_conditions: list[Expression] = field(default_factory=list)
+    pushed_agg: Optional[LogicalAggregation] = None
+    pushed_agg_mode: str = "partial"
+    pushed_topn: Optional[tuple[list, int]] = None  # (order_by, limit+offset)
+    pushed_limit: Optional[int] = None
+    # window executed inside the coprocessor fragment (ref: tipb window
+    # pushdown to TiFlash); appends one output column per func to the scan
+    # schema, evaluated between Selection and any pushed Agg
+    pushed_window: Optional[LogicalWindow] = None
+    scan_slots: list[int] = field(default_factory=list)  # storage slots scanned
+    ranges: Optional[list[KeyRange]] = None
+    keep_order: bool = False
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+    # partitioned tables: pruned partition views to scan (None = all;
+    # ref: rule_partition_processor pruning + PartitionIDAndRanges)
+    partitions: Optional[list] = None
+    # re-derives ``ranges`` from the (possibly parameter-mutated) pushed
+    # conditions — the value-agnostic prepared-plan cache calls
+    # ``range_maker(range_conds)`` per EXECUTE (ref: RebuildPlan4CachedPlan
+    # re-running ranger); None on plans whose ranges never came from
+    # conditions. The maker is a PURE function of the condition tuple so a
+    # cloned plan instance (copy-on-execute) rebuilds from its OWN cloned
+    # conditions, never the template's.
+    range_maker: Optional[object] = field(default=None, repr=False, compare=False)
+    range_conds: Optional[tuple] = field(default=None, repr=False, compare=False)
+    # partitioned tables: ``partition_pruner(partition_conds)`` re-prunes the
+    # partition set per execution — a cached plan whose parameter moved to a
+    # different partition must re-route, not serve the plan-time pruning
+    partition_pruner: Optional[object] = field(default=None, repr=False, compare=False)
+    partition_conds: Optional[tuple] = field(default=None, repr=False, compare=False)
+
+
+@dataclass
+class PhysIndexReader(PhysicalPlan):
+    """Covering-index scan: every needed column lives in the index key (or is
+    the handle), so no table lookup happens (ref: PhysicalIndexReader).
+    Index scans are served by the host engine only — the TPU engine, like
+    TiFlash, serves columnar table fragments (planbuilder engine isolation)."""
+
+    db: str
+    table: TableInfo
+    index: object  # IndexInfo
+    ranges: list[KeyRange] = field(default_factory=list)
+    # outputs, in scan-schema order: storage slot per column (-1 == handle)
+    output_slots: list[int] = field(default_factory=list)
+    # residual filters; ColumnRefs index into the output schema
+    pushed_conditions: list[Expression] = field(default_factory=list)
+    # union-scan fallback (dirty txn): the original conditions over the same
+    # schema, replayed host-side over a membuffer-merged table scan
+    all_conditions: list[Expression] = field(default_factory=list)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+    # value-agnostic prepared-plan support: ``range_maker(range_conds)``
+    # re-runs index-range detachment over the parameter-mutated conditions;
+    # ``range_used_pos`` snapshots WHICH positions of ``range_conds`` the
+    # ranges consumed at plan time — a rebuild that consumes a different set
+    # means the cached residual split is no longer valid and the whole
+    # statement must re-plan. Positional (not object-identity) so the check
+    # survives copy-on-execute cloning.
+    range_maker: Optional[object] = field(default=None, repr=False, compare=False)
+    range_conds: Optional[tuple] = field(default=None, repr=False, compare=False)
+    range_used_pos: Optional[frozenset] = field(default=None, repr=False, compare=False)
+
+
+@dataclass
+class PhysIndexLookUp(PhysicalPlan):
+    """Two-phase read: index scan yields handles, table side fetches rows and
+    applies residual filters (ref: PhysicalIndexLookUpReader / IndexLookUp
+    double worker pipeline, executor/distsql.go:439)."""
+
+    db: str
+    table: TableInfo
+    index: object  # IndexInfo
+    ranges: list[KeyRange] = field(default_factory=list)
+    scan_slots: list[int] = field(default_factory=list)  # table-side outputs
+    # residual filters over the table-side scan schema
+    residual_conditions: list[Expression] = field(default_factory=list)
+    all_conditions: list[Expression] = field(default_factory=list)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+    # same contract as PhysIndexReader.range_maker / range_used_pos
+    range_maker: Optional[object] = field(default=None, repr=False, compare=False)
+    range_conds: Optional[tuple] = field(default=None, repr=False, compare=False)
+    range_used_pos: Optional[frozenset] = field(default=None, repr=False, compare=False)
+
+
+@dataclass
+class PhysIndexMerge(PhysicalPlan):
+    """Union (OR) or intersection (AND) of several index/PK access paths
+    feeding ONE table lookup (ref: PhysicalIndexMergeReader /
+    executor/index_merge_reader.go:88; path derivation
+    planner/core/indexmerge_path.go). Each path contributes a handle set;
+    handles are set-combined, the table side fetches the rows, and the FULL
+    original condition list re-filters them (paths may over-approximate
+    their disjunct)."""
+
+    db: str
+    table: TableInfo
+    # per path: ("idx", IndexInfo, [KeyRange]) or ("table", [KeyRange])
+    paths: list = field(default_factory=list)
+    intersection: bool = False
+    scan_slots: list[int] = field(default_factory=list)
+    residual_conditions: list[Expression] = field(default_factory=list)
+    all_conditions: list[Expression] = field(default_factory=list)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+    # value-agnostic prepared-plan support: ``path_makers[i](path_conds[i])``
+    # re-derives path i's access ranges from its (parameter-mutated) disjunct
+    # conjunction. Tightness is not load-bearing — the executor re-applies
+    # the full condition list after the fetch — but a path whose SHAPE shifts
+    # (table↔index, or a different winning index) forces a re-plan.
+    path_makers: Optional[list] = field(default=None, repr=False, compare=False)
+    path_conds: Optional[list] = field(default=None, repr=False, compare=False)
+
+
+@dataclass
+class PhysSelection(PhysicalPlan):
+    conditions: list[Expression]
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class PhysProjection(PhysicalPlan):
+    exprs: list[Expression]
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysFinalAgg(PhysicalPlan):
+    """Merges partial-agg chunks from the reader (or performs the whole agg
+    when nothing was pushed)."""
+
+    group_by: list[Expression]
+    aggs: list[AggDesc]
+    partial_input: bool  # True: child emits partial state lanes
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+    # rollup partials interleave grouping flags after the keys: the merge
+    # groups by (keys, flags) and passes the flags through
+    rollup: bool = False
+
+
+@dataclass
+class PhysSort(PhysicalPlan):
+    by: list[tuple[Expression, bool]]
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class PhysLimit(PhysicalPlan):
+    limit: int
+    offset: int = 0
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class PhysHashJoin(PhysicalPlan):
+    kind: str
+    eq_conds: list[tuple[int, int]]
+    other_conds: list[Expression]
+    null_aware: bool = False
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysMergeJoin(PhysicalPlan):
+    """Sort-merge join over key-ordered inputs (ref: executor/join/
+    merge_join.go; chosen when both sides stream in join-key order, e.g.
+    handle-ordered PK scans — no build table, no hash memory)."""
+
+    kind: str  # inner/left
+    eq_conds: list[tuple[int, int]] = field(default_factory=list)
+    other_conds: list = field(default_factory=list)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysIndexJoin(PhysicalPlan):
+    """Index nested-loop join (ref: executor/join index-join variants,
+    builder.go:216-320): probe-side rows drive point lookups into the inner
+    table's index/PK, reading only matching inner rows."""
+
+    kind: str  # inner/left
+    eq_conds: list[tuple[int, int]] = field(default_factory=list)
+    other_conds: list = field(default_factory=list)
+    inner_index: object = None  # IndexInfo | None (None = PK/handle)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)  # [outer, inner PhysTableReader template]
+
+
+@dataclass
+class PhysDistinct(PhysicalPlan):
+    children: list = field(default_factory=list)
+
+    @property
+    def schema(self):
+        return self.children[0].schema
+
+
+@dataclass
+class PhysWindow(PhysicalPlan):
+    funcs: list[WindowFuncDesc]
+    partition_by: list
+    order_by: list
+    whole_partition: bool = False
+    rows_frame: bool = False
+    frame: object = None  # bounded ROWS frame tuple (see ast.WindowSpec)
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysSetOp(PhysicalPlan):
+    op: str
+    all: bool = False
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysDual(PhysicalPlan):
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysMemSource(PhysicalPlan):
+    rows: list
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+@dataclass
+class PhysPointGet(PhysicalPlan):
+    """Fast path: PK point lookup bypassing the coprocessor entirely
+    (ref: core/point_get_plan.go:957 TryFastPlan)."""
+
+    db: str
+    table: TableInfo
+    handle: int
+    schema: Schema = field(default_factory=list)
+    children: list = field(default_factory=list)
+
+
+def explain_plan(p, indent: int = 0, stats=None) -> str:
+    """EXPLAIN output (ref: the reference's indented explain format). With
+    ``stats`` (a RuntimeStatsColl), appends per-node execution info the way
+    EXPLAIN ANALYZE's `execution info` column does."""
+    pad = "  " * indent
+
+    def _info(node) -> str:
+        if stats is None:
+            return ""
+        r = stats.render(node)
+        return f"  | {r}" if r else ""
+
+    name = type(p).__name__
+    extra = ""
+    if isinstance(p, PhysTableReader):
+        ops = ["Scan"]
+        if p.pushed_conditions:
+            ops.append(f"Selection({', '.join(map(repr, p.pushed_conditions))})")
+        if p.pushed_window is not None:
+            w = p.pushed_window
+            over = f"partition by {w.partition_by}" if w.partition_by else "()"
+            ops.append(f"Window({', '.join(map(repr, w.funcs))} over {over})")
+        if p.pushed_agg is not None:
+            roll = " ROLLUP" if getattr(p.pushed_agg, "rollup", False) else ""
+            ops.append(f"{'Partial' if p.pushed_agg_mode == 'partial' else ''}Agg({', '.join(map(repr, p.pushed_agg.aggs))}){roll}")
+        if p.pushed_topn is not None:
+            ops.append(f"TopN({p.pushed_topn[1]})")
+        if p.pushed_limit is not None:
+            ops.append(f"Limit({p.pushed_limit})")
+        extra = f"[{p.store_type.value}] {p.table.name}: " + " -> ".join(ops)
+    elif isinstance(p, PhysFinalAgg):
+        extra = ", ".join(map(repr, p.aggs)) + (" (merge partial)" if p.partial_input else "")
+    elif isinstance(p, PhysSelection):
+        extra = ", ".join(map(repr, p.conditions))
+    elif isinstance(p, PhysProjection):
+        extra = ", ".join(map(repr, p.exprs))
+    elif isinstance(p, PhysSort):
+        extra = ", ".join(f"{e!r}{' desc' if d else ''}" for e, d in p.by)
+    elif isinstance(p, PhysLimit):
+        extra = f"limit={p.limit} offset={p.offset}"
+    elif isinstance(p, PhysHashJoin):
+        extra = f"{p.kind} on {p.eq_conds}"
+    elif isinstance(p, PhysMergeJoin):
+        extra = f"{p.kind} on {p.eq_conds} (sorted inputs)"
+    elif isinstance(p, PhysIndexJoin):
+        idx = p.inner_index.name if p.inner_index is not None else "PRIMARY"
+        extra = f"{p.kind} on {p.eq_conds} (inner index {idx})"
+    elif isinstance(p, PhysSetOp):
+        extra = f"{p.op}{' all' if p.all else ''}"
+    elif isinstance(p, PhysWindow):
+        over = f"partition by {p.partition_by}" if p.partition_by else "()"
+        extra = f"{', '.join(map(repr, p.funcs))} over {over}"
+    elif isinstance(p, PhysPointGet):
+        extra = f"{p.table.name} handle={p.handle}"
+    elif isinstance(p, PhysMemSource):
+        extra = f"{len(p.rows)} rows"
+    elif isinstance(p, PhysIndexReader):
+        conds = f" -> Selection({', '.join(map(repr, p.pushed_conditions))})" if p.pushed_conditions else ""
+        extra = f"[host] {p.table.name}: IndexScan({p.index.name}, {len(p.ranges)} ranges){conds}"
+    elif isinstance(p, PhysIndexLookUp):
+        conds = f" -> Selection({', '.join(map(repr, p.residual_conditions))})" if p.residual_conditions else ""
+        extra = f"[host] {p.table.name}: IndexScan({p.index.name}, {len(p.ranges)} ranges) -> TableRowIDScan{conds}"
+    elif isinstance(p, PhysIndexMerge):
+        parts = []
+        for path in p.paths:
+            if path[0] == "idx":
+                parts.append(f"{path[1].name}({len(path[2])} ranges)")
+            else:
+                parts.append(f"PRIMARY({len(path[1])} ranges)")
+        kind = "intersection" if p.intersection else "union"
+        conds = f" -> Selection({', '.join(map(repr, p.residual_conditions))})" if p.residual_conditions else ""
+        extra = f"[host] {p.table.name}: IndexMerge({kind}: {', '.join(parts)}) -> TableRowIDScan{conds}"
+    lines = [f"{pad}{name} {extra}".rstrip() + _info(p)]
+    for c in getattr(p, "children", []):
+        lines.append(explain_plan(c, indent + 1, stats))
+    return "\n".join(lines)

@@ -1,0 +1,232 @@
+"""Resource groups, RU accounting, runaway detection.
+
+Reference parity:
+- CREATE/ALTER/DROP RESOURCE GROUP with RU_PER_SEC and QUERY_LIMIT
+  (EXEC_ELAPSED, ACTION={DRYRUN,COOLDOWN,KILL}) — ddl/resource_group.go;
+- a token bucket per group: statements consume request units computed from
+  a MEASURED per-statement :class:`ResourceUsage` record through the
+  RRU/WRU formula below (ref: the resource-control RU model mapping
+  requests/bytes/CPU to request units);
+- the runaway checker arms a per-statement deadline from QUERY_LIMIT and
+  applies the action when it fires (runaway/checker.go), recording the
+  event for information_schema.runaway_watches and emitting a
+  ``resourcegroup.runaway`` WARN event.
+
+RU formula (documented in OBSERVABILITY.md; every term is measured, not
+guessed):
+
+    RRU = 0.125                      (per-statement base)
+        + 1.0   × rows returned     (the result-set charge — keeps RU
+                                     magnitudes stable for cache-served
+                                     reads that never touch the store)
+        + 0.25  × cop RPCs          (per-request base cost)
+        + bytes scanned / 64 KiB    (store-side read volume)
+        + compute ms / 3            (device+host engine wall)
+        + MPP exchange bytes / 64 KiB
+    WRU = 1.0   × keys written
+        + bytes written / 1 KiB
+
+``METERING_ENABLED`` is the process-wide kill switch the
+``metering_overhead_ms`` bench lane measures against — metering only, no
+admission enforcement (admission control is ROADMAP item 3's PR).
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Optional
+
+from tidb_tpu_torch.utils import eventlog as _ev
+
+_BASE_RU = 0.125  # per-statement floor (ref: request unit base cost)
+
+# RRU/WRU coefficients (module-level so tests and docs can reference them)
+RRU_PER_ROW = 1.0
+RRU_PER_COP = 0.25
+RRU_PER_SCAN_BYTE = 1.0 / 65536.0  # 64 KiB scanned = 1 RRU
+RRU_PER_CPU_MS = 1.0 / 3.0
+RRU_PER_XCHG_BYTE = 1.0 / 65536.0
+WRU_PER_KEY = 1.0
+WRU_PER_WRITE_BYTE = 1.0 / 1024.0  # 1 KiB written = 1 WRU
+
+# process-wide metering kill switch (bench: metering_overhead_ms measures
+# the on/off delta) — flips the session-side usage fold only; the store-
+# side traffic rings carry their own ``enabled`` flag
+METERING_ENABLED = True
+
+
+@dataclass
+class ResourceUsage:
+    """One statement's measured resource consumption — assembled by the
+    session from the cop/MPP exec-detail sidecars plus the txn write-side
+    accounting, folded into RUs via :meth:`finalize`. Also used as the
+    per-group CUMULATIVE accumulator (:meth:`add`)."""
+
+    wall_ms: float = 0.0
+    cpu_ms: float = 0.0  # session-thread CPU (time.thread_time delta)
+    device_ms: float = 0.0
+    host_ms: float = 0.0
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    keys_scanned: int = 0
+    bytes_scanned: int = 0
+    keys_written: int = 0
+    bytes_written: int = 0
+    cop_rpcs: int = 0
+    backoff_ms: float = 0.0
+    mpp_exchange_bytes: int = 0
+    rows_returned: int = 0
+    statements: int = 0
+    # folded request units (finalize() for one statement; add() accumulates)
+    rru: float = 0.0
+    wru: float = 0.0
+
+    @property
+    def ru(self) -> float:
+        return self.rru + self.wru
+
+    def finalize(self) -> "ResourceUsage":
+        """Fold the measured fields through the RRU/WRU formula."""
+        self.statements = 1
+        self.rru = (
+            _BASE_RU
+            + RRU_PER_ROW * self.rows_returned
+            + RRU_PER_COP * self.cop_rpcs
+            + RRU_PER_SCAN_BYTE * self.bytes_scanned
+            + RRU_PER_CPU_MS * (self.device_ms + self.host_ms)
+            + RRU_PER_XCHG_BYTE * self.mpp_exchange_bytes
+        )
+        self.wru = WRU_PER_KEY * self.keys_written + WRU_PER_WRITE_BYTE * self.bytes_written
+        return self
+
+    def add(self, other: "ResourceUsage") -> None:
+        """Accumulate another (finalized) record into this one."""
+        self.wall_ms += other.wall_ms
+        self.cpu_ms += other.cpu_ms
+        self.device_ms += other.device_ms
+        self.host_ms += other.host_ms
+        self.h2d_bytes += other.h2d_bytes
+        self.d2h_bytes += other.d2h_bytes
+        self.keys_scanned += other.keys_scanned
+        self.bytes_scanned += other.bytes_scanned
+        self.keys_written += other.keys_written
+        self.bytes_written += other.bytes_written
+        self.cop_rpcs += other.cop_rpcs
+        self.backoff_ms += other.backoff_ms
+        self.mpp_exchange_bytes += other.mpp_exchange_bytes
+        self.rows_returned += other.rows_returned
+        self.statements += other.statements
+        self.rru += other.rru
+        self.wru += other.wru
+
+
+@dataclass
+class RunawayRecord:
+    time: float
+    group: str
+    action: str
+    sql: str
+
+
+@dataclass
+class ResourceGroup:
+    name: str
+    ru_per_sec: int = 0  # 0 = unlimited
+    burstable: bool = False
+    # runaway rule: exec elapsed threshold in seconds; 0 = none
+    exec_elapsed_s: float = 0.0
+    action: str = "KILL"  # DRYRUN | COOLDOWN | KILL
+    # token bucket state
+    tokens: float = field(default=0.0)
+    last_refill: float = field(default_factory=time.monotonic)
+    ru_consumed: float = 0.0
+    # cumulative measured usage attributed to this group (metering only)
+    usage: ResourceUsage = field(default_factory=ResourceUsage)
+
+    def _refill(self) -> None:
+        now = time.monotonic()
+        if self.ru_per_sec > 0:
+            cap = float(self.ru_per_sec)  # 1s burst capacity
+            self.tokens = min(cap, self.tokens + (now - self.last_refill) * self.ru_per_sec)
+        self.last_refill = now
+
+    def consume(self, ru: float, max_wait_s: float = 5.0) -> float:
+        """Take ``ru`` tokens, sleeping while the bucket is empty (flow
+        control). Returns seconds waited. Unlimited groups never wait."""
+        self.ru_consumed += ru
+        if self.ru_per_sec <= 0 or self.burstable:
+            return 0.0
+        waited = 0.0
+        while True:
+            self._refill()
+            if self.tokens >= ru or waited >= max_wait_s:
+                self.tokens -= ru
+                return waited
+            need = (ru - self.tokens) / self.ru_per_sec
+            step = min(need, 0.05)
+            time.sleep(step)
+            waited += step
+
+
+class ResourceGroupManager:
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._groups: dict[str, ResourceGroup] = {"default": ResourceGroup("default")}
+        self.runaway_log: list[RunawayRecord] = []
+
+    def create(self, g: ResourceGroup, if_not_exists: bool = False) -> None:
+        with self._mu:
+            if g.name in self._groups:
+                if if_not_exists:
+                    return
+                raise ValueError(f"resource group {g.name!r} already exists")
+            self._groups[g.name] = g
+
+    def alter(self, g: ResourceGroup) -> None:
+        with self._mu:
+            if g.name not in self._groups:
+                raise ValueError(f"unknown resource group {g.name!r}")
+            old = self._groups[g.name]
+            g.ru_consumed = old.ru_consumed
+            g.usage = old.usage  # cumulative attribution survives ALTER
+            self._groups[g.name] = g
+
+    def drop(self, name: str, if_exists: bool = False) -> None:
+        with self._mu:
+            if name == "default":
+                raise ValueError("cannot drop the default resource group")
+            if name not in self._groups and not if_exists:
+                raise ValueError(f"unknown resource group {name!r}")
+            self._groups.pop(name, None)
+
+    def get(self, name: str) -> Optional[ResourceGroup]:
+        with self._mu:
+            return self._groups.get(name)
+
+    def list(self) -> list[ResourceGroup]:
+        with self._mu:
+            return list(self._groups.values())
+
+    def charge(self, name: str, usage: ResourceUsage) -> None:
+        """Fold one statement's finalized usage into the group's cumulative
+        accumulator + the group-labeled registry counters (metering only —
+        the token bucket is consumed separately by the session)."""
+        with self._mu:
+            g = self._groups.get(name)
+            if g is None:
+                return
+            g.usage.add(usage)
+        from tidb_tpu_torch.utils import metrics as _m
+
+        _m.RU_CONSUMED.inc(usage.ru, group=name)
+        _m.RU_STATEMENTS.inc(group=name)
+
+    def record_runaway(self, group: str, action: str, sql: str) -> None:
+        with self._mu:
+            self.runaway_log.append(RunawayRecord(time.time(), group, action, sql))
+        lg = _ev.on(_ev.WARN)
+        if lg is not None:
+            lg.emit(_ev.WARN, "resourcegroup", "runaway",
+                    group=group, action=action, sql=sql[:128])

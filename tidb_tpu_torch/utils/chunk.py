@@ -1,41 +1,67 @@
-"""Columnar result format (port of tidb_tpu/utils/chunk.py).
+"""Columnar batch format — the host↔device boundary.
 
-A ``Column`` is a fixed-width numpy lane plus a validity mask; strings are
-int32 codes against a ``Dictionary``. A ``Chunk`` is a list of equal-length
-Columns. Results leave the device as numpy arrays, so the same host-side
-format serves the CPU and the GPU paths.
+Reference parity: pkg/util/chunk (Column: column.go:74, Chunk: chunk.go:35,
+wire codec: codec.go:42/101). Redesigned for TPU:
+
+- A ``Column`` is a fixed-width numpy array + a validity mask. No offsets/
+  varlen region: strings are dictionary-encoded to int32 codes against a
+  ``Dictionary`` (append-only, optionally rank-compacted so codes become
+  order-preserving — the planner only pushes string ORDER BY/range predicates
+  to the device when ``Dictionary.sorted`` is True).
+- A ``Chunk`` is a list of equal-length Columns. Chunks convert losslessly to
+  a dict of device arrays (``to_device_cols``) padded to bucketed power-of-two
+  lengths so XLA sees few distinct shapes (ref design note: SURVEY.md §7
+  "Dynamic shapes vs XLA").
+- The wire codec is a simple length-prefixed raw-buffer framing (spiritual
+  analog of chunk/codec.go's little-endian column serialization).
 """
 
 from __future__ import annotations
 
-import threading
+import struct
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import numpy as np
 
-from tidb_tpu_torch.types import TypeKind
-from tidb_tpu_torch.types.datum import days_to_date, micros_to_datetime, micros_to_duration
-from tidb_tpu_torch.types.field_type import FieldType
+from tidb_tpu_torch.types import FieldType, TypeKind
+from tidb_tpu_torch.types.datum import (
+    NULL,
+    date_to_days,
+    datetime_to_micros,
+    days_to_date,
+    duration_to_micros,
+    micros_to_datetime,
+    micros_to_duration,
+)
+
+# ---------------------------------------------------------------------------
+# Dictionary (string encoding)
+# ---------------------------------------------------------------------------
 
 
 class Dictionary:
     """Append-only bytes→code dictionary.
 
-    Codes are dense int32 from 0. After ``compact()`` the dictionary is
-    sorted and codes are order-preserving (rank == code), which legalizes
-    device-side string comparisons; an out-of-order append clears
-    ``sorted`` again.
+    Codes are dense int32 starting at 0. After ``compact()`` the dictionary is
+    sorted and codes are order-preserving (rank == code), enabling device-side
+    string comparisons; appends after compaction clear ``sorted`` again.
     """
 
-    __slots__ = ("_values", "_index", "sorted", "_mu")
+    __slots__ = ("_values", "_index", "sorted", "ci_sorted", "_mu")
 
-    def __init__(self, values: Sequence[bytes] = ()):
+    def __init__(self, values: Sequence[bytes] = ()):  # noqa: D107
+        import threading
+
         self._values: list[bytes] = list(values)
         self._index: dict[bytes, int] = {v: i for i, v in enumerate(self._values)}
-        if len(self._index) != len(self._values):
-            raise ValueError("dictionary values must be distinct")
-        self.sorted = self._values == sorted(self._values)
+        self.sorted = self._values == sorted(self._values) if self._values else True
+        # codes order-preserving under the general_ci WEIGHT order (set by
+        # compact(ci=True) — the device ci MIN/MAX legalization); any append
+        # may land out of weight order, so it clears like ``sorted``
+        self.ci_sorted = not self._values
+        # encode() appends; concurrent cop/partition worker threads share
+        # table-level dictionaries, so the mutation is locked
         self._mu = threading.Lock()
 
     def __len__(self) -> int:
@@ -55,11 +81,16 @@ class Dictionary:
                 self._index[value] = code
                 if self.sorted and code > 0 and self._values[code - 1] > value:
                     self.sorted = False
+                # a single element dict stays sorted; ci weight order is not
+                # checked here (weight_bytes costs) — any multi-value append
+                # conservatively drops the ci-order proof
+                if code > 0:
+                    self.ci_sorted = False
         return code
 
     def try_encode(self, value: "bytes | str") -> int:
-        """Code of ``value`` or -1 when absent (a constant that names no
-        stored value can never match)."""
+        """Encode without inserting; returns -1 if absent (predicate constants
+        referencing values not present in the column can never match)."""
         if isinstance(value, str):
             value = value.encode("utf-8")
         return self._index.get(value, -1)
@@ -67,19 +98,61 @@ class Dictionary:
     def decode(self, code: int) -> bytes:
         return self._values[code]
 
+    def decode_many(self, codes: np.ndarray) -> list[bytes]:
+        vals = self._values
+        return [vals[int(c)] for c in codes]
+
     def values_array(self) -> list[bytes]:
         return list(self._values)
 
-    def compact(self) -> np.ndarray:
-        """Sort values by bytes; return the old-code→new-code remap."""
-        order = sorted(range(len(self._values)), key=lambda i: self._values[i])
+    def compact(self, ci: bool = False) -> np.ndarray:
+        """Sort values; return the old-code→new-code remap array. ``ci``
+        sorts by (general_ci weight, bytes) instead of raw bytes — codes
+        become order-preserving under the COLLATION's order, which legalizes
+        device-side MIN/MAX on ci columns (the host _string_minmax recipe,
+        applied once to the dictionary instead of per reduction)."""
+        if ci:
+            from tidb_tpu_torch.utils.collate import weight_bytes
+
+            order = sorted(
+                range(len(self._values)),
+                key=lambda i: (weight_bytes(self._values[i]), self._values[i]),
+            )
+        else:
+            order = sorted(range(len(self._values)), key=lambda i: self._values[i])
         remap = np.empty(len(order), dtype=np.int32)
         for new, old in enumerate(order):
             remap[old] = new
         self._values = [self._values[i] for i in order]
         self._index = {v: i for i, v in enumerate(self._values)}
-        self.sorted = True
+        self.sorted = self._values == sorted(self._values)
+        self.ci_sorted = ci or len(self._values) <= 1
         return remap
+
+    # rank lookup for range predicates on sorted dictionaries
+    def rank_lower(self, value: "bytes | str") -> int:
+        import bisect
+
+        if isinstance(value, str):
+            value = value.encode("utf-8")
+        return bisect.bisect_left(self._values, value)
+
+
+# ---------------------------------------------------------------------------
+# Column
+# ---------------------------------------------------------------------------
+
+_DTYPE_FOR_KIND = {
+    TypeKind.INT: np.int64,
+    TypeKind.UINT: np.int64,
+    TypeKind.DECIMAL: np.int64,
+    TypeKind.DATE: np.int64,
+    TypeKind.DATETIME: np.int64,
+    TypeKind.DURATION: np.int64,
+    TypeKind.NULLTYPE: np.int64,
+    TypeKind.FLOAT: np.float64,
+    TypeKind.STRING: np.int32,
+}
 
 
 @dataclass
@@ -100,6 +173,53 @@ class Column:
     def __len__(self) -> int:
         return len(self.data)
 
+    @property
+    def null_count(self) -> int:
+        return int(len(self.validity) - self.validity.sum())
+
+    # -- constructors -----------------------------------------------------
+    @staticmethod
+    def empty(ftype: FieldType, dictionary: Dictionary | None = None) -> "Column":
+        dt = _DTYPE_FOR_KIND[ftype.kind]
+        return Column(np.empty(0, dtype=dt), np.empty(0, dtype=bool), ftype, dictionary)
+
+    @staticmethod
+    def from_values(values: Iterable, ftype: FieldType, dictionary: Dictionary | None = None) -> "Column":
+        """Build from logical Python values (None → NULL). Strings encode into
+        ``dictionary`` (created on the fly if absent)."""
+        values = list(values)
+        n = len(values)
+        dt = _DTYPE_FOR_KIND[ftype.kind]
+        data = np.zeros(n, dtype=dt)
+        validity = np.ones(n, dtype=bool)
+        k = ftype.kind
+        if k == TypeKind.STRING:
+            if dictionary is None:
+                dictionary = Dictionary()
+            for i, v in enumerate(values):
+                if v is None or v is NULL:
+                    validity[i] = False
+                else:
+                    data[i] = dictionary.encode(v)
+        else:
+            for i, v in enumerate(values):
+                if v is None or v is NULL:
+                    validity[i] = False
+                elif k == TypeKind.DECIMAL:
+                    data[i] = int(round(float(v) * (10**ftype.scale)))
+                elif k == TypeKind.DATE and not isinstance(v, (int, np.integer)):
+                    data[i] = date_to_days(v)
+                elif k == TypeKind.DATETIME and not isinstance(v, (int, np.integer)):
+                    data[i] = datetime_to_micros(v)
+                elif k == TypeKind.DURATION and not isinstance(v, (int, np.integer)):
+                    data[i] = duration_to_micros(v)
+                elif k == TypeKind.UINT and v >= (1 << 63):
+                    data[i] = int(v) - (1 << 64)  # two's complement wrap
+                else:
+                    data[i] = v
+        return Column(data, validity, ftype, dictionary)
+
+    # -- access -----------------------------------------------------------
     def logical_value(self, i: int):
         """Decode row i back to a logical Python value."""
         if not self.validity[i]:
@@ -129,12 +249,35 @@ class Column:
             return int(v) + (1 << 64)  # undo two's complement wrap
         return int(v)
 
+    def to_list(self) -> list:
+        return [self.logical_value(i) for i in range(len(self))]
+
+    # -- transforms -------------------------------------------------------
+    def take(self, idx: np.ndarray) -> "Column":
+        return Column(self.data[idx], self.validity[idx], self.ftype, self.dictionary)
+
+    def slice(self, start: int, stop: int) -> "Column":
+        return Column(self.data[start:stop], self.validity[start:stop], self.ftype, self.dictionary)
+
+    def pad_to(self, n: int) -> "Column":
+        """Pad with NULL rows up to length n (device batching)."""
+        cur = len(self)
+        if cur == n:
+            return self
+        if n < cur:
+            raise ValueError(f"pad_to({n}) would truncate a {cur}-row column")
+        data = np.zeros(n, dtype=self.data.dtype)
+        data[:cur] = self.data
+        validity = np.zeros(n, dtype=bool)
+        validity[:cur] = self.validity
+        return Column(data, validity, self.ftype, self.dictionary)
+
     @staticmethod
     def concat(cols: Sequence["Column"]) -> "Column":
         if not cols:
             raise ValueError("Column.concat of an empty sequence")
         first = cols[0]
-        # raw codes concatenate only under one shared dictionary object
+        # dictionaries must be shared (same object) to concat raw codes
         for c in cols[1:]:
             if c.dictionary is not first.dictionary:
                 raise ValueError("concat across dictionaries requires re-encode")
@@ -146,14 +289,24 @@ class Column:
         )
 
 
+# ---------------------------------------------------------------------------
+# Chunk
+# ---------------------------------------------------------------------------
+
+
 @dataclass
 class Chunk:
-    """Equal-length list of Columns (ref: chunk.Chunk)."""
+    """Equal-length list of Columns; the unit flowing through the Volcano tree
+    and across the wire (ref: chunk.Chunk, chunk.go:35)."""
 
     columns: list[Column] = field(default_factory=list)
 
     def __len__(self) -> int:
         return len(self.columns[0]) if self.columns else 0
+
+    @property
+    def num_cols(self) -> int:
+        return len(self.columns)
 
     def row(self, i: int) -> tuple:
         return tuple(c.logical_value(i) for c in self.columns)
@@ -161,21 +314,97 @@ class Chunk:
     def rows(self) -> list[tuple]:
         return [self.row(i) for i in range(len(self))]
 
+    def take(self, idx: np.ndarray) -> "Chunk":
+        return Chunk([c.take(idx) for c in self.columns])
+
+    def slice(self, start: int, stop: int) -> "Chunk":
+        return Chunk([c.slice(start, stop) for c in self.columns])
+
     @staticmethod
     def concat(chunks: Sequence["Chunk"]) -> "Chunk":
         if not chunks:
             raise ValueError("Chunk.concat of an empty sequence")
-        ncols = len(chunks[0].columns)
+        ncols = chunks[0].num_cols
         return Chunk([Column.concat([ch.columns[i] for ch in chunks]) for i in range(ncols)])
 
+
+# ---------------------------------------------------------------------------
+# Padding buckets — keep XLA shape cache small
+# ---------------------------------------------------------------------------
 
 _MIN_BUCKET = 1024
 
 
 def bucket_size(n: int) -> int:
-    """Smallest power of two ≥ n (min 1024): the padded row count of a
-    region's device arrays, so one program serves a size class."""
+    """Smallest power-of-two ≥ n (min 1024). All device kernels take padded
+    batches of bucketed length + a row-count scalar, so recompilation happens
+    O(log max_rows) times per DAG shape rather than per batch."""
     b = _MIN_BUCKET
     while b < n:
         b <<= 1
     return b
+
+
+# ---------------------------------------------------------------------------
+# Wire codec (length-prefixed raw buffers)
+# ---------------------------------------------------------------------------
+
+_MAGIC = b"TCHK"
+_KIND_CODE = {k: i for i, k in enumerate(TypeKind)}
+_CODE_KIND = {i: k for k, i in _KIND_CODE.items()}
+
+
+def encode_chunk(chunk: Chunk) -> bytes:
+    """Serialize (dictionary values travel with the column — fine for results;
+    storage-side columns share table-level dictionaries and skip this)."""
+    out = [_MAGIC, struct.pack("<ii", chunk.num_cols, len(chunk))]
+    for col in chunk.columns:
+        ft = col.ftype
+        out.append(struct.pack("<bhhb", _KIND_CODE[ft.kind], ft.length, ft.scale, int(ft.nullable)))
+        vbytes = np.packbits(col.validity).tobytes()
+        out.append(struct.pack("<i", len(vbytes)))
+        out.append(vbytes)
+        dbytes = np.ascontiguousarray(col.data).tobytes()
+        out.append(struct.pack("<i", len(dbytes)))
+        out.append(dbytes)
+        if ft.kind == TypeKind.STRING:
+            vals = col.dictionary.values_array() if col.dictionary else []
+            out.append(struct.pack("<i", len(vals)))
+            for v in vals:
+                out.append(struct.pack("<i", len(v)))
+                out.append(v)
+    return b"".join(out)
+
+
+def decode_chunk(buf: bytes) -> Chunk:
+    if buf[:4] != _MAGIC:
+        raise ValueError("bad chunk magic (corrupt or truncated frame)")
+    off = 4
+    ncols, nrows = struct.unpack_from("<ii", buf, off)
+    off += 8
+    cols = []
+    for _ in range(ncols):
+        kc, length, scale, nullable = struct.unpack_from("<bhhb", buf, off)
+        off += 6
+        ft = FieldType(_CODE_KIND[kc], length=length, scale=scale, nullable=bool(nullable))
+        (vlen,) = struct.unpack_from("<i", buf, off)
+        off += 4
+        validity = np.unpackbits(np.frombuffer(buf, dtype=np.uint8, count=vlen, offset=off))[:nrows].astype(bool)
+        off += vlen
+        (dlen,) = struct.unpack_from("<i", buf, off)
+        off += 4
+        data = np.frombuffer(buf, dtype=_DTYPE_FOR_KIND[ft.kind], count=nrows, offset=off).copy()
+        off += dlen
+        dictionary = None
+        if ft.kind == TypeKind.STRING:
+            (nvals,) = struct.unpack_from("<i", buf, off)
+            off += 4
+            vals = []
+            for _ in range(nvals):
+                (ln,) = struct.unpack_from("<i", buf, off)
+                off += 4
+                vals.append(buf[off : off + ln])
+                off += ln
+            dictionary = Dictionary(vals)
+        cols.append(Column(data, validity, ft, dictionary))
+    return Chunk(cols)

@@ -1,0 +1,200 @@
+"""Structured, leveled, bounded in-process event log (ref: the diagnostics
+substrate under pkg/executor cluster_log + log.SearchLogRequest — here a
+process-singleton ring instead of grepping log files).
+
+Every load-bearing state transition (election deposed, placement cutover,
+boRegionMiss re-route, MPP re-dispatch, engine degrade, chaos failpoint
+firing) records one event: ``(ts, level, component, event, fields, trace_id)``.
+Events are tuples in per-level bounded deques — append is GIL-atomic, so the
+recorder needs NO lock and NO thread (thread_hygiene stays green by design).
+
+Zero-cost discipline (same shape as ``Request.tracer=None``): call sites gate
+on :func:`on`, which returns ``None`` when the level is below the configured
+floor — the disabled path constructs no fields dict, no tuple, nothing::
+
+    lg = eventlog.on(eventlog.INFO)
+    if lg is not None:
+        lg.emit(eventlog.INFO, "placement", "migrate_begin", table=tid)
+
+Search (``information_schema.tidb_log`` / the ``log_search`` wire verb)
+filters by time range, minimum level, component, and regex server-side, and
+caps the shipped rows — rings never cross the wire whole.
+"""
+
+from __future__ import annotations
+
+import re
+import time
+from collections import deque
+from typing import Optional
+
+DEBUG, INFO, WARN, ERROR = 0, 1, 2, 3
+OFF = 4  # config floor only — no event carries this level
+
+_NAMES = ("debug", "info", "warn", "error")
+
+
+def level_name(level: int) -> str:
+    return _NAMES[level] if 0 <= level < len(_NAMES) else "off"
+
+
+def level_from_name(name: str) -> int:
+    s = str(name).strip().lower()
+    if s in ("off", "none", "disable", "disabled"):
+        return OFF
+    if s in ("warning",):  # accept the Prometheus/MySQL spelling
+        return WARN
+    try:
+        return _NAMES.index(s)
+    except ValueError:
+        return INFO
+
+
+class EventLog:
+    """Per-level bounded rings of event tuples. Threadless and lockless:
+    ``deque.append`` on a bounded deque is atomic under the GIL, and search
+    snapshots each ring with ``list()`` (also atomic) before filtering."""
+
+    __slots__ = ("rings",)
+
+    def __init__(self, debug_cap: int, info_cap: int, warn_cap: int, error_cap: int):
+        self.rings = (
+            deque(maxlen=max(1, int(debug_cap))),
+            deque(maxlen=max(1, int(info_cap))),
+            deque(maxlen=max(1, int(warn_cap))),
+            deque(maxlen=max(1, int(error_cap))),
+        )
+
+    def emit(
+        self,
+        level: int,
+        component: str,
+        event: str,
+        trace_id: Optional[str] = None,
+        **fields,
+    ) -> None:
+        """Record one event. ``fields`` must stay JSON-able — they ride the
+        ``log_search`` wire verb and the diag bundle verbatim."""
+        self.rings[level].append((time.time(), level, component, event, fields, trace_id))
+
+    def __len__(self) -> int:
+        return sum(len(r) for r in self.rings)
+
+    def clear(self) -> None:
+        for r in self.rings:
+            r.clear()
+
+    def search(
+        self,
+        since: Optional[float] = None,
+        until: Optional[float] = None,
+        min_level: int = DEBUG,
+        component: Optional[str] = None,
+        pattern: Optional[str] = None,
+        limit: int = 256,
+    ) -> list:
+        """Filtered slice, oldest-first, capped at the NEWEST ``limit`` rows
+        (a diagnostics read wants the tail of the incident window). ``pattern``
+        is a regex matched against ``component.event`` plus every stringified
+        field value — the grep-a-log-line analog."""
+        rx = re.compile(pattern) if pattern else None
+        out = []
+        for lvl in range(max(min_level, DEBUG), len(self.rings)):
+            for ev in list(self.rings[lvl]):
+                ts = ev[0]
+                if since is not None and ts < since:
+                    continue
+                if until is not None and ts > until:
+                    continue
+                if component is not None and ev[2] != component:
+                    continue
+                if rx is not None:
+                    hay = f"{ev[2]}.{ev[3]} " + " ".join(
+                        f"{k}={v}" for k, v in ev[4].items()
+                    )
+                    if not rx.search(hay):
+                        continue
+                out.append(ev)
+        out.sort(key=lambda e: e[0])
+        if limit is not None and limit >= 0 and len(out) > limit:
+            out = out[-limit:]
+        return out
+
+    def for_trace(self, trace_id: str) -> list:
+        """Every retained event carrying ``trace_id``, oldest-first — the
+        ``/traces?id=`` ↔ ``/logs`` pivot (slow-log EVENTS / FIRST_ERROR
+        cross-links read this)."""
+        if not trace_id:
+            return []
+        out = [
+            ev
+            for ring in self.rings
+            for ev in list(ring)
+            if ev[5] == trace_id
+        ]
+        out.sort(key=lambda e: e[0])
+        return out
+
+
+# process singleton, built lazily from config.current() so a `--config` file's
+# [observability] section takes effect without threading Config through every
+# instrumented seam. _min_level is cached beside it: `on()` is on hot paths
+# (every backoff sleep, every cop dispatch) and must stay two loads + a compare.
+_log: Optional[EventLog] = None
+_min_level: Optional[int] = None
+
+
+def _build() -> None:
+    global _log, _min_level
+    from tidb_tpu_torch import config
+
+    cfg = config.current()
+    _min_level = level_from_name(getattr(cfg, "eventlog_level", "info"))
+    _log = EventLog(
+        getattr(cfg, "eventlog_debug_capacity", 512),
+        getattr(cfg, "eventlog_capacity", 2048),
+        getattr(cfg, "eventlog_error_capacity", 1024),
+        getattr(cfg, "eventlog_error_capacity", 1024),
+    )
+
+
+def on(level: int) -> Optional[EventLog]:
+    """The zero-cost gate: the log if ``level`` clears the configured floor,
+    else ``None``. Call sites branch on the result so the disabled path
+    allocates nothing (tracer=None discipline)."""
+    if _min_level is None:
+        _build()
+    if level < _min_level:
+        return None
+    return _log
+
+
+def get() -> EventLog:
+    """The singleton regardless of level floor — search/diagnostics reads go
+    through here (an OFF log is simply empty)."""
+    if _log is None:
+        _build()
+    return _log
+
+
+def min_level() -> int:
+    if _min_level is None:
+        _build()
+    return _min_level
+
+
+def set_level(name) -> None:
+    """Re-floor the recorder in place (bench lanes flip info<->off; tests
+    drive debug). Accepts a level name or an int level."""
+    global _min_level
+    if _log is None:
+        _build()
+    _min_level = name if isinstance(name, int) else level_from_name(name)
+
+
+def reset() -> None:
+    """Drop the singleton so the next touch rebuilds from config — test
+    isolation hook (mirrors metricshist's recorder reset idiom)."""
+    global _log, _min_level
+    _log = None
+    _min_level = None

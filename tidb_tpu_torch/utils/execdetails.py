@@ -1,0 +1,437 @@
+"""Per-operator runtime execution statistics for EXPLAIN ANALYZE, plus the
+distributed exec-details pipeline.
+
+ref: pkg/util/execdetails — RuntimeStatsColl attached to each executor, AND
+the ``ExecDetails``/``TimeDetail``/``ScanDetail`` sidecar every coprocessor
+response carries back to the caller, rendered as the ``cop_task: {num, max,
+avg, ...}`` execution-info line of EXPLAIN ANALYZE. Here:
+
+- :class:`CopExecDetails` is the per-task sidecar (one per cop region task,
+  always on): wall split into queue/wire/store-side processing, device vs
+  host compute, jit compile, H2D/D2H bytes, device-cache hits, engine used
+  with degrade reason, retries + cumulative backoff sleep, re-split count.
+  It travels the wire in compact dict form (``to_pb``/``merge_pb``).
+- :class:`CopTasksSummary` aggregates sidecars per statement (slow log,
+  statements_summary) and per plan node (EXPLAIN ANALYZE render).
+- :class:`MPPExecDetails` is the analogous per-gather record.
+- The thread-local *collection context* (:func:`collecting`) is how engines
+  attribute into the active task's sidecar without plumbing it through
+  every call: ``current_cop()`` is one thread-local read, so the whole
+  layer is a no-op-cheap guard when nothing is collecting.
+
+Executors here materialize one chunk per execute() call, so OpStats are
+inclusive wall time + produced rows, keyed by plan-node object identity.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import math
+import threading
+import time
+from contextlib import contextmanager, nullcontext
+from dataclasses import dataclass, field
+
+
+@dataclass
+class OpStats:
+    rows: int = 0
+    time_ms: float = 0.0
+    loops: int = 0
+
+    def render(self) -> str:
+        return f"actRows:{self.rows}, loops:{self.loops}, time:{self.time_ms:.2f}ms"
+
+
+# -- per-task sidecar --------------------------------------------------------
+
+
+class CopExecDetails:
+    """One cop task's execution details. Plain __slots__, not a dataclass:
+    one is allocated on the always-on path of every cop task."""
+
+    __slots__ = (
+        "region_id", "store", "queue_ms", "wire_ms", "proc_ms", "device_ms",
+        "host_ms", "compile_ms", "h2d_bytes", "d2h_bytes", "dev_cache_hits",
+        "dev_cache_misses", "engine", "degraded", "retries", "backoff_ms",
+        "resplits", "delta_rows", "merges", "keys_scanned", "bytes_scanned",
+    )
+
+    def __init__(self, region_id: int = -1, store: str = ""):
+        self.region_id = region_id
+        self.store = store  # "" = embedded (local) store
+        self.queue_ms = 0.0  # send-queue wait before a worker picked it up
+        self.wire_ms = 0.0  # RPC wall minus store-side processing (remote)
+        self.proc_ms = 0.0  # store-side processing wall
+        self.device_ms = 0.0  # device-path wall (dispatch + transfer back)
+        self.host_ms = 0.0  # host-engine wall
+        self.compile_ms = 0.0  # first-call jit compile (kernel-cache miss)
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.dev_cache_hits = 0  # device-resident column LRU
+        self.dev_cache_misses = 0
+        self.engine = ""  # "tpu" | "host" — the engine that answered
+        self.degraded = ""  # degrade reason when the task fell off the TPU
+        self.retries = 0
+        self.backoff_ms = 0.0  # cumulative Backoffer sleep charged to this task
+        self.resplits = 0  # region re-splits (epoch changes)
+        self.delta_rows = 0  # columnar delta-overlay rows this scan read through
+        self.merges = 0  # delta→base merges this task triggered (query-path)
+        self.keys_scanned = 0  # store-side MVCC keys this task read (RU input)
+        self.bytes_scanned = 0  # store-side bytes those keys carried
+
+    def to_pb(self) -> dict:
+        """Compact wire form (zeros omitted — the sidecar rides every cop
+        response header)."""
+        out: dict = {"p": round(self.proc_ms, 3)}
+        if self.engine:
+            out["e"] = self.engine
+        if self.device_ms:
+            out["dv"] = round(self.device_ms, 3)
+        if self.host_ms:
+            out["h"] = round(self.host_ms, 3)
+        if self.compile_ms:
+            out["c"] = round(self.compile_ms, 3)
+        if self.h2d_bytes:
+            out["h2d"] = self.h2d_bytes
+        if self.d2h_bytes:
+            out["d2h"] = self.d2h_bytes
+        if self.dev_cache_hits:
+            out["dch"] = self.dev_cache_hits
+        if self.dev_cache_misses:
+            out["dcm"] = self.dev_cache_misses
+        if self.degraded:
+            out["dg"] = self.degraded
+        if self.retries:
+            out["rt"] = self.retries
+        if self.backoff_ms:
+            out["bo"] = round(self.backoff_ms, 3)
+        if self.resplits:
+            out["rs"] = self.resplits
+        if self.delta_rows:
+            out["dlr"] = self.delta_rows
+        if self.merges:
+            out["mg"] = self.merges
+        if self.keys_scanned:
+            out["sk"] = self.keys_scanned
+        if self.bytes_scanned:
+            out["sb"] = self.bytes_scanned
+        return out
+
+    def merge_pb(self, pb: dict) -> None:
+        """Fold a store-shipped sidecar into this (caller-side) detail —
+        additive, so a re-split/degraded task accumulates every attempt."""
+        self.proc_ms += float(pb.get("p", 0.0))
+        if pb.get("e"):
+            self.engine = pb["e"]
+        self.device_ms += float(pb.get("dv", 0.0))
+        self.host_ms += float(pb.get("h", 0.0))
+        self.compile_ms += float(pb.get("c", 0.0))
+        self.h2d_bytes += int(pb.get("h2d", 0))
+        self.d2h_bytes += int(pb.get("d2h", 0))
+        self.dev_cache_hits += int(pb.get("dch", 0))
+        self.dev_cache_misses += int(pb.get("dcm", 0))
+        if pb.get("dg") and not self.degraded:
+            self.degraded = pb["dg"]
+        self.retries += int(pb.get("rt", 0))
+        self.backoff_ms += float(pb.get("bo", 0.0))
+        self.resplits += int(pb.get("rs", 0))
+        self.delta_rows += int(pb.get("dlr", 0))
+        self.merges += int(pb.get("mg", 0))
+        self.keys_scanned += int(pb.get("sk", 0))
+        self.bytes_scanned += int(pb.get("sb", 0))
+
+
+class CopTasksSummary:
+    """Aggregate of CopExecDetails across one statement or one plan node —
+    renders the TiDB-style ``cop_task: {...}`` execution-info line."""
+
+    __slots__ = (
+        "procs", "queue_ms", "wire_ms", "device_ms", "host_ms", "compile_ms",
+        "h2d_bytes", "d2h_bytes", "dev_cache_hits", "dev_cache_misses",
+        "engines", "degraded", "retries", "backoff_ms", "resplits",
+        "delta_rows", "merges", "keys_scanned", "bytes_scanned",
+        "max_proc_ms", "max_task_store", "max_task_region",
+    )
+
+    def __init__(self):
+        self.procs: list[float] = []
+        self.queue_ms = 0.0
+        self.wire_ms = 0.0
+        self.device_ms = 0.0
+        self.host_ms = 0.0
+        self.compile_ms = 0.0
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.dev_cache_hits = 0
+        self.dev_cache_misses = 0
+        self.engines: dict[str, int] = {}
+        self.degraded: dict[str, int] = {}
+        self.retries = 0
+        self.backoff_ms = 0.0
+        self.resplits = 0
+        self.delta_rows = 0
+        self.merges = 0
+        self.keys_scanned = 0
+        self.bytes_scanned = 0
+        self.max_proc_ms = 0.0
+        self.max_task_store = ""
+        self.max_task_region = -1
+
+    @property
+    def num(self) -> int:
+        return len(self.procs)
+
+    def add(self, d: CopExecDetails) -> None:
+        self.procs.append(d.proc_ms)
+        self.queue_ms += d.queue_ms
+        self.wire_ms += d.wire_ms
+        self.device_ms += d.device_ms
+        self.host_ms += d.host_ms
+        self.compile_ms += d.compile_ms
+        self.h2d_bytes += d.h2d_bytes
+        self.d2h_bytes += d.d2h_bytes
+        self.dev_cache_hits += d.dev_cache_hits
+        self.dev_cache_misses += d.dev_cache_misses
+        eng = d.engine or "?"
+        self.engines[eng] = self.engines.get(eng, 0) + 1
+        if d.degraded:
+            self.degraded[d.degraded] = self.degraded.get(d.degraded, 0) + 1
+        self.retries += d.retries
+        self.backoff_ms += d.backoff_ms
+        self.resplits += d.resplits
+        self.delta_rows += d.delta_rows
+        self.merges += d.merges
+        self.keys_scanned += d.keys_scanned
+        self.bytes_scanned += d.bytes_scanned
+        if d.proc_ms >= self.max_proc_ms:
+            self.max_proc_ms = d.proc_ms
+            self.max_task_store = d.store or "local"
+            self.max_task_region = d.region_id
+
+    def p95_ms(self) -> float:
+        xs = sorted(self.procs)
+        return xs[max(0, math.ceil(0.95 * len(xs)) - 1)] if xs else 0.0
+
+    def render(self) -> str:
+        if not self.procs:
+            return ""
+        n = len(self.procs)
+        avg = sum(self.procs) / n
+        eng = " ".join(f"{e}×{c}" for e, c in sorted(self.engines.items()))
+        parts = [
+            f"num: {n}",
+            f"max: {self.max_proc_ms:.1f}ms",
+            f"avg: {avg:.1f}ms",
+            f"p95: {self.p95_ms():.1f}ms",
+            f"engine: {eng}",
+            f"backoff: {self.backoff_ms:.0f}ms",
+            f"resplits: {self.resplits}",
+        ]
+        if self.queue_ms:
+            parts.append(f"queue: {self.queue_ms / n:.1f}ms")  # avg send-queue wait
+        if self.wire_ms:
+            parts.append(f"wire: {self.wire_ms / n:.1f}ms")  # avg RPC minus store proc
+        if self.compile_ms:
+            parts.append(f"compile: {self.compile_ms:.1f}ms")
+        if self.device_ms:
+            parts.append(f"device: {self.device_ms:.1f}ms")
+        if self.host_ms:
+            parts.append(f"host: {self.host_ms:.1f}ms")
+        if self.h2d_bytes or self.d2h_bytes:
+            parts.append(f"h2d: {self.h2d_bytes}B, d2h: {self.d2h_bytes}B")
+        if self.dev_cache_hits or self.dev_cache_misses:
+            parts.append(f"dev_cache: {self.dev_cache_hits}/{self.dev_cache_hits + self.dev_cache_misses}")
+        if self.keys_scanned:
+            parts.append(f"scan: {self.keys_scanned} keys/{self.bytes_scanned}B")
+        if self.delta_rows:
+            parts.append(f"delta_rows: {self.delta_rows}")  # scan paid the delta path
+        if self.merges:
+            parts.append(f"merges: {self.merges}")
+        if self.degraded:
+            parts.append(
+                "degraded: " + " ".join(f"{k}×{v}" for k, v in sorted(self.degraded.items()))
+            )
+        return "cop_task: {" + ", ".join(parts) + "}"
+
+
+class MPPExecDetails:
+    """One MPP gather's execution details (the cop sidecar's analog for the
+    fragment pipeline). ``shards`` is the per-shard straggler breakdown the
+    fragment program's shard probes record: one ``[shard_id, compute_ms,
+    rows, exchange_bytes]`` row per mesh shard, so EXPLAIN ANALYZE can name
+    WHICH device inside the collective was slow."""
+
+    __slots__ = ("n_fragments", "ndev", "wall_ms", "rows", "retries", "store", "shards", "compiles",
+                 "stages", "stage_bytes")
+
+    def __init__(self, n_fragments=0, ndev=0, wall_ms=0.0, rows=0, retries=0, store="", shards=None,
+                 compiles=0, stages=1, stage_bytes=None):
+        self.n_fragments = n_fragments
+        self.ndev = ndev
+        self.wall_ms = wall_ms
+        self.rows = rows
+        self.retries = retries
+        self.store = store  # "" = executed on the local mesh
+        self.shards = shards or []  # [[shard_id, ms, rows, xchg_bytes], ...]
+        # fragment programs BUILT for this gather (0 = every attempt rode the
+        # program cache) — the MPP analog of the cop sidecar's jit flag
+        self.compiles = compiles
+        # staged fragment pipeline: how many on-mesh stages ONE program ran
+        # (1 + device-staged subplan build sides), and each device stage's
+        # inter-stage exchanged bytes (all on ICI — zero host bytes)
+        self.stages = stages
+        self.stage_bytes = stage_bytes or []
+
+    def shard_summary(self) -> "tuple | None":
+        """(max_ms, min_ms, p95_ms, slowest_shard_id) or None."""
+        if not self.shards:
+            return None
+        ms = sorted(float(s[1]) for s in self.shards)
+        p95 = ms[max(0, math.ceil(0.95 * len(ms)) - 1)]
+        slowest = max(self.shards, key=lambda s: float(s[1]))
+        return ms[-1], ms[0], p95, int(slowest[0])
+
+    def render(self) -> str:
+        parts = [
+            f"fragments: {self.n_fragments}",
+            f"stages: {self.stages}",
+            f"ndev: {self.ndev}",
+            f"wall: {self.wall_ms:.1f}ms",
+            f"rows: {self.rows}",
+        ]
+        if self.stage_bytes:
+            parts.append(
+                "stage_bytes: [" + ", ".join(str(int(b)) for b in self.stage_bytes) + "]"
+            )
+        ss = self.shard_summary()
+        if ss is not None:
+            mx, mn, p95, slowest = ss
+            parts.append(f"shards: {len(self.shards)}")
+            parts.append(f"shard max/min/p95: {mx:.1f}/{mn:.1f}/{p95:.1f}ms")
+            parts.append(f"slowest: shard {slowest}")
+        if self.compiles:
+            parts.append(f"compile: {self.compiles}")
+        if self.retries:
+            parts.append(f"retries: {self.retries}")
+        if self.store:
+            parts.append(f"store: {self.store}")
+        return "mpp_task: {" + ", ".join(parts) + "}"
+
+
+# -- thread-local collection context ----------------------------------------
+
+_TLS = threading.local()
+
+
+def current_cop() -> "CopExecDetails | None":
+    """The cop-task sidecar THIS thread is filling, if any — engines
+    attribute device/host/compile time and transfer bytes through it."""
+    return getattr(_TLS, "detail", None)
+
+
+def current_tracer():
+    """The Tracer the active task records spans into (remote server side or
+    an embedded traced statement); None when tracing is off."""
+    return getattr(_TLS, "tracer", None)
+
+
+@contextmanager
+def collecting(detail: "CopExecDetails | None", tracer=None):
+    prev_d = getattr(_TLS, "detail", None)
+    prev_t = getattr(_TLS, "tracer", None)
+    _TLS.detail, _TLS.tracer = detail, tracer
+    try:
+        yield detail
+    finally:
+        _TLS.detail, _TLS.tracer = prev_d, prev_t
+
+
+def trace_span(name: str):
+    """A span on the active task's tracer — nullcontext when tracing is off
+    (the zero-cost-when-off rule)."""
+    tr = current_tracer()
+    return tr.span(name) if tr is not None else nullcontext()
+
+
+# -- plan digest -------------------------------------------------------------
+
+
+def plan_digest(plan) -> str:
+    """Stable digest of a physical plan's EXPLAIN shape (ref: plan digest in
+    util/plancodec), memoized on the plan object so cached plans pay the
+    explain walk exactly once."""
+    d = getattr(plan, "_plan_digest", None)
+    if d is None:
+        from tidb_tpu_torch.planner.plans import explain_plan
+
+        try:
+            text = explain_plan(plan)
+        except Exception:
+            text = type(plan).__name__
+        d = hashlib.sha256(text.encode()).hexdigest()[:16]
+        try:
+            plan._plan_digest = d
+        except AttributeError:
+            pass  # __slots__ plan nodes can't memoize; recompute next time
+    return d
+
+
+# -- per-node collection (EXPLAIN ANALYZE) -----------------------------------
+
+
+@dataclass
+class RuntimeStatsColl:
+    """Collects OpStats (+ cop/MPP task summaries) keyed by id(plan_node)."""
+
+    stats: dict = field(default_factory=dict)
+    cop: dict = field(default_factory=dict)
+    mpp: dict = field(default_factory=dict)
+
+    def get(self, plan) -> OpStats:
+        s = self.stats.get(id(plan))
+        if s is None:
+            s = self.stats[id(plan)] = OpStats()
+        return s
+
+    def record(self, plan, rows: int, dt_ms: float) -> None:
+        s = self.get(plan)
+        s.rows += rows
+        s.time_ms += dt_ms
+        s.loops += 1
+
+    def record_cop(self, plan, detail: CopExecDetails) -> None:
+        s = self.cop.get(id(plan))
+        if s is None:
+            s = self.cop[id(plan)] = CopTasksSummary()
+        s.add(detail)
+
+    def record_mpp(self, plan, detail: MPPExecDetails) -> None:
+        self.mpp.setdefault(id(plan), []).append(detail)
+
+    def render(self, plan) -> str:
+        parts = []
+        s = self.stats.get(id(plan))
+        if s is not None:
+            parts.append(s.render())
+        c = self.cop.get(id(plan))
+        if c is not None and c.num:
+            parts.append(c.render())
+        for m in self.mpp.get(id(plan), ()):
+            parts.append(m.render())
+        return ", ".join(parts)
+
+
+def instrument(executor, plan, coll: RuntimeStatsColl):
+    """Wrap executor.execute to record inclusive wall time + output rows."""
+    inner = executor.execute
+
+    def timed():
+        t0 = time.perf_counter()
+        chunk = inner()
+        dt = (time.perf_counter() - t0) * 1000.0
+        coll.record(plan, len(chunk) if chunk is not None else 0, dt)
+        return chunk
+
+    executor.execute = timed
+    return executor

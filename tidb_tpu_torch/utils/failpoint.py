@@ -1,0 +1,56 @@
+"""Failpoint-style fault injection (ref: pingcap/failpoint; 238 reference
+files call failpoint.Inject — tests enable named points to force region
+splits, slow responses, crashes mid-DDL, ...).
+
+Unlike the reference's build-time code rewriting, points here are plain
+runtime hooks: production code calls ``inject("name", *args)`` which is a
+no-op unless a test enabled the point with a value or callable.
+"""
+
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+
+_mu = threading.Lock()
+_active: dict[str, object] = {}
+
+
+def enable(name: str, action: object = True) -> None:
+    with _mu:
+        _active[name] = action
+
+
+def disable(name: str) -> None:
+    with _mu:
+        _active.pop(name, None)
+
+
+def inject(name: str, *args):
+    """Returns None when the point is disabled; the action's value (or its
+    return value, if callable) when enabled. Callables may raise to simulate
+    crashes."""
+    with _mu:
+        action = _active.get(name)
+    if action is None:
+        return None
+    # every enabled firing is an event BEFORE the action runs (callables may
+    # raise to simulate crashes — the chaos.* record must precede the damage
+    # so recovery chains in cluster_log show cause, then effect)
+    from tidb_tpu_torch.utils import eventlog as _ev
+
+    lg = _ev.on(_ev.WARN)
+    if lg is not None:
+        lg.emit(_ev.WARN, "chaos", name, failpoint=name)
+    if callable(action):
+        return action(*args)
+    return action
+
+
+@contextmanager
+def enabled(name: str, action: object = True):
+    enable(name, action)
+    try:
+        yield
+    finally:
+        disable(name)

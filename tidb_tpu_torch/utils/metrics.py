@@ -1,0 +1,399 @@
+"""Prometheus-style metrics registry (ref: pkg/metrics — one registry,
+per-subsystem counters/histograms, served on the status port's /metrics;
+here rendered via ``render()`` and wired into the wire server)."""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+_DEFAULT_BUCKETS = (0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1, 5, 30)
+
+
+def _esc(v) -> str:
+    """Escape a label VALUE for the Prometheus exposition format (the spec's
+    label-value escaping): backslash, double quote, and newline would
+    otherwise emit unparseable text — e.g. a degrade-reason label carrying a
+    quoted error message."""
+    return str(v).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+class Counter:
+    def __init__(self, name: str, help_: str, labels: tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.labels = labels
+        self._mu = threading.Lock()
+        self._vals: dict[tuple, float] = {}
+
+    def inc(self, n: float = 1, **labels) -> None:
+        key = tuple(labels.get(k, "") for k in self.labels)
+        with self._mu:
+            self._vals[key] = self._vals.get(key, 0) + n
+
+    def get(self, **labels) -> float:
+        key = tuple(labels.get(k, "") for k in self.labels)
+        with self._mu:
+            return self._vals.get(key, 0)
+
+    def total(self) -> float:
+        """Sum over every label combination — the load-signal read (QPS
+        estimation sums statement types; per-type splits ride snapshot())."""
+        with self._mu:
+            return sum(self._vals.values())
+
+    def snapshot(self) -> dict:
+        """JSON-able state for the sys_snapshot report / metrics history."""
+        with self._mu:
+            return {
+                "kind": "counter",
+                "labels": list(self.labels),
+                "values": [[list(k), v] for k, v in sorted(self._vals.items())],
+            }
+
+    def render(self) -> str:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} counter"]
+        with self._mu:
+            for key, v in sorted(self._vals.items()):
+                lbl = ",".join(f'{k}="{_esc(val)}"' for k, val in zip(self.labels, key))
+                out.append(f"{self.name}{{{lbl}}} {v:g}" if lbl else f"{self.name} {v:g}")
+        return "\n".join(out)
+
+
+class Gauge:
+    """A settable level (ref: prometheus Gauge) — election terms, pool sizes."""
+
+    def __init__(self, name: str, help_: str, labels: tuple[str, ...] = ()):
+        self.name = name
+        self.help = help_
+        self.labels = labels
+        self._mu = threading.Lock()
+        self._vals: dict[tuple, float] = {}
+
+    def set(self, v: float, **labels) -> None:
+        key = tuple(labels.get(k, "") for k in self.labels)
+        with self._mu:
+            self._vals[key] = v
+
+    def inc(self, n: float = 1, **labels) -> None:
+        """Atomic add — a get()+set() pair from concurrent threads loses
+        updates (each call takes the lock separately)."""
+        key = tuple(labels.get(k, "") for k in self.labels)
+        with self._mu:
+            self._vals[key] = self._vals.get(key, 0) + n
+
+    def get(self, **labels) -> float:
+        key = tuple(labels.get(k, "") for k in self.labels)
+        with self._mu:
+            return self._vals.get(key, 0)
+
+    def total(self) -> float:
+        with self._mu:
+            return sum(self._vals.values())
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {
+                "kind": "gauge",
+                "labels": list(self.labels),
+                "values": [[list(k), v] for k, v in sorted(self._vals.items())],
+            }
+
+    def render(self) -> str:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+        with self._mu:
+            for key, v in sorted(self._vals.items()):
+                lbl = ",".join(f'{k}="{_esc(val)}"' for k, val in zip(self.labels, key))
+                out.append(f"{self.name}{{{lbl}}} {v:g}" if lbl else f"{self.name} {v:g}")
+        return "\n".join(out)
+
+
+class Histogram:
+    def __init__(self, name: str, help_: str, buckets=_DEFAULT_BUCKETS):
+        self.name = name
+        self.help = help_
+        self.buckets = tuple(buckets)
+        self._mu = threading.Lock()
+        self._counts = [0] * (len(self.buckets) + 1)
+        self._sum = 0.0
+        self._n = 0
+
+    def observe(self, v: float) -> None:
+        with self._mu:
+            self._sum += v
+            self._n += 1
+            for i, b in enumerate(self.buckets):
+                if v <= b:
+                    self._counts[i] += 1
+                    return
+            self._counts[-1] += 1
+
+    @property
+    def count(self) -> int:
+        return self._n
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            cum = 0
+            buckets = []
+            for b, c in zip(self.buckets, self._counts):
+                cum += c
+                buckets.append([b, cum])
+            # the overflow bucket, exactly like render()'s +Inf line — without
+            # it a wire consumer reconstructing the distribution loses every
+            # observation above the top bound ("+Inf" keeps the dict JSON-able)
+            buckets.append(["+Inf", cum + self._counts[-1]])
+            return {"kind": "histogram", "sum": self._sum, "count": self._n, "buckets": buckets}
+
+    def render(self) -> str:
+        out = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} histogram"]
+        with self._mu:
+            cum = 0
+            for b, c in zip(self.buckets, self._counts):
+                cum += c
+                out.append(f'{self.name}_bucket{{le="{b:g}"}} {cum}')
+            out.append(f'{self.name}_bucket{{le="+Inf"}} {self._n}')
+            out.append(f"{self.name}_sum {self._sum:g}")
+            out.append(f"{self.name}_count {self._n}")
+        return "\n".join(out)
+
+
+class Registry:
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._metrics: dict[str, object] = {}
+
+    def counter(self, name: str, help_: str = "", labels: tuple[str, ...] = ()) -> Counter:
+        with self._mu:
+            m = self._metrics.get(name)
+            if m is None:
+                m = Counter(name, help_, labels)
+                self._metrics[name] = m
+            return m  # type: ignore[return-value]
+
+    def gauge(self, name: str, help_: str = "", labels: tuple[str, ...] = ()) -> Gauge:
+        with self._mu:
+            m = self._metrics.get(name)
+            if m is None:
+                m = Gauge(name, help_, labels)
+                self._metrics[name] = m
+            return m  # type: ignore[return-value]
+
+    def histogram(self, name: str, help_: str = "", buckets=_DEFAULT_BUCKETS) -> Histogram:
+        with self._mu:
+            m = self._metrics.get(name)
+            if m is None:
+                m = Histogram(name, help_, buckets)
+                self._metrics[name] = m
+            return m  # type: ignore[return-value]
+
+    def render(self) -> str:
+        with self._mu:
+            ms = list(self._metrics.values())
+        return "\n".join(m.render() for m in ms) + "\n"
+
+    def snapshot(self) -> dict:
+        """One JSON-able dict of every metric's current state — what the
+        ``sys_snapshot`` introspection verb ships fleet-wide and the metrics
+        history recorder samples per tick."""
+        with self._mu:
+            ms = list(self._metrics.items())
+        return {name: m.snapshot() for name, m in ms}
+
+
+# process-global registry (ref: metrics.go package-level collectors)
+REGISTRY = Registry()
+
+STMT_TOTAL = REGISTRY.counter(
+    "tidb_tpu_executor_statement_total", "Executed statements", ("type",)
+)
+QUERY_DURATION = REGISTRY.histogram(
+    "tidb_tpu_server_handle_query_duration_seconds", "Statement latency"
+)
+COP_TASKS = REGISTRY.counter("tidb_tpu_copr_task_total", "Coprocessor tasks", ("engine",))
+# extension hook failures (hooks may not break queries, but a misbehaving
+# plugin must be visible — see extension.ExtensionRegistry._hook_error)
+EXT_HOOK_ERRORS = REGISTRY.counter(
+    "tidb_tpu_extension_hook_error_total", "Extension callback failures", ("ext", "hook")
+)
+# session plan reuse (statement fast lane + value-agnostic prepared plans)
+PLAN_CACHE = REGISTRY.counter(
+    "tidb_tpu_session_plan_cache_total",
+    "Plan-cache lookups by outcome (hit = parser/builder/optimizer skipped)",
+    ("result",),
+)
+# resilience layer (utils/backoff.py + the retrying seams; see RESILIENCE.md)
+BACKOFF_TOTAL = REGISTRY.counter(
+    "tidb_tpu_backoff_total", "Backoffer sleeps by typed config", ("config",)
+)
+COP_DEGRADED = REGISTRY.counter(
+    "tidb_tpu_copr_degraded_task_total",
+    "Cop tasks that fell back from the TPU engine to the host engine",
+    ("reason",),
+)
+STORE_FAILOVER = REGISTRY.counter(
+    "tidb_tpu_store_failover_total",
+    "Sharded-fleet reads/authority calls served by a non-primary replica",
+    ("kind",),
+)
+# quorum-replicated owner election (kv/election.py — the PD/etcd analog)
+ELECTION_CAMPAIGN = REGISTRY.counter(
+    "tidb_tpu_election_campaign_total",
+    "Owner-election campaign attempts by outcome (won/renewed/lost/fenced/repair)",
+    ("key", "outcome"),
+)
+ELECTION_FAILOVER = REGISTRY.counter(
+    "tidb_tpu_election_failover_total",
+    "Ownership changes: a different node won an election key",
+    ("key",),
+)
+ELECTION_TERM = REGISTRY.gauge(
+    "tidb_tpu_election_term",
+    "Current fencing token (term) per election key, as observed by this node",
+    ("key",),
+)
+# distributed exec-details pipeline (utils/execdetails + the cop engines):
+# device-time attribution exported process-wide; the per-query split rides
+# the ExecDetails sidecars into EXPLAIN ANALYZE / the slow log
+COP_COMPILE_SECONDS = REGISTRY.histogram(
+    "tidb_tpu_copr_compile_seconds",
+    "DAG-kernel jit compile wall (first dispatch per kernel-cache key)",
+)
+COP_DEVICE_SECONDS = REGISTRY.histogram(
+    "tidb_tpu_copr_device_seconds",
+    "Device-path wall per cop task (dispatch + on-chip + transfer back)",
+)
+DEVICE_CACHE = REGISTRY.counter(
+    "tidb_tpu_device_cache_total",
+    "Device-resident column LRU lookups (hit = no H2D transfer paid)",
+    ("result",),
+)
+# delta+merge device column cache (copr/colcache.py delta overlays + the
+# session-level compactor): freshness without re-uploading base blocks
+DEVICE_DELTA_ROWS = REGISTRY.gauge(
+    "tidb_tpu_device_delta_rows",
+    "Committed rows pending in columnar delta overlays (not yet merged)",
+)
+DEVICE_MERGE_SECONDS = REGISTRY.histogram(
+    "tidb_tpu_device_merge_seconds",
+    "Delta→base merge wall (rebuild + dirty-block accounting) per region",
+)
+DEVICE_TRANSFER = REGISTRY.counter(
+    "tidb_tpu_device_transfer_bytes_total",
+    "Host<->device bytes moved by the cop engines",
+    ("dir",),
+)
+SERVER_CONNS = REGISTRY.gauge(
+    "tidb_tpu_server_connections", "Open wire-protocol client connections"
+)
+# always-on sampled tracing (utils/tracing.TraceReservoir + Session.execute)
+TRACE_SAMPLED = REGISTRY.counter(
+    "tidb_tpu_trace_sampled_total",
+    "Statements whose trace was sampled into the reservoir (slow = tail-keep pinned)",
+    ("kind",),
+)
+# per-shard MPP fragment attribution (parallel/gather._shard_probe): one
+# observation per mesh shard per gather — the straggler distribution
+MPP_SHARD_SECONDS = REGISTRY.histogram(
+    "tidb_tpu_mpp_shard_seconds",
+    "Per-shard MPP fragment completion wall (launch to shard-local finish)",
+)
+# MPP compiled-program reuse (parallel/gather._MPP_FN_CACHE): hit = a gather
+# rode an already-built jitted fragment program, miss = it had to build one
+# (the multi-second XLA wall) — power-of-two cap bucketing keeps this warm
+# across same-shape queries of different sizes
+MPP_PROGRAM_CACHE = REGISTRY.counter(
+    "tidb_tpu_mpp_program_cache_total",
+    "MPP fragment-program cache lookups by outcome",
+    ("result",),
+)
+# cross-store × cross-chip hybrid gathers: a straddling gather (tables on
+# multiple store shards) ran on the coordinator's mesh with per-owner wire
+# reads instead of degrading to the host join
+MPP_HYBRID = REGISTRY.counter(
+    "tidb_tpu_mpp_hybrid_total",
+    "MPP gathers executed on the hybrid shards-x-devices path",
+)
+# bytes of INTERMEDIATE fragment results that crossed the host boundary
+# (a subplan build side materialized through the Volcano executor and
+# re-uploaded) — the staged on-mesh pipeline exists to keep this at ZERO;
+# the scaling bench lane and the stage-chain tests assert on it
+MPP_HOST_INTERMEDIATE = REGISTRY.counter(
+    "tidb_tpu_mpp_intermediate_host_bytes_total",
+    "Bytes of intermediate MPP fragment results moved through the host",
+)
+# instance-level serving architecture (planner/instcache + the point-get
+# batcher in copr/client): cross-session cache outcomes, and how many
+# concurrent point reads each batched store dispatch coalesced (count =
+# dispatches issued, sum = keys served — count << sum proves batching)
+INSTANCE_PLAN_CACHE = REGISTRY.counter(
+    "tidb_tpu_instance_plan_cache_total",
+    "Instance (cross-session) cache lookups: hit/miss = plan templates, "
+    "ast_hit/ast_miss = statement ASTs",
+    ("result",),
+)
+POINTGET_BATCH = REGISTRY.histogram(
+    "tidb_tpu_pointget_batch_size",
+    "Point-get keys coalesced per batched store dispatch",
+    buckets=(1, 2, 4, 8, 16, 32, 64, 128),
+)
+# cluster observability plane (the sys_snapshot verb + StoreHealthRegistry
+# sweeps in session.py, and the utils/metricshist.py in-process recorder)
+CLUSTER_SNAPSHOT_SECONDS = REGISTRY.histogram(
+    "tidb_tpu_cluster_snapshot_seconds",
+    "Full-fleet sys_snapshot sweep wall (all shards, dead-store tolerant)",
+)
+METRICS_HISTORY_POINTS = REGISTRY.gauge(
+    "tidb_tpu_metrics_history_points",
+    "Samples currently retained by the in-process metrics history recorder",
+)
+
+# elastic data placement (kv/placement.py: the PD-analog placement driver —
+# epoch-versioned movable ownership, region migration, the balancer sweep)
+PLACEMENT_EPOCH = REGISTRY.gauge(
+    "tidb_tpu_placement_epoch",
+    "Current placement epoch per table binding (monotone; never regresses)",
+    ("table",),
+)
+PLACEMENT_REFRESH = REGISTRY.counter(
+    "tidb_tpu_placement_refresh_total",
+    "Placement map re-resolves (the boRegionMiss re-route signal)",
+    ("outcome",),
+)
+PLACEMENT_REROUTE = REGISTRY.counter(
+    "tidb_tpu_placement_reroute_total",
+    "Data verbs re-routed to a new owner after a placement epoch change",
+    ("verb",),
+)
+REGION_MIGRATE = REGISTRY.counter(
+    "tidb_tpu_region_migrate_total",
+    "Region (table) migrations between stores",
+    ("outcome",),
+)
+REGION_MIGRATE_SECONDS = REGISTRY.histogram(
+    "tidb_tpu_region_migrate_seconds",
+    "Wall clock of one region migration (copy + catch-up + fenced cutover)",
+)
+BALANCER_MOVES = REGISTRY.counter(
+    "tidb_tpu_balancer_move_total",
+    "Region moves initiated by the load balancer sweep",
+    ("reason",),
+)
+META_CATCHUP = REGISTRY.counter(
+    "tidb_tpu_meta_catchup_total",
+    "Returning-replica anti-entropy replays (meta + election + placement)",
+)
+# workload attribution (resourcegroup/groups.py): per-group request units
+# and statement counts — the metering substrate admission control (ROADMAP
+# item 3) will act on. Labeled by resource group so metricshist keeps a
+# per-tenant consumption history.
+RU_CONSUMED = REGISTRY.counter(
+    "tidb_tpu_resource_group_ru_total",
+    "Request units consumed per resource group (RRU + WRU, metering only)",
+    ("group",),
+)
+RU_STATEMENTS = REGISTRY.counter(
+    "tidb_tpu_resource_group_statement_total",
+    "Statements attributed per resource group",
+    ("group",),
+)

@@ -1,0 +1,263 @@
+"""Tracing (ref: pkg/util/tracing dual spans + the TRACE statement,
+executor/trace.go): a per-statement span collector; instrumentation sites
+open spans through Session.span() which no-ops when tracing is off.
+
+Distributed half (ref: Dapper-style trace-context propagation): the trace id
+travels inside cop/MPP RPC headers (:class:`TraceContext`), the remote
+``StoreServer`` records spans into its own :class:`Tracer` under that
+context, and the finished spans ship home in the response where the caller
+grafts them into the statement trace with :meth:`Tracer.merge_remote` — so
+TRACE shows the full cross-process tree, each remote span tagged with the
+store that recorded it.
+
+Thread-safety: shared-cop-pool workers open spans on ONE statement tracer
+concurrently. Depth/nesting state is per-thread (a span stack in a
+``threading.local``); the span list itself appends under a lock with a
+monotonically increasing sequence number, and :meth:`rows` orders by
+``(start, seq)`` — a deterministic rule independent of interleaving.
+Cross-thread nesting (a worker's task span under the requester's
+``execute`` span) is explicit via ``span(name, parent=...)``.
+
+Always-on sampled tracing (ref: Dapper §4 — probabilistic sampling makes a
+continuous latency breakdown affordable at serving rates): a per-statement
+coin in ``Session.execute`` creates a ``Tracer`` for a small fraction of
+statements; its ``sampled`` flag rides the :class:`TraceContext` through
+every cop/MPP RPC so remote stores record spans ONLY for sampled
+statements. Finished sampled traces land in the :class:`TraceReservoir` —
+a bounded ring of recent traces plus a *tail-keep* section that pins any
+trace whose statement crossed the slow-log threshold, so the interesting
+outliers survive ring rotation (the slow log cross-links them by trace id).
+Unsampled statements never construct a tracer: the ``Request.tracer is
+None`` zero-cost rule is untouched.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+import uuid
+from collections import OrderedDict, deque
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+
+@dataclass
+class Span:
+    name: str
+    start_s: float  # relative to trace start
+    duration_s: float
+    depth: int
+    seq: int = 0
+    # "" = recorded in this process; else the remote store that recorded it
+    node: str = ""
+
+
+@dataclass(frozen=True)
+class TraceContext:
+    """The wire form of an active trace: what a cop/MPP RPC carries outward
+    so the remote side can record spans under the same trace."""
+
+    trace_id: str
+    sampled: bool = True
+
+    def to_pb(self) -> dict:
+        return {"tid": self.trace_id, "sampled": int(self.sampled)}
+
+    @staticmethod
+    def from_pb(pb) -> "TraceContext | None":
+        if not pb:
+            return None
+        return TraceContext(str(pb.get("tid", "")), bool(pb.get("sampled", 1)))
+
+
+class Tracer:
+    def __init__(self, trace_id: "str | None" = None, sampled: bool = True):
+        self._t0 = time.perf_counter()
+        self.trace_id = trace_id or uuid.uuid4().hex[:16]
+        # rides the wire context: remote sides record spans only when set
+        self.sampled = sampled
+        self._mu = threading.Lock()
+        self._tls = threading.local()
+        self._seq = 0
+        self.spans: list[Span] = []
+
+    # -- span recording -----------------------------------------------------
+    def _stack(self) -> list:
+        st = getattr(self._tls, "stack", None)
+        if st is None:
+            st = self._tls.stack = []
+        return st
+
+    def current(self) -> "Span | None":
+        """The innermost open span of THIS thread (cross-thread parents are
+        captured here and passed to workers via ``span(parent=...)``)."""
+        st = self._stack()
+        return st[-1] if st else None
+
+    @contextmanager
+    def span(self, name: str, parent: "Span | None" = None):
+        st = self._stack()
+        if parent is None and st:
+            parent = st[-1]
+        depth = parent.depth + 1 if parent is not None else 0
+        start = time.perf_counter()
+        sp = Span(name, start - self._t0, 0.0, depth)
+        with self._mu:
+            sp.seq = self._seq
+            self._seq += 1
+            self.spans.append(sp)
+        st.append(sp)
+        try:
+            yield sp
+        finally:
+            st.pop()
+            sp.duration_s = time.perf_counter() - start
+
+    # -- wire ----------------------------------------------------------------
+    def context(self) -> TraceContext:
+        return TraceContext(self.trace_id, self.sampled)
+
+    def to_pb(self) -> list[list]:
+        """Finished spans in wire form: [name, start_s, duration_s, depth],
+        ordered by the same deterministic (start, seq) rule as rows()."""
+        with self._mu:
+            spans = sorted(self.spans, key=lambda s: (s.start_s, s.seq))
+        return [[s.name, round(s.start_s, 6), round(s.duration_s, 6), s.depth] for s in spans]
+
+    def merge_remote(self, pb_spans, base_s: float, node: str, depth: int = 0) -> None:
+        """Graft spans recorded by a remote process into this trace: remote
+        starts are relative to the REMOTE trace start (its RPC handling), so
+        they rebase onto ``base_s`` — the local time the RPC span opened —
+        and indent ``depth`` levels under it. Clock skew never enters: only
+        the remote's own relative timings travel."""
+        if not pb_spans:
+            return
+        with self._mu:
+            for name, start_s, dur_s, sd in pb_spans:
+                sp = Span(
+                    str(name), base_s + float(start_s), float(dur_s), depth + int(sd), node=node
+                )
+                sp.seq = self._seq
+                self._seq += 1
+                self.spans.append(sp)
+
+    def dump(self) -> list[list]:
+        """Structured spans for the trace reservoir / JSON surfaces:
+        [name, start_ms, duration_ms, depth, node], (start, seq)-ordered."""
+        with self._mu:
+            spans = sorted(self.spans, key=lambda s: (s.start_s, s.seq))
+        return [
+            [s.name, round(s.start_s * 1e3, 3), round(s.duration_s * 1e3, 3), s.depth, s.node]
+            for s in spans
+        ]
+
+    # -- rendering -----------------------------------------------------------
+    def rows(self) -> list[tuple]:
+        with self._mu:
+            spans = sorted(self.spans, key=lambda s: (s.start_s, s.seq))
+        out = []
+        for s in spans:
+            label = ("  " * s.depth) + ("└─" if s.depth else "") + s.name
+            if s.node:
+                label += f" @{s.node}"
+            out.append((label, f"{s.start_s * 1e3:.3f}ms", f"{s.duration_s * 1e3:.3f}ms"))
+        return out
+
+
+def effective(tracer) -> "Tracer | None":
+    """The tracer a recording seam should actually use: None when tracing is
+    off OR the context is explicitly unsampled (``TraceContext.sampled=0``).
+    The single home of the zero-cost gating rule — every span-recording seam
+    (cop clients, MPP dispatch) routes through this, so an unsampled tracer
+    behaves byte-identically to no tracer at all."""
+    if tracer is None or not getattr(tracer, "sampled", True):
+        return None
+    return tracer
+
+
+def clamp_rate(rate: float, qps: float, clamp_qps: float) -> float:
+    """Adaptive sampling clamp (Dapper's follow-up idiom: sample generously
+    when idle, shed tracing under pressure): above ``clamp_qps`` the
+    effective rate scales down proportionally, so the expected number of
+    sampled statements per second stays ~``rate * clamp_qps`` no matter how
+    hard the instance is driven — and recovers to the configured rate the
+    moment load falls back under the threshold. ``clamp_qps <= 0`` disables
+    the clamp. The single home of the rule: the session's sampling coin and
+    any future remote-side clamp must both route here."""
+    if clamp_qps <= 0 or qps <= clamp_qps:
+        return rate
+    return rate * (clamp_qps / qps)
+
+
+# -- trace reservoir ---------------------------------------------------------
+
+
+@dataclass
+class TraceEntry:
+    """One finished sampled statement in the reservoir."""
+
+    trace_id: str
+    time: float  # unix seconds the statement finished
+    sql: str
+    digest: str
+    duration_s: float
+    slow: bool  # crossed the slow-log threshold → tail-keep pinned
+    spans: list = field(default_factory=list)  # Tracer.dump() rows
+
+
+class TraceReservoir:
+    """Bounded store of recent sampled traces (ref: Dapper's sampled-trace
+    collection; GWP's always-on-with-a-budget discipline). Two sections:
+
+    - a ring of the N most recent sampled traces (FIFO eviction);
+    - *tail-keep*: traces of statements over the slow-log threshold are
+      additionally pinned in their own (smaller) ring, so a latency outlier
+      survives long after ordinary ring rotation would have dropped it —
+      regardless of how many fast sampled statements follow.
+
+    No background threads: deposits happen on the statement's own thread,
+    reads under one lock. Surfaced via ``GET /traces`` and
+    ``information_schema.trace_reservoir``; the slow log cross-links entries
+    by ``trace_id``."""
+
+    def __init__(self, capacity: int = 64, slow_capacity: int = 32):
+        self._mu = threading.Lock()
+        self._ring: deque = deque(maxlen=max(int(capacity), 1))
+        self._slow: "OrderedDict[str, TraceEntry]" = OrderedDict()
+        self.slow_capacity = max(int(slow_capacity), 1)
+
+    def add(self, entry: TraceEntry) -> None:
+        with self._mu:
+            self._ring.append(entry)
+            if entry.slow:
+                self._slow[entry.trace_id] = entry
+                while len(self._slow) > self.slow_capacity:
+                    self._slow.popitem(last=False)
+
+    def get(self, trace_id: str) -> "TraceEntry | None":
+        with self._mu:
+            hit = self._slow.get(trace_id)
+            if hit is not None:
+                return hit
+            for e in self._ring:
+                if e.trace_id == trace_id:
+                    return e
+        return None
+
+    def traces(self) -> list[TraceEntry]:
+        """Every retained trace, oldest first: tail-keep entries that have
+        already rotated out of the ring, then the ring itself."""
+        with self._mu:
+            ring_ids = {e.trace_id for e in self._ring}
+            pinned = [e for tid, e in self._slow.items() if tid not in ring_ids]
+            return sorted(pinned + list(self._ring), key=lambda e: e.time)
+
+    def __len__(self) -> int:
+        with self._mu:
+            ring_ids = {e.trace_id for e in self._ring}
+            return len(self._ring) + sum(1 for t in self._slow if t not in ring_ids)
+
+    def clear(self) -> None:
+        with self._mu:
+            self._ring.clear()
+            self._slow.clear()
