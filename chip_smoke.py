@@ -34,16 +34,29 @@
    input it times K1 beside the int8 dot route that Q1 takes.
 5. Runs the SQL front over the same lineitem: ``tidb_tpu_torch.open``
    with the table bulk-loaded and split at the middle handle into two
-   regions, the six statements of ``SQL_QUERIES`` (the reference bench's
-   COUNT(*), Q6, Q1 and Q10, the band query, Q15's revenue view) once
-   cold and ten times warm. Every result must equal the numpy oracle's
-   final rows, every cop task must run on the ``gpu`` engine with none
-   degraded, and K1 must launch during the band query and not during Q1.
-   Prints the load time and the row codec, and per statement the cold
-   wall, the warm SQL wall, the summed cop-task walls and the SQL-layer
-   tax between them.
-6. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
-   count over its single drive), then, last, the
+   regions, the seven statements of ``SQL_QUERIES`` (the reference bench's
+   COUNT(*), Q6, Q1 and Q10, the band query, Q15's revenue view, Q1's
+   groups WITH ROLLUP) once cold and ten times warm. Every result must
+   equal the numpy oracle's final rows, every cop task must run on the
+   ``gpu`` engine with none degraded, and K1 must launch during the band
+   query and not during Q1. Prints the load time and the row codec, and
+   per statement the cold wall, the warm SQL wall, the summed cop-task
+   walls and the SQL-layer tax between them.
+6. HTAP, on the same database: about 1,000 lines of the first region
+   updated (one price past the int32 envelope, one quantity past 50),
+   about 200 of the second deleted and 300 inserted, pending as deltas
+   under the compactor's fold threshold. The seven statements run once
+   cold and ten times warm with the delta operand and must equal the
+   oracle over the written columns, on ``gpu``, none degraded, every task
+   folding its region's delta; K1 must launch during band (n = 4,202,496
+   per task) and not during Q1, and equal its plain version on the delta
+   path's inputs. Prints per statement the warm median beside phase 5's
+   and the host engine's median of 3, and the delta operand's bytes and
+   upload time; then the compactor folds the deltas and the statements
+   equal the oracle again.
+7. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+   count over its single drive; ``launches_dag_path`` and
+   ``launches_delta_path`` the DAG and HTAP phases'), then, last, the
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -449,7 +462,8 @@ SQL_SCHEMA = """CREATE TABLE lineitem (
     l_orderkey BIGINT, l_suppkey BIGINT, l_linenumber BIGINT)"""
 
 # the reference bench's statements (bench.py: COUNT_STAR, Q6, Q1, Q10), the
-# band query the 160-bucket DAG computes, and Q15's revenue view
+# band query the 160-bucket DAG computes, Q15's revenue view, and Q1's
+# groups WITH ROLLUP (every grouping set in one pass on the device)
 SQL_QUERIES = {
     "count": "SELECT COUNT(*) FROM lineitem",
     "q6": """SELECT SUM(l_extendedprice * l_discount) FROM lineitem
@@ -471,6 +485,8 @@ SQL_QUERIES = {
     "q15rev": """SELECT l_suppkey, SUM(l_extendedprice * (1 - l_discount)) FROM lineitem
   WHERE l_shipdate >= DATE '1996-01-01' AND l_shipdate < DATE '1996-04-01'
   GROUP BY l_suppkey""",
+    "rollup": """SELECT l_returnflag, l_linestatus, COUNT(*), SUM(l_quantity), SUM(l_extendedprice)
+  FROM lineitem GROUP BY l_returnflag, l_linestatus WITH ROLLUP""",
 }
 # statements whose row order the SQL fixes (ORDER BY); the others compare
 # as sets of rows
@@ -512,7 +528,7 @@ def sql_oracle(name: str, c: dict) -> list[tuple]:
             avg = [_dec((int(x.scaleb(2)) * 10**4 + cnt // 2) // cnt, 6) for x in (sq, sp, sd)]
             rows.append((*key, sq, sp, sdp, sch, *avg, cnt))
         return rows
-    if name in ("band", "q15rev"):
+    if name in ("band", "q15rev", "rollup"):
         return sorted(((*k, *v) for k, v in want.items()), key=repr)
     return [want[()]]
 
@@ -520,6 +536,78 @@ def sql_oracle(name: str, c: dict) -> list[tuple]:
 def sql_rows(name: str, rows: list) -> list:
     """A statement's rows in the order ``sql_oracle`` gives them."""
     return list(rows) if name in SQL_ORDERED else sorted(rows, key=repr)
+
+
+def _decimal_text(cents: int) -> str:
+    return f"{cents // 100}.{cents % 100:02d}"
+
+
+def htap_writes(cols: dict, seed: int, n_update: int = 1000, n_delete: int = 200, n_insert: int = 300):
+    """Three writes on the loaded lineitem (handles 1..n, two regions split
+    at the middle handle) and the columns they leave, in numpy. → (updates
+    {handle: {slot: new physical value}}, deleted handles, the INSERT
+    statement, columns after the three, changed handles in the first
+    region, in the second).
+
+    - UPDATE the lines of the first orders, about ``n_update`` of the first
+      region (quantity + 1, price + 100.00), one of them to a price of
+      25,000,000.00, past the table's maximum and past the int32 envelope
+      of the price lane (2,500,000,000 cents), and another to a quantity
+      of 75 (the specification's domain ends at 50);
+    - DELETE about ``n_delete`` lines of the second region (whole orders);
+    - INSERT ``n_insert`` new lines (the next handles: the second region)
+      with values from the specification's domains, in new orders past the
+      last, with no new dictionary strings.
+    """
+    n = len(cols[0])
+    c = {k: v.copy() for k, v in cols.items()}
+    okey = c[9]
+    upd = np.flatnonzero(okey <= okey[n_update - 1])
+    i_big, i_qty = 0, int(np.flatnonzero(okey > okey[0])[0])  # first lines of the first two orders
+    half = n // 2
+    gone = (okey >= okey[half + 1000]) & (okey <= okey[half + 1000 + n_delete - 1])
+    c[0][upd] += 100
+    c[1][upd] += 10_000
+    c[1][i_big] = 2_500_000_000
+    c[0][i_qty] = 7_500
+    updates = {int(i) + 1: {0: int(c[0][i]), 1: int(c[1][i])} for i in upd}
+    new = lineitem_sf1(seed + 1, n_insert)
+    new[9] = new[9] + (int(okey.max()) // 32 + 1) * 32  # new orders, the keys' sparse pattern kept
+    values = []
+    for i in range(n_insert):
+        values.append(
+            f"({_decimal_text(int(new[0][i]))}, {_decimal_text(int(new[1][i]))}, {_decimal_text(int(new[2][i]))}, "
+            f"{_decimal_text(int(new[3][i]))}, '{RETURNFLAGS[new[4][i]].decode()}', "
+            f"'{LINESTATUS[new[5][i]].decode()}', DATE '{_date(new[6][i]).isoformat()}', "
+            f"'{SHIPMODES[new[7][i]].decode()}', '{SHIPINSTRUCTS[new[8][i]].decode()}', "
+            f"{new[9][i]}, {new[10][i]}, {new[11][i]})"
+        )
+    insert = "INSERT INTO lineitem VALUES " + ", ".join(values)
+    after = {k: np.concatenate([v[~gone], new[k].astype(v.dtype)]) for k, v in c.items()}
+    return updates, np.flatnonzero(gone) + 1, insert, after, len(upd), int(gone.sum()) + n_insert
+
+
+def commit_rows(db, updates: dict, deletes) -> None:
+    """One transaction on lineitem through the store's transactional API,
+    the commit path SQL DML takes: rewrite the rows of ``updates``
+    ({handle: {slot: physical value}}) and delete the rows of ``deletes``.
+    (The SQL UPDATE and DELETE executors read the whole table to find their
+    rows, which at SF1 dwarfs the reads after them.)"""
+    from tidb_tpu_torch.kv.rowcodec import RowSchema, decode_row, encode_row
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    t = db.catalog.table("test", "lineitem")
+    schema = RowSchema(t.storage_schema)
+    txn = db.store.begin()
+    keys = [record_key(t.id, h) for h in updates]
+    for key, (h, new), old in zip(keys, updates.items(), txn.batch_get(keys)):
+        row = decode_row(schema, old)
+        for slot, v in new.items():
+            row[slot] = v
+        txn.put(key, encode_row(schema, row))
+    for h in deletes:
+        txn.delete(record_key(t.id, int(h)))
+    txn.commit()
 
 
 # -- the oracle -----------------------------------------------------------------
@@ -619,6 +707,19 @@ def oracle(name: str, c: dict):
             out[(SHIPMODES[mi].decode(), SHIPINSTRUCTS[ii].decode(), RETURNFLAGS[fi].decode())] = (
                 int(n_), _dec(q_, 2), _dec(p_, 2),
             )
+        return out
+    if name == "rollup":
+        # the (returnflag, linestatus) groups, one subtotal per returnflag
+        # (linestatus rolled up: NULL) and the grand total (both NULL)
+        out = {}
+        for key, m in [((None, None), np.ones(len(qty), bool))] + [
+            ((f.decode(), None), rf == fi) for fi, f in enumerate(RETURNFLAGS)
+        ] + [
+            ((f.decode(), s.decode()), (rf == fi) & (ls == si))
+            for fi, f in enumerate(RETURNFLAGS) for si, s in enumerate(LINESTATUS)
+        ]:
+            if m.any():
+                out[key] = (int(m.sum()), _dec(int(qty[m].sum()), 2), _dec(int(price[m].sum()), 2))
         return out
     if name == "q18sub":
         keys, (sq,) = _by_key(okey, (qty, np.add))
@@ -809,8 +910,16 @@ def main() -> int:
     # 5. the SQL front: the same lineitem through tidb_tpu_torch.open()
     t0 = time.perf_counter()
     gs.LAUNCHES = 0  # the SQL path: counts from 0 just before it
-    sql_launches = _sql_phase(cols, gs)
+    sql_launches, db, warm = _sql_phase(cols, gs)
     print(f"SQL phase: {time.perf_counter() - t0:.1f} s; K1 launches on the SQL path {sql_launches}")
+
+    # 6. HTAP: reads after writes on the same database, the delta pending
+    t0 = time.perf_counter()
+    delta_launches, err = _htap_phase(db, cols, gs, warm, args.seed)
+    max_err = max(max_err, err)
+    db.stop_background()
+    torch.cuda.synchronize()
+    print(f"HTAP phase: {time.perf_counter() - t0:.1f} s; K1 launches on the delta path {delta_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -820,6 +929,7 @@ def main() -> int:
         "replaces": "tidb_tpu/ops/pallas_groupby.py:64",
         "launches": sql_launches,
         "launches_dag_path": main_launches,
+        "launches_delta_path": delta_launches,
         "max_abs_err": max_err,
         **k1,
     }]}))
@@ -842,8 +952,8 @@ ONE_REGION_ROUTES = {
 }
 
 
-def _sql_phase(cols: dict, gs, reps: int = 10) -> int:
-    """The six statements of ``SQL_QUERIES`` through ``tidb_tpu_torch.open``
+def _sql_phase(cols: dict, gs, reps: int = 10, device: str = "cuda"):
+    """The seven statements of ``SQL_QUERIES`` through ``tidb_tpu_torch.open``
     on the card, over ``cols`` split at the middle handle into two regions:
     once cold (the column cache built from MVCC, the columns copied to the
     card), then ``reps`` times warm. Every run must return the oracle's
@@ -852,16 +962,15 @@ def _sql_phase(cols: dict, gs, reps: int = 10) -> int:
     time and row codec, then per statement the cold wall, the warm SQL wall
     (median, min), the summed and longest cop-task walls from ExecDetails
     and the SQL-layer tax (wall minus summed task walls, and wall minus
-    the longest task: the tasks run concurrently). → K1 launches over the
-    single (cold) drive of the six statements."""
-    import torch
-
+    the longest task: the tasks run concurrently). → (K1 launches over the
+    single (cold) drive of the statements, the open database, the warm
+    median per statement)."""
     import tidb_tpu_torch
     from tidb_tpu_torch import native as row_native
     from tidb_tpu_torch.executor.load import bulk_load
     from tidb_tpu_torch.kv.tablecodec import record_key
 
-    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
     load_s = lineitem_sql(db, bulk_load, record_key, cols, parts=2)
     n_regions = len(db.store.regions())
     codec = "native C++ (g++)" if row_native.lib() is not None else "pure Python (no compiler found)"
@@ -880,7 +989,7 @@ def _sql_phase(cols: dict, gs, reps: int = 10) -> int:
             raise AssertionError(f"sql {name}: rows disagree with the numpy oracle")
         return wall, summ.procs, summ.device_ms
 
-    cold, by_query = {}, {}
+    cold, by_query, warm = {}, {}, {}
     for name in SQL_QUERIES:
         before = gs.LAUNCHES
         cold[name] = run(name)
@@ -891,6 +1000,7 @@ def _sql_phase(cols: dict, gs, reps: int = 10) -> int:
         raise AssertionError(f"K1 must run for the band query and not for Q1: {by_query}")
     for name in SQL_QUERIES:
         runs = [run(name) for _ in range(reps)]
+        warm[name] = statistics.median(w for w, _p, _d in runs)
         walls = [w for w, _p, _d in runs]
         cop_sum = [sum(p) for _w, p, _d in runs]
         cop_max = [max(p) for _w, p, _d in runs]
@@ -904,9 +1014,171 @@ def _sql_phase(cols: dict, gs, reps: int = 10) -> int:
               f"tax_ms median {statistics.median(tax):.3f} (wall minus summed task walls; the tasks run "
               f"concurrently); tax_vs_longest_task_ms median {statistics.median(tax_crit):.3f}; "
               f"rows {len(want[name])}")
-    db.stop_background()
-    torch.cuda.synchronize()
-    return launches
+    return launches, db, warm
+
+
+def _htap_phase(db, cols: dict, gs, before: dict, seed: int, reps: int = 10):
+    """Reads after writes on the SQL phase's database: ``htap_writes``
+    (an UPDATE of about 1,000 lines of the first region with one price past
+    the int32 envelope and one quantity past 50, a DELETE of about 200
+    lines and an INSERT of 300 of the second), which the default compactor
+    leaves pending (under its 2,048-row fold threshold), so every read
+    takes the delta operand. Each statement of ``SQL_QUERIES`` runs once
+    cold and ``reps`` times warm: its rows must equal the numpy oracle over
+    the written columns, every cop task must run on ``gpu`` with none
+    degraded and fold its region's whole delta in (ExecDetails
+    ``delta_rows``), and K1 must launch during the band query, at n =
+    region rows padded + the delta capacity, and not during Q1; K1 is held
+    bit-exact against its plain version on the delta path's own input.
+    Prints per statement the warm median with the delta pending beside the
+    phase-5 warm median (``before``) and the host engine's median of 3
+    (what a read after a write cost before the delta operand), the delta
+    operand's host-to-card bytes and time, then folds the deltas with the
+    compactor and checks the statements again. → (K1 launches over the
+    cold drive of the statements, K1's largest error on the delta path's
+    input)."""
+    import dataclasses
+
+    import torch
+
+    from tidb_tpu_torch import config as port_config
+    from tidb_tpu_torch.copr import colcache, gpu_engine
+    from tidb_tpu_torch.ops import dag_kernel
+    from tidb_tpu_torch.utils.chunk import bucket_size
+
+    updates, deletes, insert, after, d1, d2 = htap_writes(cols, seed)
+    t0 = time.perf_counter()
+    commit_rows(db, updates, ())
+    commit_rows(db, {}, deletes)
+    db.execute(insert)
+    n_regions = len(db.store.regions())
+    print(f"htap: 3 writes ({len(updates)} rows updated, {len(deletes)} deleted, {len(after[0]) - len(cols[0]) + len(deletes)} "
+          f"inserted) in {time.perf_counter() - t0:.3f} s; changed handles per region {d1}, {d2} "
+          f"(cap {port_config.current().device_delta_cap}, fold threshold "
+          f"{port_config.current().device_delta_merge_rows}); {len(after[0])} rows after them")
+    want = {name: sql_oracle(name, after) for name in SQL_QUERIES}
+    s = db.session()
+
+    def run(name, delta_rows, sess=s, engine="gpu"):
+        t0 = time.perf_counter()
+        rows = sess.query(SQL_QUERIES[name])
+        wall = (time.perf_counter() - t0) * 1e3
+        summ = sess.exec_summary
+        if summ is None or summ.engines != {engine: n_regions} or summ.degraded:
+            raise AssertionError(f"htap {name}: cop tasks {summ and summ.engines}, degraded {summ and summ.degraded}")
+        if engine == "gpu" and summ.delta_rows != delta_rows:
+            raise AssertionError(f"htap {name}: the tasks folded {summ.delta_rows} delta rows, not {delta_rows}")
+        if sql_rows(name, rows) != want[name]:
+            raise AssertionError(f"htap {name}: rows disagree with the numpy oracle over the written columns")
+        return wall, summ
+
+    k1_inputs, tasks = [], []
+    real_k1, real_exec = dag_kernel.grouped_sums, gpu_engine.execute_region
+
+    def recording_k1(seg, pairs, B, n_pad, bounds=None, device="cuda"):
+        k1_inputs.append((seg, pairs, B, n_pad, bounds))
+        return real_k1(seg, pairs, B, n_pad, bounds, device=device)
+
+    def recording_exec(region, dag, ranges, warn=None, device="cuda", stats=None):
+        stats = {} if stats is None else stats
+        tasks.append((region, dag, stats, ranges))
+        return real_exec(region, dag, ranges, warn, device, stats)
+
+    dag_kernel.grouped_sums, gpu_engine.execute_region = recording_k1, recording_exec
+    cold, by_query, routes, h2d, task_args = {}, {}, {}, {}, {}
+    try:
+        gs.LAUNCHES = 0  # the delta path: counts from 0 just before it
+        for name in SQL_QUERIES:
+            tasks.clear()
+            l0, k0 = gs.LAUNCHES, len(k1_inputs)
+            cold[name], summ = run(name, d1 + d2)
+            by_query[name] = gs.LAUNCHES - l0
+            routes[name] = [(st["path"], st["routes"], st["delta_rows"]) for _r, _d, st, _rg in tasks]
+            task_args[name] = [(r, d, rg) for r, d, _st, rg in tasks]
+            h2d[name] = summ.h2d_bytes
+            if name == "band":
+                want_n = sorted(bucket_size(r.entry.n) + gpu_engine._delta_cap() for r, _d, _st, _rg in tasks)
+                got_n = sorted(inp[3] for inp in k1_inputs[k0:])
+                if got_n != want_n:
+                    raise AssertionError(f"htap band: K1 ran over n = {got_n}, not the padded region + delta {want_n}")
+        launches = gs.LAUNCHES
+        # the delta operand of a full-width scan (all twelve columns), per region
+        tasks.clear()
+        s.query("SELECT * FROM lineitem WHERE l_quantity < 0")
+        operand = [(r, d) for r, d, _st, _rg in tasks]
+    finally:
+        dag_kernel.grouped_sums, gpu_engine.execute_region = real_k1, real_exec
+    print(f"htap: K1 launches by statement (cold drive, delta pending): {by_query}")
+    if by_query["band"] < 1 or by_query["q1"] != 0:
+        raise AssertionError(f"K1 must run for the band query and not for Q1 on the delta path: {by_query}")
+    for name in SQL_QUERIES:
+        print(f"htap {name}: tasks (path, routes, delta_rows) {routes[name]}; cold h2d bytes {h2d[name]}")
+    err = 0
+    for seg, pairs, B, n_pad, bounds in k1_inputs:  # the band query's tasks
+        err = max(err, _k1_err(seg, pairs, B, n_pad, bounds))
+        print(f"htap: K1 on the delta path's input n_pad={n_pad} B={B} lanes "
+              f"{[str(v.dtype).replace('torch.', '') for v, _ in pairs]} bounds {bounds}: bit-exact; "
+              f"ms {_time_ms(lambda: gs.grouped_sums(seg, pairs, B, n_pad, bounds, device=seg.device)):.4f}")
+    del k1_inputs, seg, pairs
+    dev = gpu_engine.store_device(db.store)
+    for ri, (region, dag) in enumerate(operand):
+        view = dataclasses.replace(region, cacheable=False)
+        nbytes = 0
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dh, dcols, dtomb = gpu_engine._delta_device_inputs(view, dag.executors[0], dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            nbytes = dh.nbytes + dtomb.nbytes + sum(d.nbytes + v.nbytes for d, v in dcols)
+        print(f"htap: delta operand region {ri}: {region.delta.n} rows padded to {gpu_engine._delta_cap()}, "
+              f"{len(dcols)} column pairs + handles + tombstones, {nbytes} bytes host to card in "
+              f"{statistics.median(times):.3f} ms median of {reps} (uncached upload, host clock around it)")
+
+    # each statement's region tasks alone, with the delta and on the base
+    # alone (the task phase 5 ran): where the delta fold's time goes
+    for name in SQL_QUERIES:
+        for region, dag, ranges in task_args[name]:
+            t = _task_timing(gpu_engine, region, dag, ranges)
+            b = _task_timing(gpu_engine, dataclasses.replace(region, delta=None), dag, ranges)
+            print(f"htap {name} task over {region.entry.n} base + {region.delta.n} delta rows: wall_ms median "
+                  f"{t['wall']:.3f}, device_busy_ms {_ms(t['busy'])}, idle_share {t['idle']}; the same task on "
+                  f"its base alone: wall_ms median {b['wall']:.3f}, device_busy_ms {_ms(b['busy'])}, idle_share "
+                  f"{b['idle']}")
+            for k, ms, calls in t["top"]:
+                print(f"    top kernel {ms:.3f} ms x{calls}: {k[:110]}")
+
+    host = db.session()
+    host.execute("SET tidb_isolation_read_engines='host'")
+    for name in SQL_QUERIES:
+        runs = [run(name, d1 + d2) for _ in range(reps)]
+        walls = [w for w, _summ in runs]
+        host_ms = statistics.median(run(name, 0, host, "host")[0] for _ in range(3))
+        med = statistics.median(walls)
+        print(f"htap {name}: cold_ms {cold[name]:.3f}; warm sql_ms with the delta pending median {med:.3f} "
+              f"min {min(walls):.3f}; cop_task_sum_ms median {statistics.median(sum(m.procs) for _w, m in runs):.3f}; "
+              f"cop_task_max_ms median {statistics.median(max(m.procs) for _w, m in runs):.3f}; warm h2d bytes "
+              f"{max(m.h2d_bytes for _w, m in runs)} at most; before the writes "
+              f"(phase 5) median {before[name]:.3f}; host engine median of 3 {host_ms:.3f} "
+              f"(host/delta {host_ms / med:.2f}x)")
+
+    cache = colcache.cache_for(db.store)
+    merged_default = db.run_delta_merge()
+    if merged_default != 0 or cache.delta_rows_pending() != d1 + d2:
+        raise AssertionError(f"the default compactor folded {merged_default} deltas; it must leave them pending")
+    cfg = port_config.current()
+    port_config.set_current(dataclasses.replace(cfg, device_delta_merge_rows=1))
+    try:
+        merged = db.run_delta_merge()
+    finally:
+        port_config.set_current(cfg)
+    if merged != n_regions or cache.delta_rows_pending() != 0:
+        raise AssertionError(f"compactor at threshold 1: {merged} folds, {cache.delta_rows_pending()} rows pending")
+    after_merge = {name: run(name, 0)[0] for name in SQL_QUERIES}
+    print(f"htap: compactor folded {merged} deltas (threshold 1; the default 2,048 folded none); the statements "
+          f"equal the oracle on gpu with no delta: first run ms {json.dumps({k: round(v, 3) for k, v in after_merge.items()})}")
+    return launches, err
 
 
 def _drive(regions, dags, gs):

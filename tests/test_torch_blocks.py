@@ -11,10 +11,12 @@ handle order — and, merged, the host engine.
 """
 
 import copy
+import dataclasses
 import json
 
 import jax
 import jax.experimental
+import numpy as np
 import pytest
 import test_torch_engine as te
 
@@ -263,7 +265,19 @@ def test_unported_shapes_raise_on_a_blocked_region(setup, monkeypatch, name, edi
         gpu_engine.execute_region(reg, dag, ranges, device="cpu")
 
 
-def test_delta_operand_raises(setup):
+def test_delta_operand_raises(setup, monkeypatch):
+    """A delta past the operand's fixed capacity is the column cache's to
+    merge (``get_split`` folds it into the base); handed to the engine
+    directly, it raises rather than run a program it would overflow."""
     db, caps, reg = setup
-    with pytest.raises(UnsupportedForDevice):
-        dag_kernel.get_kernel(te._port_dag(caps["count"][0]), 1024, 4096, nb=2, delta_cap=8192)
+    from tidb_tpu_torch import config as port_config
+    from tidb_tpu_torch.copr.colcache import DeltaOverlay
+
+    monkeypatch.setattr(port_config, "_CURRENT", port_config.Config(device_delta_cap=2))
+    h = reg.entry.handles
+    delta = DeltaOverlay(handles=h[:3].copy(), tomb=np.ones(3, bool), data_version=1, built_ts=1)
+    with pytest.raises(ValueError, match="capacity"):
+        gpu_engine.execute_region(
+            dataclasses.replace(reg, delta=delta), te._port_dag(caps["count"][0]), te._port_ranges(caps["count"][2]),
+            device="cpu",
+        )

@@ -177,7 +177,7 @@ def test_blockwise_dot_on_card_matches_cpu_path(monkeypatch):
 
 @pytest.mark.gpu
 def test_sql_front_on_card_matches_cpu_and_oracle():
-    """The six SQL statements through ``tidb_tpu_torch.open`` on the card
+    """The seven SQL statements through ``tidb_tpu_torch.open`` on the card
     and on the CPU, over the same 200,000-row lineitem in two regions:
     equal rows, equal to the numpy oracle, every cop task on ``gpu``."""
     _need_card()
@@ -199,3 +199,43 @@ def test_sql_front_on_card_matches_cpu_and_oracle():
         assert got["cuda"] == got["cpu"] == chip_smoke.sql_oracle(name, cols)
     for db, _s in sessions.values():
         db.stop_background()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block,fuse_max", [(1 << 22, 8), (8192, 8), (8192, 2)])
+def test_band_dag_with_a_delta_on_card_matches_cpu_path(monkeypatch, block, fuse_max):
+    """The band DAG over a 50,000-row region with committed changes pending
+    (updates, deletes and fresh rows, one price past the int32 envelope):
+    the card's Chunk equals the CPU path's at one block (n = 65,536 +
+    8,192 rows: K1), over fused blocks and per block, and K1 launches."""
+    _need_card()
+    import dataclasses
+
+    import numpy as np
+
+    from tidb_tpu_torch.copr.colcache import DeltaOverlay
+
+    monkeypatch.setattr(gpu_engine, "_BLOCK", block)
+    monkeypatch.setattr(gpu_engine, "_FUSE_MAX_NB", fuse_max)
+    with open(os.path.join(DAGS, "band.json")) as f:
+        dag = carry.dag_from_pb(json.load(f))
+    cols = chip_smoke.lineitem_sf1(seed=8, n=50_000)
+    ((region, ranges),) = chip_smoke.make_regions(cols, dag.executors[0].table_id, parts=1)
+    rng = np.random.default_rng(8)
+    n = region.entry.n
+    handles = np.unique(np.concatenate([rng.choice(region.entry.handles, 3000, replace=False), n + 1 + np.arange(500)]))
+    tomb = rng.random(len(handles)) < 0.2
+    fresh = chip_smoke.lineitem_sf1(seed=9, n=len(handles))
+    fresh[1][0] = 3_000_000_000
+    dcols = {s: (np.where(tomb, 0, c).astype(c.dtype), ~tomb) for s, c in fresh.items()}
+    delta = DeltaOverlay(handles=handles, tomb=tomb, data_version=7, built_ts=1, cols=dcols)
+    view = dataclasses.replace(region, delta=delta)
+    cpu_stats, gpu_stats = {}, {}
+    cpu = gpu_engine.execute_region(view, dag, ranges, device="cpu", stats=cpu_stats)
+    before = gs.LAUNCHES
+    gpu = gpu_engine.execute_region(view, dag, ranges, device="cuda", stats=gpu_stats)
+    torch.cuda.synchronize()
+    assert gs.LAUNCHES > before
+    assert chip_smoke._same_chunk(gpu, cpu) and gpu.rows() == cpu.rows()
+    assert gpu_stats == cpu_stats and gpu_stats["delta_rows"] == len(handles)
+    assert gpu_stats["routes"] == ("k1",)

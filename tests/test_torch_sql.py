@@ -2,7 +2,7 @@
 
 A 20,000-row lineitem from ``chip_smoke.lineitem_sf1`` is bulk-loaded into
 ``tidb_tpu.open()`` and ``tidb_tpu_torch.open(device="cpu")`` with the same
-region split (one region, and three at equal handle counts). The six
+region split (one region, and three at equal handle counts). The seven
 statements of ``chip_smoke.SQL_QUERIES`` run on the port's ``gpu`` engine
 (every kernel's plain version on the CPU) and must equal the reference's
 ``host`` and ``tpu`` engines row for row, decimals exact, with every cop
@@ -153,12 +153,12 @@ _WRITES = (
 @pytest.mark.parametrize("delta_min_rows", [1000, None], ids=["delta", "rebuild"])
 def test_insert_read_back_and_older_snapshot(monkeypatch, cols, delta_min_rows):
     """After a first read, an INSERT (and an UPDATE) is read back by the
-    next query. Where the cache would carry the changes as a delta on the
-    pinned entry (a table past ``device_delta_min_rows``), the task runs on
-    the host engine, recorded as degraded; a smaller table rebuilds its
-    entry and stays on gpu. A transaction whose snapshot came before the
-    writes keeps its result: its entry, built at the older snapshot, never
-    shares the device copies of the rebuilt head."""
+    next query on gpu, with no task degraded: where the cache carries the
+    changes as a delta on the pinned entry (a table past
+    ``device_delta_min_rows``) the program folds the delta operand in, and
+    a smaller table rebuilds its entry. A transaction whose snapshot came
+    before the writes keeps its result: its entry, built at the older
+    snapshot, never shares the device copies of the rebuilt head."""
     if delta_min_rows is not None:
         monkeypatch.setattr(port_config, "_CURRENT", port_config.Config(device_delta_min_rows=delta_min_rows))
     ref, port = _open_pair(cols, 2)
@@ -172,12 +172,9 @@ def test_insert_read_back_and_older_snapshot(monkeypatch, cols, delta_min_rows):
         ref.execute(sql)
     after, summ = _port_run(port, SQL["q1"])
     assert after == _ref_rows(ref, SQL["q1"], "host") != before
-    if delta_min_rows is not None:
-        assert summ.engines == {"host": 2}
-        ((reason, count),) = summ.degraded.items()
-        assert count == 2 and reason.startswith("unsupported-for-device") and "delta" in reason
-    else:
-        assert summ.engines == {"gpu": 2} and summ.degraded == {}
+    assert summ.engines == {"gpu": 2} and summ.degraded == {}
+    # the INSERT lands in the last region, the UPDATE in the first
+    assert (summ.delta_rows > 0) == (delta_min_rows is not None)
     assert reader.query(SQL["q1"]) == before
     assert reader.exec_summary.engines == {"gpu": 2}
     reader.execute("COMMIT")

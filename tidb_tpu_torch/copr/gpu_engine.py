@@ -1,19 +1,21 @@
 """GPU coprocessor engine: region columns → device cache → fused program.
 
-Port of tidb_tpu/copr/tpu_engine.py without the delta operand. The cop
-client calls :func:`execute_dag` (the reference's signature) per region
-task; it takes the region's columns from the store's ``ColumnCache`` and
-runs :func:`execute_region`, which a caller holding decoded columns
+Port of tidb_tpu/copr/tpu_engine.py. The cop client calls
+:func:`execute_dag` (the reference's signature) per region task; it takes
+the region's columns from the store's ``ColumnCache`` and runs
+:func:`execute_region`, which a caller holding decoded columns
 (``carry.region_from_arrays``) may call directly. Per region task:
 
 1. keep the region's columns resident on the device in an LRU bounded by
    the card's memory (``_DeviceLRU``), keyed by (region, table, slot, unit,
-   version, epoch, rows) where the unit is a block index or "s" for a
-   region held as one array; int64 lanes whose values fit int32 are stored
-   narrow (``_narrowed``);
-2. bind the DAG (string constants → dictionary codes; ``binder.py``);
-3. fetch the program for (DAG, padded rows, agg cap, blocks) and run it
-   (``dag_kernel``) on one of the reference's paths:
+   version, epoch, rows) where the unit is a block index, "s" for a
+   region held as one array or "d" for the delta operand; int64 lanes
+   whose values fit int32 are stored narrow (``_narrowed``);
+2. bind the DAG (string constants → dictionary codes; ``binder.py``) over
+   the base entry's statistics, or over base ⊕ delta (``_BinderView``)
+   when committed changes are pending;
+3. fetch the program for (DAG, padded rows, agg cap, blocks, delta cap)
+   and run it (``dag_kernel``) on one of the reference's paths:
    - a region of at most one device block (``_BLOCK`` rows), or a
      complete-mode aggregation: one padded array, one program
      (``_exec_single``);
@@ -25,6 +27,17 @@ runs :func:`execute_region`, which a caller holding decoded columns
      pages through the blocks and stops once the limit can be met;
 4. trim the packed outputs by the program's reported count and re-attach
    string dictionaries → ``Chunk``.
+
+The delta operand: the column cache pins a region's base entry across DML
+and returns the committed changes on top of it (``colcache.get_split``) as
+a ``DeltaOverlay`` of at most ``device_delta_cap`` handles. It ships padded
+to that fixed capacity (``_delta_device_inputs``); the program masks the
+base rows it supersedes, unions its live rows and restores handle order
+where order matters. On the blocked path every block masks against the
+whole delta and each delta row unions into the block whose handle span
+holds it, so block outputs stay in handle order. A delta past the capacity
+folds into the base through the cache's merge; it never reaches the host
+engine.
 
 Block results concatenate without a merge: aggregations run in partial
 mode (the root merges groups across tasks and blocks), TopN and LIMIT tasks
@@ -40,6 +53,7 @@ kernel build or launch failure propagates.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from collections import OrderedDict
@@ -50,7 +64,7 @@ import torch
 
 from tidb_tpu_torch.copr import dagpb, host_engine
 from tidb_tpu_torch.copr.binder import Binder, UnsupportedForDevice
-from tidb_tpu_torch.copr.colcache import DEVICE_BLOCK_ROWS, ColumnCache, RegionColumns, cache_for
+from tidb_tpu_torch.copr.colcache import DEVICE_BLOCK_ROWS, ColumnCache, DeltaOverlay, RegionColumns, cache_for
 from tidb_tpu_torch.device import resolve
 from tidb_tpu_torch.expression.expr import AggDesc, _ft_from_pb, expr_from_pb
 from tidb_tpu_torch.kv import tablecodec
@@ -64,6 +78,7 @@ from tidb_tpu_torch.utils import metrics as _metrics
 from tidb_tpu_torch.utils.chunk import Chunk, Column, bucket_size
 
 _DEFAULT_AGG_CAP = 4096
+_I64_MAX = np.iinfo(np.int64).max
 _BLOCK = DEVICE_BLOCK_ROWS
 _FUSE_MAX_NB = 8  # fused multi-block programs: the card holds the inputs and their concatenation
 # share of the card's memory the column LRU may hold; the rest is the
@@ -72,18 +87,54 @@ _HBM_SHARE = 0.5
 _HOST_BUDGET = 8 << 30  # device="cpu": the "device" copies are host tensors
 
 
+def _delta_cap() -> int:
+    """The delta operand's fixed row capacity (part of the program key)."""
+    from tidb_tpu_torch import config as _config
+
+    return int(getattr(_config.current(), "device_delta_cap", 8192))
+
+
 @dataclass
 class RegionView:
     """One region task's rows of one table: the decoded columns and the
     cache that holds their dictionaries and device copies. ``cacheable``
     is False for an entry built at an older snapshot than the region's
-    head, whose device copies must not be kept under the head's version."""
+    head, whose device copies must not be kept under the head's version.
+    ``delta``, when given, holds the committed changes pending on the
+    entry (at most ``device_delta_cap`` handles)."""
 
     region_id: int
     table_id: int
     entry: RegionColumns
     cache: ColumnCache
     cacheable: bool = True
+    delta: DeltaOverlay | None = None
+
+
+class _BinderView:
+    """Statistics over base ⊕ delta for the binder: the min/max behind the
+    sort bounds, the K1/dot magnitude proofs and the int32 narrow-eval
+    proofs must cover the delta's values, or a fresh row outside the
+    base's envelope would break an exactness gate (K1 trusts its bounds)."""
+
+    def __init__(self, base, delta):
+        self.base, self.delta = base, delta
+        self.n = base.n + delta.n
+
+    @property
+    def handles(self):
+        # only the endpoints are read (the binder's handle min/max)
+        hs = [h for h in (self.base.handles, self.delta.handles) if len(h)]
+        if not hs:
+            return np.empty(0, np.int64)
+        return np.array([min(int(h[0]) for h in hs), max(int(h[-1]) for h in hs)], dtype=np.int64)
+
+    def minmax(self, slot: int) -> tuple[int, int]:
+        mm = self.base.minmax(slot)
+        dm = self.delta.minmax(slot)
+        if dm is None:
+            return mm
+        return (min(mm[0], dm[0]), max(mm[1], dm[1]))
 
 
 class _DeviceLRU:
@@ -147,23 +198,34 @@ def _device_lru(cache, device: torch.device) -> _DeviceLRU:
         return lru
 
 
-def _device_put_col(lru: _DeviceLRU, key, make_pair, n_pad: int, device: torch.device, cacheable: bool = True):
-    """One padded (data, valid) pair on ``device``, LRU-cached under
-    ``key`` when ``cacheable``. ``make_pair`` is a thunk: host-side
-    preparation (the int32 narrowing walks the whole column) runs only on
-    a miss."""
+def _device_put_col(lru: _DeviceLRU, key, make_pair, n_pad: int, device: torch.device, cacheable: bool = True, pad=0):
+    """One (data, valid) pair on ``device``, data padded to ``n_pad`` with
+    ``pad`` and LRU-cached under ``key`` when ``cacheable``. ``make_pair``
+    is a thunk: host-side preparation (the int32 narrowing walks the whole
+    column) runs only on a miss."""
+    det = _ed.current_cop()
     hit = lru.get(key) if cacheable else None
     if hit is not None:
+        if det is not None:
+            det.dev_cache_hits += 1
+        _metrics.DEVICE_CACHE.inc(result="hit")
         return hit
     data, valid = make_pair()
-    pd = np.zeros(n_pad, dtype=data.dtype)
+    pd = np.full(n_pad, pad, dtype=data.dtype)
     pd[: len(data)] = data
     pv = np.zeros(n_pad, dtype=bool)
     pv[: len(valid)] = valid
     out = (torch.from_numpy(pd).to(device), torch.from_numpy(pv).to(device))
+    if det is not None:
+        det.dev_cache_misses += 1
+        det.h2d_bytes += pd.nbytes + pv.nbytes
+    _metrics.DEVICE_CACHE.inc(result="miss")
+    _metrics.DEVICE_TRANSFER.inc(pd.nbytes + pv.nbytes, dir="h2d")
     if not cacheable:
         return out
-    # key layout: (region_id, table_id, slot, unit, version, epoch, n_pad)
+    # key layout: (region_id, table_id, slot, unit, version, epoch, n_pad);
+    # superseded versions are dropped per unit, so a merge that carries
+    # clean blocks replaces only the dirty ones
     lru.put(key, out, pd.nbytes + pv.nbytes)
     lru.evict_superseded(key[:4], key[4:6])
     return out
@@ -184,15 +246,19 @@ def _narrowed(entry, column_id: int, data: np.ndarray) -> np.ndarray:
     return data
 
 
-def _covers_all(rarr: np.ndarray, entry) -> bool:
+def _covers_all(rarr: np.ndarray, entry, delta=None) -> bool:
     """True when the (padded) range set provably covers every region row —
-    the program then skips the per-row handle range mask."""
+    the program then skips the per-row handle range mask. With a delta the
+    proof must cover the delta's handle span too."""
     if entry.n == 0:
         return False
     spans = rarr[rarr[:, 0] < rarr[:, 1]]
     if len(spans) != 1:
         return False
-    return int(spans[0, 0]) <= int(entry.handles[0]) and int(entry.handles[-1]) < int(spans[0, 1])
+    lo, hi = int(entry.handles[0]), int(entry.handles[-1])
+    if delta is not None:
+        lo, hi = min(lo, int(delta.handles[0])), max(hi, int(delta.handles[-1]))
+    return int(spans[0, 0]) <= lo and hi < int(spans[0, 1])
 
 
 def _n_blocks(n: int) -> int:
@@ -258,10 +324,11 @@ def _execute_dag_device(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRa
     schema = RowSchema(scan.storage_schema)
     slots = [c.column_id for c in scan.columns if not c.is_handle]
     cache = cache_for(store)
+    # the base stays pinned across DML; committed changes ride as the
+    # bounded delta operand the program folds in (get_split merges a delta
+    # past the operand capacity into the base)
     entry, delta = cache.get_split(region, scan.table_id, schema, slots, read_ts)
-    if delta is not None and delta.n:
-        raise UnsupportedForDevice("committed changes pending on the pinned entry: the delta operand is not ported")
-    view = RegionView(region.region_id, scan.table_id, entry, cache, cacheable=entry.complete)
+    view = RegionView(region.region_id, scan.table_id, entry, cache, cacheable=entry.complete, delta=delta)
     return execute_region(view, dag, ranges, warn, dev)
 
 
@@ -272,9 +339,10 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
     ``warn(level, code, msg)`` receives the program's warnings (the ported
     builtins raise none). ``stats``, a dict when given, receives the task's
     engine ``path`` ("single", "fused", "blockwise dot", "per-block
-    stacked" or "paged limit"), the ``routes`` of its aggregations and the
-    number of agg-cap ``regrows``. Raises ``UnsupportedForDevice`` for a
-    DAG shape the port does not carry.
+    stacked" or "paged limit"), the ``routes`` of its aggregations, the
+    number of agg-cap ``regrows`` and the ``delta_rows`` it folded in
+    (``region.delta``). Raises ``UnsupportedForDevice`` for a DAG shape
+    the port does not carry.
     """
     dev = resolve(device)
     scan = dag.executors[0]
@@ -286,14 +354,24 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
         raise UnsupportedForDevice(f"{len(ranges)} ranges: point-lookup tasks are host-engine work (not ported)")
     if any(ex.tp == dagpb.WINDOW for ex in dag.executors[1:]):
         raise UnsupportedForDevice("window programs are not ported")
-    entry = region.entry
-    bound = Binder(region.cache, scan.table_id, scan.columns, entry).bind_dag(dag)
+    if region.delta is not None and not region.delta.n:
+        region = dataclasses.replace(region, delta=None)
+    entry, delta = region.entry, region.delta
+    if delta is not None and delta.n > _delta_cap():
+        raise ValueError(f"a delta of {delta.n} rows exceeds the operand capacity {_delta_cap()}: merge it first")
+    stats = stats if stats is not None else {}
+    stats["regrows"] = 0
+    stats["delta_rows"] = delta.n if delta is not None else 0
+    if delta is not None:
+        det = _ed.current_cop()
+        if det is not None:
+            det.delta_rows += delta.n
+    binder_entry = entry if delta is None else _BinderView(entry, delta)
+    bound = Binder(region.cache, scan.table_id, scan.columns, binder_entry).bind_dag(dag)
     # ranges → padded static array; rows outside every range are masked out
     rarr = np.zeros((MAX_RANGES, 2), dtype=np.int64)
     for i, kr in enumerate(ranges):
         rarr[i] = tablecodec.range_to_handles(kr, scan.table_id)
-    stats = stats if stats is not None else {}
-    stats["regrows"] = 0
     if _should_fuse_agg(dag, entry):
         return _exec_fused_blocks(region, dag, bound, scan, rarr, dev, warn, stats)
     agg_complete = any(
@@ -335,6 +413,68 @@ def _device_inputs(region: RegionView, scan, unit, lo: int, hi: int, n_pad: int,
 
         cols_dev.append(_device_put_col(lru, ckey, mk, n_pad, device, region.cacheable))
     return hpair[0], tuple(cols_dev)
+
+
+def _fused_block_inputs(region: RegionView, scan, device: torch.device):
+    """(handles per block, per column its pairs per block, live rows per
+    block, block count) for the fused multi-block program."""
+    bounds = _block_bounds(region.entry.n)
+    handles_blocks = []
+    cols_blocks: list[list] = [[] for _ in scan.columns]
+    for bi, (lo, hi) in enumerate(bounds):
+        h, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
+        handles_blocks.append(h)
+        for ci, pair in enumerate(cols_dev):
+            cols_blocks[ci].append(pair)
+    nvalids = tuple(hi - lo for lo, hi in bounds)
+    return tuple(handles_blocks), tuple(tuple(cb) for cb in cols_blocks), nvalids, len(bounds)
+
+
+def _delta_device_inputs(region: RegionView, scan, device: torch.device):
+    """The delta operand on ``device``: its sorted handles (pads hold
+    int64-max, so a search into them stays legal), its tombstones and its
+    lanes per scan column, all padded to the fixed capacity so every delta
+    size runs one program. LRU-cached under the "d" unit and the delta's
+    version when the delta covers the region head (``delta.complete``).
+    An int64 lane is narrowed to int32 when base and delta together fit, as
+    its base blocks are; otherwise it ships int64 and the program widens
+    the base lane to match before it concatenates (``dag_kernel``).
+    → (handles, column pairs, tombstones)."""
+    delta = region.delta
+    D = _delta_cap()
+    cache = region.cache
+    lru = _device_lru(cache, device)
+    base = (region.region_id, scan.table_id)
+    cacheable = delta.complete
+
+    def key(slot):
+        return base + (slot, "d", delta.data_version, cache.epoch, D)
+
+    dh_pair = _device_put_col(
+        lru, key(-1), lambda: (delta.handles, np.ones(delta.n, bool)), D, device, cacheable, pad=_I64_MAX
+    )
+    tomb_pair = _device_put_col(lru, key(-2), lambda: (delta.tomb, np.ones(delta.n, bool)), D, device, cacheable)
+    view = _BinderView(region.entry, delta)
+    cols_dev = []
+    for c in scan.columns:
+        if c.is_handle:
+            cols_dev.append(dh_pair)
+            continue
+
+        def mk(cid=c.column_id):
+            data, valid = delta.cols[cid]
+            return _narrowed(view, cid, data), valid
+
+        cols_dev.append(_device_put_col(lru, key(c.column_id), mk, D, device, cacheable))
+    return dh_pair[0], tuple(cols_dev), tomb_pair[0]
+
+
+def _delta_args(region: RegionView, scan, device: torch.device, u_lo: int, u_hi: int):
+    """The program's trailing delta arguments: the operand and the counts
+    ``(mask_n, union_lo, union_hi)`` — every program masks against the
+    whole delta and unions only rows [union_lo, union_hi)."""
+    dh, dcols, dtomb = _delta_device_inputs(region, scan, device)
+    return dh, dcols, dtomb, (region.delta.n, u_lo, u_hi)
 
 
 def _fused_block_inputs(region: RegionView, scan, device: torch.device):
@@ -398,18 +538,20 @@ def _run_whole(get, run, agg_cap: int, cap_max: int, stats: dict):
 def _exec_single(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
     """One padded array per column, one program run: a region of at most one
     device block, or a complete-mode aggregation."""
-    entry = region.entry
+    entry, delta = region.entry, region.delta
     n_pad = bucket_size(max(entry.n, 1))
-    agg_cap = min(_DEFAULT_AGG_CAP, n_pad) if kernel_needs_agg(bound) else _DEFAULT_AGG_CAP
-    fs = _covers_all(rarr, entry)
+    dcap = _delta_cap() if delta is not None else 0
+    agg_cap = min(_DEFAULT_AGG_CAP, n_pad + dcap) if kernel_needs_agg(bound) else _DEFAULT_AGG_CAP
+    fs = _covers_all(rarr, entry, delta)
     stats["path"] = "single"
 
     def run(kernel):
         handles_dev, cols_dev = _device_inputs(region, scan, "s", 0, entry.n, n_pad, device)
-        return kernel.fn(handles_dev, cols_dev, rarr, entry.n)
+        dargs = () if delta is None else _delta_args(region, scan, device, 0, delta.n)
+        return kernel.fn(handles_dev, cols_dev, rarr, entry.n, *dargs)
 
     kernel, buf, fbuf = _run_whole(
-        lambda cap: get_kernel(bound, n_pad, cap, full_scan=fs), run, agg_cap, n_pad, stats
+        lambda cap: get_kernel(bound, n_pad, cap, full_scan=fs, delta_cap=dcap), run, agg_cap, n_pad + dcap, stats
     )
     _emit_kernel_warnings(buf, kernel, warn)
     return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
@@ -418,14 +560,16 @@ def _exec_single(region: RegionView, dag, bound, scan, rarr, device: torch.devic
 def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
     """An aggregation-last DAG over a region of several blocks: one program
     over every block, one dispatch, no merge of per-block partials."""
-    entry = region.entry
+    entry, delta = region.entry, region.delta
     handles_blocks, cols_blocks, nvalids, nb = _fused_block_inputs(region, scan, device)
-    n_total = nb * _BLOCK
+    dcap = _delta_cap() if delta is not None else 0
+    dargs = () if delta is None else _delta_args(region, scan, device, 0, delta.n)
+    n_total = nb * _BLOCK + dcap
     agg_cap = min(_DEFAULT_AGG_CAP, n_total)
-    fs = _covers_all(rarr, entry)
+    fs = _covers_all(rarr, entry, delta)
     kernel, buf, fbuf = _run_whole(
-        lambda cap: get_kernel(bound, _BLOCK, cap, nb=nb, full_scan=fs),
-        lambda kernel: kernel.fn(handles_blocks, cols_blocks, rarr, nvalids),
+        lambda cap: get_kernel(bound, _BLOCK, cap, nb=nb, full_scan=fs, delta_cap=dcap),
+        lambda kernel: kernel.fn(handles_blocks, cols_blocks, rarr, nvalids, *dargs),
         agg_cap,
         n_total,
         stats,
@@ -438,28 +582,38 @@ def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch
 def _exec_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
     """A region of several blocks, one program per block: aggregations and
     TopN run every block and copy the stacked results once; a LIMIT-last DAG
-    pages through the blocks."""
-    entry = region.entry
+    pages through the blocks. With a delta, every block masks against the
+    whole delta and unions the delta rows inside its own handle span."""
+    entry, delta = region.entry, region.delta
     bounds = _block_bounds(entry.n)
     limit_last = dag.executors[-1].tp == dagpb.LIMIT
     stats["path"] = "paged limit" if limit_last else "per-block stacked"
+    dcap = _delta_cap() if delta is not None else 0
+    dcuts = None
+    if delta is not None:
+        # delta handles are sorted, so block bi unions the contiguous slice
+        # [dcuts[bi], dcuts[bi + 1]) (block 0 reaches back to -inf, the last
+        # block forward to +inf): block outputs stay in handle order
+        starts = np.asarray([entry.handles[lo] for lo, _hi in bounds[1:]], dtype=np.int64)
+        dcuts = [0] + [int(c) for c in np.searchsorted(delta.handles, starts)] + [delta.n]
     agg_cap = _DEFAULT_AGG_CAP
-    fs = _covers_all(rarr, entry)
+    fs = _covers_all(rarr, entry, delta)
     while True:
-        kernel = get_kernel(bound, _BLOCK, agg_cap, full_scan=fs)
+        kernel = get_kernel(bound, _BLOCK, agg_cap, full_scan=fs, delta_cap=dcap)
         stats["routes"] = kernel.routes
 
         def run_block(bi: int):
             lo, hi = bounds[bi]
             handles_dev, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
-            return kernel.fn(handles_dev, cols_dev, rarr, hi - lo)
+            dargs = () if delta is None else _delta_args(region, scan, device, dcuts[bi], dcuts[bi + 1])
+            return kernel.fn(handles_dev, cols_dev, rarr, hi - lo, *dargs)
 
         if limit_last:
             out = _blocks_paged_limit(run_block, len(bounds), kernel, dag, region.cache, scan, warn)
         else:
             out = _blocks_stacked(run_block, len(bounds), kernel, dag, region.cache, scan, warn)
         if out is None:  # agg overflow in some block
-            agg_cap = min(agg_cap * 4, _BLOCK)
+            agg_cap = min(agg_cap * 4, _BLOCK + dcap)
             stats["regrows"] += 1
             continue
         return out

@@ -1,6 +1,6 @@
 """The fused DAG program (port of tidb_tpu/ops/dag_kernel.py).
 
-One program per (DAG, padded rows per block, agg cap, blocks): scan →
+One program per (DAG, padded rows per block, agg cap, blocks, delta cap): scan →
 selection* → aggregation / TopN / LIMIT / PROJECTION over one region's
 padded columns, packed into one int64 buffer (and a float64 one when a lane
 is floating) whose row 0 is the meta row ``[count, ngroups]``. PyTorch runs
@@ -23,12 +23,22 @@ Routes ported, chosen by the reference's rule and constants:
 - TopN: the single-key top-k with the rank-code key that packs the row
   position into the value (exact ties), else a stable lexicographic sort.
   LIMIT: the first live rows by a top-k on the negated position.
+- WITH ROLLUP: every grouping set in one pass, each set owning a window
+  of the bucket space and each row one bucket per window, so the int8 dot's
+  one-hot becomes (G+1)-hot (``_rollup_layout``).
 - Several blocks (``nb > 1``): the blocks concatenate into one program with
   a per-block live mask, or, for an aggregation the int8 dot provably
   carries, accumulate one limb matrix per block (``_blockwise_dot``).
+- The delta operand (``delta_cap`` > 0): committed changes pending on the
+  region's pinned entry, padded to a fixed capacity. The program masks
+  the base rows whose handles it holds, unions its live rows after the
+  base rows, and ranks every row in ascending-handle order (``hrank``) so
+  that first_row, the sort and TopN tie-breaks, LIMIT and row compaction
+  follow the host engine's scan order. The rows in one program are then
+  ``n_pad * nb + delta_cap``, and the routes read that count.
 
-Complete-mode finalize, ROLLUP, WINDOW and the delta operand raise
-``UnsupportedForDevice`` when the program is built.
+Complete-mode finalize and WINDOW raise ``UnsupportedForDevice`` when the
+program is built.
 """
 
 from __future__ import annotations
@@ -125,6 +135,27 @@ def _key_doms(group_exprs, scan):
         else:
             return None
     return doms
+
+
+def _rollup_layout(group_exprs, scan):
+    """The static grouping-set layout of WITH ROLLUP: the prefix sets
+    (g1..gG), ..., (g1), () each own a window of the bucket space, widest
+    first → {"doms", "G", "windows": [(k, offset, B_k, strides)],
+    "B_total"}, or None when a key has no dictionary domain."""
+    doms = _key_doms(group_exprs, scan)
+    if doms is None:
+        return None
+    windows = []
+    off = 0
+    for k in range(len(doms), -1, -1):
+        stride = 1
+        strides = []
+        for dom in reversed(doms[:k]):
+            strides.append(stride)
+            stride *= dom + 1
+        windows.append((k, off, stride, list(reversed(strides))))
+        off += stride
+    return {"doms": doms, "G": len(doms), "windows": windows, "B_total": off}
 
 
 def _has_bit(aggs) -> bool:
@@ -234,6 +265,13 @@ def _lex_perm(lanes):
     return perm
 
 
+def _cat_lane(d: torch.Tensor, dd: torch.Tensor) -> torch.Tensor:
+    """Base lane ++ delta lane in their common dtype: a base lane stored
+    as int32 widens when a delta value lies outside the int32 envelope."""
+    dt = torch.promote_types(d.dtype, dd.dtype)
+    return torch.cat([d.to(dt), dd.to(dt)])
+
+
 def _hier_top_k(vals: torch.Tensor, K: int):
     """Two-level top-k: per-row top-k on an (R, C) reshape plus a small
     second-level top-k. Exact: one row can contribute at most K rows to the
@@ -253,13 +291,13 @@ def _hier_top_k(vals: torch.Tensor, K: int):
 
 
 def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_scan: bool = False, delta_cap: int = 0) -> CompiledKernel:
-    if delta_cap:
-        raise UnsupportedForDevice("the delta operand is not ported")
     executors = dag.executors
     scan = executors[0]
     if scan.tp != dagpb.TABLE_SCAN:
         raise UnsupportedForDevice(f"{scan.tp} scans are not ported")
-    n = n_pad * nb  # rows in one program: every block of a fused region
+    D = delta_cap
+    n_total = n_pad * nb  # base rows: every block of a fused region
+    n = n_total + D  # rows in one program once the delta unions in
     # parse every executor and fix every route now: the program raises
     # before it touches the device, never halfway through a run
     parsed: list = []
@@ -269,12 +307,22 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         elif ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG):
             if ex.agg_mode == dagpb.AGG_COMPLETE:
                 raise UnsupportedForDevice("complete-mode finalize is not ported")
-            if getattr(ex, "rollup", False):
-                raise UnsupportedForDevice("ROLLUP is not ported")
             group_exprs = [expr_from_pb(g) for g in ex.group_by]
             aggs = [AggDesc.from_pb(a) for a in ex.aggs]
             if any("group_concat" in a.partial_kinds for a in aggs):
                 raise UnsupportedForDevice("group_concat has no partial state to push down")
+            if getattr(ex, "rollup", False):
+                # WITH ROLLUP runs only as the (G+1)-hot int8 dot; the
+                # binder gates the same conditions (_gate_device_rollup)
+                layout = _rollup_layout(group_exprs, scan)
+                if (
+                    layout is None
+                    or layout["B_total"] > _DOT_MAX_B
+                    or not _mxu_aggs_ok(aggs, getattr(ex, "arg_bounds", ()))
+                ):
+                    raise UnsupportedForDevice("device rollup needs dictionary-domain keys and bounded sums")
+                parsed.append((group_exprs, aggs, "rollup", layout))
+                continue
             route, doms = agg_route(ex, group_exprs, aggs, scan, n, agg_cap)
             parsed.append((group_exprs, aggs, route, doms))
         elif ex.tp == dagpb.TOPN:
@@ -297,12 +345,17 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         out_n = min(n, max(32, 1 << max(lim - 1, 0).bit_length()))
     # a multi-block [scan, selection*, agg-last] DAG whose aggregation rides
     # the int8 dot accumulates one limb matrix per block instead of
-    # concatenating the blocks (the reference's _static_dot_route, :522)
+    # concatenating the blocks (the reference's _static_dot_route, :522);
+    # the delta operand has no per-block shape, so it takes the concat path
     blockwise = (
         nb > 1
+        and not D
         and agg_is_last
         and all(ex.tp == dagpb.SELECTION for ex in executors[1:-1])
-        and parsed[-1][2] == "dot"
+        and (
+            parsed[-1][2] == "dot"
+            or (parsed[-1][2] == "rollup" and parsed[-1][3]["B_total"] <= min(agg_cap, _DOT_MAX_B))
+        )
     )
     routes = tuple(p[2] for ex, p in zip(executors[1:], parsed) if ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG))
 
@@ -423,6 +476,54 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         out_cap = min(B, agg_cap)
         return [o[order][:out_cap] for o in out_data], [o[order][:out_cap] for o in out_valid], ngroups
 
+    def _rollup_segs(layout, gvals, mask, nn, dev):
+        # per grouping set a global bucket lane (window offset + local
+        # bucket); dead rows point past every window
+        B_total = layout["B_total"]
+        segs = []
+        for k, off, b_k, strides in layout["windows"]:
+            seg_dtype = torch.int32 if all(d.dtype == torch.int32 for d, _ in gvals[:k]) else torch.int64
+            seg = torch.zeros(nn, dtype=seg_dtype, device=dev)
+            for (d, v), dom, st in zip(gvals[:k], layout["doms"][:k], strides):
+                seg = seg + torch.where(v, d, dom) * st  # NULLs → their own bucket
+            segs.append((torch.where(mask, seg + off, B_total).to(torch.int32), off, off + b_k))
+        return segs
+
+    def _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev):
+        # bucket lanes → [agg partials, keys (NULL where rolled up), GROUPING
+        # flags], compacted to the occupied buckets
+        B_total, doms = layout["B_total"], layout["doms"]
+        out_data, out_valid = [], []
+        for a, li in zip(aggs, lane_of_agg):
+            cnt = counts[:, li]
+            for pk in a.partial_kinds:
+                out_data.append(cnt if pk == "count" else sums[:, li])  # sum (gated by _mxu_aggs_ok)
+                out_valid.append(torch.ones(B_total, dtype=torch.bool, device=dev) if pk == "count" else cnt > 0)
+        occupied = counts[:, occ_lane] > 0
+        flags = []  # the flags follow every key
+        for j in range(layout["G"]):
+            dparts, vparts, fparts = [], [], []
+            for k, off, b_k, strides in layout["windows"]:
+                if j < k:
+                    code = (torch.arange(b_k, device=dev) // strides[j]) % (doms[j] + 1)
+                    kv = (code != doms[j]) & occupied[off : off + b_k]
+                    dparts.append(torch.where(kv, code, 0))
+                    vparts.append(kv)
+                    fparts.append(torch.zeros(b_k, dtype=torch.int64, device=dev))
+                else:  # rolled-up key: NULL, flag 1
+                    dparts.append(torch.zeros(b_k, dtype=torch.int64, device=dev))
+                    vparts.append(torch.zeros(b_k, dtype=torch.bool, device=dev))
+                    fparts.append(torch.ones(b_k, dtype=torch.int64, device=dev))
+            out_data.append(torch.cat(dparts))
+            out_valid.append(torch.cat(vparts))
+            flags.append(torch.cat(fparts))
+        for f in flags:
+            out_data.append(f)
+            out_valid.append(torch.ones(B_total, dtype=torch.bool, device=dev))
+        order = torch.argsort(_sortable(~occupied), stable=True)
+        out_cap = min(B_total, agg_cap)
+        return [o[order][:out_cap] for o in out_data], [o[order][:out_cap] for o in out_valid], occupied.sum()
+
     def _collect_aggs(aggs, eval_arg, reducers, first_pos, first_pos_c, ones_n, dev):
         # the per-partial-kind switch both reduction paths share;
         # reducers(d, v) returns the path's reduce callables
@@ -463,7 +564,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             return _bcast(d, n, dev), _vmask(v, n, dev)
         return torch.ones(n, dtype=torch.int64, device=dev), torch.ones(n, dtype=torch.bool, device=dev)
 
-    def _eqmask_agg(aggs, doms, gvals, batch, mask, dev):
+    def _eqmask_agg(aggs, doms, gvals, batch, mask, hrank, dev):
         B = _dense_b_total(doms)
         seg_dtype = torch.int32 if gvals and all(d.dtype == torch.int32 for d, _ in gvals) else torch.int64
         seg = torch.zeros(n, dtype=seg_dtype, device=dev)
@@ -476,7 +577,13 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         onehot = seg[None, :] == torch.arange(B, dtype=seg.dtype, device=dev)[:, None]  # (B, n)
         livem = onehot & mask[None, :]
         live = livem.sum(dim=1) > 0
-        first_pos = torch.where(livem, pos[None, :], n).amin(dim=1)
+        if hrank is not None:
+            # first_row and the key come from the group's lowest-handle row
+            # (the host engine's scan order): delta rows sit at the tail
+            minr = torch.where(livem, hrank[None, :], n).amin(dim=1)
+            first_pos = torch.where(livem & (hrank[None, :] == minr[:, None]), pos[None, :], n).amin(dim=1)
+        else:
+            first_pos = torch.where(livem, pos[None, :], n).amin(dim=1)
         first_pos_c = first_pos.clamp(0, n - 1).to(torch.int64)
 
         def reducers(d, v):
@@ -505,13 +612,15 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         out_cap = min(B, agg_cap)
         return [o[order][:out_cap] for o in out_data], [o[order][:out_cap] for o in out_valid], ngroups
 
-    def _lex_agg(aggs, gvals, batch, mask, dev):
+    def _lex_agg(aggs, gvals, batch, mask, hrank, dev):
         # stable sort by (live first, then per key: NULL last, value); each
         # group becomes one contiguous run, dead rows trail the last group
         lanes = [~mask]
         for d, v in gvals:
             lanes.append(~v)
             lanes.append(d)
+        if hrank is not None:
+            lanes.append(hrank)  # within a group: handle order (first_row)
         perm = _lex_perm(lanes)
         sm = mask[perm]
         diff = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -601,7 +710,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             counts, sums = grouped_sums(seg32, pairs, B, n, pair_bounds, device=dev)
         return _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
 
-    def _topn(ex, order, limit, batch, mask, dev):
+    def _topn(ex, order, limit, batch, mask, hrank, dev):
         cur_n = batch.n
         if len(order) == 1 and out_n <= 4096 and order[0][0].ftype.kind in _TOPK_KINDS:
             # single key: two top-k candidate pulls (value rows, NULL rows)
@@ -630,11 +739,12 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 if span * (cur_n + 1) <= (1 << 62):
                     code = (d - lo_ + 1).clamp(1, span - 1)
                     rank_code = code if desc else span - code
-                    pidx = torch.arange(cur_n, device=dev)
+                    # ties rank by handle order (the row position without a delta)
+                    pidx = hrank if hrank is not None else torch.arange(cur_n, device=dev)
                     vkey = torch.where(mask & v, rank_code * cur_n + (cur_n - 1 - pidx), _I64_MIN)
             _, idx_val = _hier_top_k(vkey, K)
-            # NULL rows in first-index order: the key is the unique position
-            pos_n = torch.arange(cur_n, dtype=torch.int32, device=dev)
+            # NULL rows in handle order: the key is the unique position or rank
+            pos_n = hrank if hrank is not None else torch.arange(cur_n, dtype=torch.int32, device=dev)
             _, idx_null = _hier_top_k(torch.where(mask & ~v, -pos_n, _I32_MIN), K)
             cand = torch.cat([idx_val, idx_null])
             # a top-k slot past the true count points at an arbitrary row
@@ -643,7 +753,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             ones_k = torch.ones(K, dtype=torch.int64, device=dev)
             tier = torch.cat([zeros_k, ones_k]) if desc else torch.cat([ones_k, zeros_k])  # ASC: NULLs first
             ckey = torch.where(live_c, key[cand], 0)
-            perm2 = _lex_perm([~live_c, tier, -ckey if isf else ~ckey, cand])
+            tie = hrank[cand] if hrank is not None else cand
+            perm2 = _lex_perm([~live_c, tier, -ckey if isf else ~ckey, tie])
             head = cand[perm2[:K]]
         else:
             lanes = [~mask]
@@ -657,14 +768,16 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 else:
                     lanes.append(v)  # NULLs first
                     lanes.append(torch.where(v, d, 0))
+            if hrank is not None:
+                lanes.append(hrank)  # ties in handle order
             head = _lex_perm(lanes)[: min(out_n, cur_n)]
         return _take(batch, head, mask, limit, dev)
 
-    def _limit(limit, batch, mask, dev):
-        # the first live rows in position order, O(n): the key is the unique
-        # negated position, so top-k ties cannot arise among live rows
+    def _limit(limit, batch, mask, hrank, dev):
+        # the first live rows in handle order, O(n): the key is the unique
+        # negated position (or handle rank), so top-k ties cannot arise
         cur_n = batch.n
-        pos = torch.arange(cur_n, dtype=torch.int32, device=dev)
+        pos = hrank if hrank is not None else torch.arange(cur_n, dtype=torch.int32, device=dev)
         _, head = _hier_top_k(torch.where(mask, -pos, _I32_MIN), min(out_n, cur_n))
         return _take(batch, head, mask, limit, dev)
 
@@ -727,9 +840,10 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
     def _blockwise_dot(handles_blocks, cols_blocks, ranges, nvalid):
         # one (B, C) limb accumulator carried across the blocks: no
         # concatenation of the region's columns
-        group_exprs, aggs, _route, doms = parsed[-1]
+        group_exprs, aggs, route, doms = parsed[-1]
         agg_ex = executors[-1]
-        B = _dense_b_total(doms)
+        layout = doms if route == "rollup" else None
+        B = layout["B_total"] if layout is not None else _dense_b_total(doms)
         dev = handles_blocks[0].device
         acc = plan = strides = lane_of_agg = occ_lane = n_pairs = None
         for b in range(nb):
@@ -739,7 +853,11 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             for ex, pre in zip(executors[1:-1], parsed[:-1]):
                 mask_b = _select(ex, pre, batch_b, batch_nw_b, mask_b, n_pad, dev)
             gvals_b = _group_vals(agg_ex, group_exprs, batch_b, batch_nw_b, n_pad, dev)
-            seg, strides_b = _mxu_seg(gvals_b, doms, mask_b, B, n_pad, dev)
+            if layout is not None:
+                seg, strides_b = _rollup_segs(layout, gvals_b, mask_b, n_pad, dev), None
+            else:
+                seg, strides_b = _mxu_seg(gvals_b, doms, mask_b, B, n_pad, dev)
+                seg = seg.to(torch.int32)
             pairs, pair_bounds, lane_of_agg, occ_lane = _mxu_pairs(
                 aggs, getattr(agg_ex, "arg_bounds", ()), getattr(agg_ex, "arg_narrow", ()),
                 batch_b, batch_nw_b, mask_b, n_pad, dev,
@@ -750,27 +868,85 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 plan = dot_plan(pairs, pair_bounds)
                 strides = strides_b
                 n_pairs = len(pairs)
-            acc = dot_acc(seg.to(torch.int32), pairs, B, n_pad, plan, acc)
+            acc = dot_acc(seg, pairs, B, n_pad, plan, acc)
         counts, sums = dot_recombine(acc, plan, n_pairs, B)
-        out_data, out_valid, ngroups = _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
+        if layout is not None:
+            out_data, out_valid, ngroups = _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev)
+        else:
+            out_data, out_valid, ngroups = _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
         return _pack_groups(out_data, out_valid, ngroups, dev)
 
-    def kernel(handles, cols, ranges, nvalid):
+    def _rollup_agg(ex, aggs, layout, gvals, batch, batch_nw, mask, dev):
+        # every grouping set in one (G+1)-hot int8 dot over the rows
+        segs = _rollup_segs(layout, gvals, mask, n, dev)
+        pairs, pair_bounds, lane_of_agg, occ_lane = _mxu_pairs(
+            aggs, getattr(ex, "arg_bounds", ()), getattr(ex, "arg_narrow", ()), batch, batch_nw, mask, n, dev
+        )
+        plan = dot_plan(pairs, pair_bounds)
+        acc = dot_acc(segs, pairs, layout["B_total"], n, plan)
+        counts, sums = dot_recombine(acc, plan, len(pairs), layout["B_total"])
+        return _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev)
+
+    def _fold_delta(handles, handles_blocks, live, cols, nvalid, dh, dcols, dtomb, dn):
+        # dn = (mask_n, union_lo, union_hi): every program masks against the
+        # whole delta, and only rows [union_lo, union_hi) union in
+        mask_n, u_lo, u_hi = (int(x) for x in dn)
+        dev = handles.device
+        dh = dh.to(torch.int64)  # sorted; pads hold int64-max
+        # 1) a base row whose handle the delta holds is superseded (updated
+        # or deleted): the delta carries the fresh verdict
+        pos = torch.searchsorted(dh, handles)
+        posc = pos.clamp(0, D - 1)
+        live = live & ~((dh[posc] == handles) & (posc < mask_n))
+        # 2) hrank: each row's place in ascending-handle order over base and
+        # delta. A base row's rank is its live index plus the delta handles
+        # before it; a delta row's is its index plus the live base handles
+        # at or before it (base first on equal handles)
+        if nb > 1:
+            nv = torch.as_tensor(nvalid, dtype=torch.int32)
+            offs = (torch.cumsum(nv, 0) - nv).to(dev)
+            iota = torch.arange(n_total, dtype=torch.int32, device=dev)
+            li = (iota % n_pad) + offs[iota // n_pad]
+            cntb = torch.zeros(D, dtype=torch.int32, device=dev)
+            blk = torch.arange(n_pad, device=dev)
+            for b in range(nb):
+                hb = torch.where(blk < int(nvalid[b]), handles_blocks[b].to(torch.int64), _I64_MAX)
+                cntb += torch.searchsorted(hb, dh, right=True).to(torch.int32)
+        else:
+            li = torch.arange(n_total, dtype=torch.int32, device=dev)
+            hsrt = torch.where(li < int(nvalid), handles, _I64_MAX)
+            cntb = torch.searchsorted(hsrt, dh, right=True).to(torch.int32)
+        diota = torch.arange(D, dtype=torch.int32, device=dev)
+        hrank = torch.cat([li + pos.to(torch.int32), diota + cntb])
+        # 3) union the fresh rows (tombstones only mask, never union); a
+        # narrow base lane widens to its delta lane's dtype
+        dlive = (diota >= u_lo) & (diota < u_hi) & ~dtomb
+        cols = tuple(
+            (_cat_lane(d, dd), torch.cat([v, dv])) for (d, v), (dd, dv) in zip(cols, dcols)
+        )
+        return torch.cat([handles, dh]), torch.cat([live, dlive]), cols, hrank
+
+    def kernel(handles, cols, ranges, nvalid, dh=None, dcols=None, dtomb=None, dn=None):
+        handles_blocks = None
         if nb > 1:
             if blockwise:
                 return _blockwise_dot(handles, cols, ranges, nvalid)
             # the fused program: blocks concatenate, each block's padding
             # stays at its tail and is masked by the block's own count
+            handles_blocks = handles
             dev = handles[0].device
             handles = torch.cat(handles)
             cols = tuple((torch.cat([p[0] for p in c]), torch.cat([p[1] for p in c])) for c in cols)
-            iota = torch.arange(n, dtype=torch.int32, device=dev)
+            iota = torch.arange(n_total, dtype=torch.int32, device=dev)
             nv = torch.as_tensor(nvalid, dtype=torch.int32).to(dev)
             live = (iota % n_pad) < nv[iota // n_pad]
         else:
             dev = handles.device
-            live = torch.arange(n, device=dev) < nvalid
+            live = torch.arange(n_total, device=dev) < nvalid
         handles = handles.to(torch.int64)
+        hrank = None  # rows' handle order where it differs from their position
+        if D:
+            handles, live, cols, hrank = _fold_delta(handles, handles_blocks, live, cols, nvalid, dh, dcols, dtomb, dn)
         mask = live if full_scan else _range_mask(handles, ranges, live)  # full_scan: coverage proven
         batch, batch_nw = _batches(cols, n)
         kind = "rows"
@@ -784,10 +960,12 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             if ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG):
                 group_exprs, aggs, route, doms = pre
                 gvals = _group_vals(ex, group_exprs, batch, batch_nw, n, dev)
-                if route == "eqmask":
-                    out_data, out_valid, ngroups = _eqmask_agg(aggs, doms, gvals, batch, mask, dev)
+                if route == "rollup":
+                    out_data, out_valid, ngroups = _rollup_agg(ex, aggs, doms, gvals, batch, batch_nw, mask, dev)
+                elif route == "eqmask":
+                    out_data, out_valid, ngroups = _eqmask_agg(aggs, doms, gvals, batch, mask, hrank, dev)
                 elif route == "lex":
-                    out_data, out_valid, ngroups = _lex_agg(aggs, gvals, batch, mask, dev)
+                    out_data, out_valid, ngroups = _lex_agg(aggs, gvals, batch, mask, hrank, dev)
                 else:
                     out_data, out_valid, ngroups = _dense_agg(aggs, route, doms, gvals, ex, batch, batch_nw, mask, dev)
                 out_len = int(out_data[0].shape[0])
@@ -796,14 +974,17 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 batch = EvalBatch(list(zip(out_data, out_valid)), [None] * len(out_data), out_len)
                 mask = gvalid_slot
                 kind = "agg"
+                hrank = None  # rows rebuilt: no longer the scan's
             elif ex.tp == dagpb.TOPN:
                 order, limit = pre
-                batch, mask, count = _topn(ex, order, limit, batch, mask, dev)
+                batch, mask, count = _topn(ex, order, limit, batch, mask, hrank, dev)
                 kind = "rows"
+                hrank = None
             elif ex.tp == dagpb.LIMIT:
-                batch, mask, count = _limit(pre, batch, mask, dev)
+                batch, mask, count = _limit(pre, batch, mask, hrank, dev)
                 kind = "rows"
-            else:  # PROJECTION
+                hrank = None
+            else:  # PROJECTION: the same rows, hrank still holds
                 batch = _project(pre, batch, dev)
             batch_nw = batch  # lanes rebuilt: the storage-dtype view is stale
 
@@ -814,8 +995,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             return _pack([batch.cols[i] for i in offsets], ngroups, og, dev)
         cur_n = batch.n
         if count is None:
-            # compact selected rows to the front
-            perm = torch.argsort(_sortable(~mask), stable=True)
+            # compact selected rows to the front, in handle order
+            perm = _lex_perm([~mask, hrank]) if hrank is not None else torch.argsort(_sortable(~mask), stable=True)
             count = torch.clamp(mask.sum(), max=out_n)
             outs = [(_bcast(d, cur_n, dev)[perm][:out_n], _vmask(v, cur_n, dev)[perm][:out_n]) for d, v in batch.cols]
             return _pack([outs[i] for i in offsets], count, og, dev)

@@ -22,8 +22,9 @@ MAX_B = 64  # the one-hot is materialized (B, chunk) int8
 
 
 def rollup_bucket_space(doms) -> int:
-    """Total bucket-window space of WITH ROLLUP's prefix grouping sets (the
-    binder's device gate reads it; the rollup kernel is not ported)."""
+    """Total bucket-window space of WITH ROLLUP's prefix grouping sets: the
+    binder's device gate reads it, and the program's (G+1)-hot dot
+    (``dag_kernel._rollup_layout``) spans exactly this many buckets."""
     total = 0
     for k in range(len(doms), -1, -1):
         b_k = 1
@@ -94,9 +95,13 @@ def _pad8(x: int) -> int:
 
 def dot_acc(seg, pairs, B: int, n: int, plan, acc=None):
     """Accumulate one batch's grouped int8 products into ``acc`` (B, C)
-    int64, chunked so the int32 accumulator never overflows."""
+    int64, chunked so the int32 accumulator never overflows. ``seg`` may
+    be a list of grouping-set windows ``(seg lane, lo, hi)``: each row then
+    falls in one bucket of each window, and the one-hot becomes one-hot per
+    window — every grouping set of a ROLLUP in the same product."""
     plans, col_specs, _w_col_of, _limb_cols_of, C = plan
-    dev = seg.device
+    windows = seg if isinstance(seg, list) else [(seg, 0, B)]
+    dev = windows[0][0].device
 
     def build_cols(sl):
         cols = []
@@ -137,7 +142,8 @@ def dot_acc(seg, pairs, B: int, n: int, plan, acc=None):
         rows = sl.stop - sl.start
         k_pad = _pad8(rows)
         onehot = torch.zeros(B_pad, k_pad, dtype=torch.int8, device=dev)
-        onehot[:B, :rows] = (seg[sl][None, :] == bidx[:, None]).to(torch.int8)
+        for s, lo, hi in windows:
+            onehot[lo:hi, :rows] = (s[sl][None, :] == bidx[lo:hi, None]).to(torch.int8)
         limbs = torch.zeros(C_pad, k_pad, dtype=torch.int8, device=dev)
         limbs[:C, :rows] = build_cols(sl)
         # (C, rows) row-major transposed = (rows, C) column-major: the int8
