@@ -54,10 +54,24 @@
    and the host engine's median of 3, and the delta operand's bytes and
    upload time; then the compactor folds the deltas and the statements
    equal the oracle again.
-7. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
-   count over its single drive; ``launches_dag_path`` and
-   ``launches_delta_path`` the DAG and HTAP phases'), then, last, the
-   ``{"ok": true, "device": {...}}`` line.
+7. The device builtins, on the same database with the writes folded in:
+   the seven statements of ``BUILTIN_QUERIES`` (Q12's and Q19's lineitem
+   predicates, GROUP BY YEAR and YEAR, MONTH, the band query under NOT,
+   =, OR and IS NULL, DIV/%/ABS/ROUND/CAST, BIT_COUNT/>>/SQRT/LN) once
+   cold and ten times warm; each must equal its numpy oracle on ``gpu``,
+   none degraded, with bytes copied off the card, and K1 must launch
+   during ``bandf``. Prints per statement its tasks' paths and routes, the
+   warm median, the summed and longest cop-task walls and the host
+   engine's median of 3. Then every gpu-legal builtin (91), each argument
+   signature of ``BUILTIN_CASES``, runs over 4,194,304-row lanes on the
+   card against the same body in numpy on the host, printed as one
+   ``{"builtins": {...}}`` line (names exact, names within tolerance,
+   the worst float distance in ulps).
+8. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+   count over its single drive; ``launches_dag_path``,
+   ``launches_delta_path`` and ``launches_builtins_path`` the DAG, HTAP
+   and builtins phases'), then, last, the ``{"ok": true, "device":
+   {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -394,14 +408,16 @@ def lineitem_keys(rng, partkey: np.ndarray, n_supp: int):
 
 
 def lineitem_sf1(seed: int, n: int = SF1_ROWS) -> dict:
-    """The twelve lineitem columns the fixture DAGs read, in TPC-H §4.2.3's
-    domains: quantity 1..50; extendedprice = quantity * retailprice(partkey)
-    over SF1's 200,000 parts; discount 0.00..0.10; tax 0.00..0.08; order
-    date uniform in [1992-01-01, 1998-08-02], ship date 1..121 days later,
-    receipt date 1..30 after that; returnflag R/A if received by 1995-06-17
-    else N; linestatus O if shipped after 1995-06-17 else F; then order
-    key, supplier key (SF1's 10,000 suppliers) and line number
-    (``lineitem_keys``). Each row draws its own order date (the order table
+    """Fourteen lineitem columns in TPC-H §4.2.3's domains: the twelve the
+    fixture DAGs read (quantity 1..50; extendedprice = quantity *
+    retailprice(partkey) over SF1's 200,000 parts; discount 0.00..0.10;
+    tax 0.00..0.08; order date uniform in [1992-01-01, 1998-08-02], ship
+    date 1..121 days later, receipt date 1..30 after that; returnflag R/A
+    if received by 1995-06-17 else N; linestatus O if shipped after
+    1995-06-17 else F; then order key, supplier key (SF1's 10,000
+    suppliers) and line number (``lineitem_keys``)), then the commit date
+    (order date + 30..90 days) and the receipt date, which Q12's
+    predicates read. Each row draws its own order date (the order table
     is not generated). Decimals are scaled integers (DECIMAL(12,2)), dates
     are days since 1970-01-01, strings are codes into the lists above."""
     rng = np.random.default_rng(seed)
@@ -426,6 +442,9 @@ def lineitem_sf1(seed: int, n: int = SF1_ROWS) -> dict:
     }
     # drawn after the nine columns above, which keep their values
     cols[9], cols[10], cols[11] = lineitem_keys(rng, partkey, 10_000)
+    # drawn after the twelve above, which keep their values
+    cols[12] = orderdate + rng.integers(30, 91, n)
+    cols[13] = receipt.astype(np.int64)
     return cols
 
 
@@ -459,7 +478,8 @@ SQL_SCHEMA = """CREATE TABLE lineitem (
     l_discount DECIMAL(12,2), l_tax DECIMAL(12,2),
     l_returnflag VARCHAR(1), l_linestatus VARCHAR(1), l_shipdate DATE,
     l_shipmode VARCHAR(10), l_shipinstruct VARCHAR(25),
-    l_orderkey BIGINT, l_suppkey BIGINT, l_linenumber BIGINT)"""
+    l_orderkey BIGINT, l_suppkey BIGINT, l_linenumber BIGINT,
+    l_commitdate DATE, l_receiptdate DATE)"""
 
 # the reference bench's statements (bench.py: COUNT_STAR, Q6, Q1, Q10), the
 # band query the 160-bucket DAG computes, Q15's revenue view, and Q1's
@@ -494,13 +514,13 @@ SQL_ORDERED = ("q1", "q10")
 
 
 def lineitem_sql(db, bulk_load, record_key, cols: dict, parts: int = 2) -> float:
-    """Create the twelve-column lineitem in ``db`` (a handle opened with no
+    """Create the fourteen-column lineitem in ``db`` (a handle opened with no
     automatic region split), bulk-load the generated ``cols`` (string codes
     decoded to their bytes) and split it into ``parts`` regions at equal
     handle counts (handles 1..n, ``make_regions``' cuts). ``bulk_load`` and
     ``record_key`` are the handle's own package's. → load seconds."""
     db.execute(SQL_SCHEMA)
-    data = [cols[i] for i in range(12)]
+    data = [cols[i] for i in range(len(cols))]
     for slot, values in ((4, RETURNFLAGS), (5, LINESTATUS), (7, SHIPMODES), (8, SHIPINSTRUCTS)):
         data[slot] = np.array(values)[cols[slot]]
     t0 = time.perf_counter()
@@ -536,6 +556,356 @@ def sql_oracle(name: str, c: dict) -> list[tuple]:
 def sql_rows(name: str, rows: list) -> list:
     """A statement's rows in the order ``sql_oracle`` gives them."""
     return list(rows) if name in SQL_ORDERED else sorted(rows, key=repr)
+
+
+# -- the device builtins: seven statements whose filters, keys and arguments
+# need builtins beyond + - * < <= >= (TPC-H Q12's and Q19's lineitem
+# predicates, date parts, NOT/=/OR/IS NULL over the band query, DIV, %,
+# ABS, ROUND, CAST, BIT_COUNT, >>, SQRT, LN); each must plan [gpu]
+BUILTIN_QUERIES = {
+    # Q12's lineitem side; its CASE reads l_linestatus and l_returnflag
+    # (the orders table, whose priority Q12 counts, is not generated)
+    "q12li": """SELECT l_shipmode, SUM(CASE WHEN l_linestatus = 'O' THEN 1 ELSE 0 END),
+    SUM(CASE WHEN l_returnflag = 'R' THEN 1 ELSE 0 END), COUNT(*) FROM lineitem
+  WHERE l_shipmode IN ('MAIL', 'SHIP') AND l_commitdate < l_receiptdate AND l_shipdate < l_commitdate
+    AND l_receiptdate >= DATE '1994-01-01' AND l_receiptdate < DATE '1995-01-01'
+  GROUP BY l_shipmode""",
+    # Q19's lineitem side: the spec's modes ('AIR REG' is not in the data,
+    # whose mode is 'REG AIR'), its instruction and its three quantity ranges
+    "q19li": """SELECT SUM(l_extendedprice * (1 - l_discount)) FROM lineitem
+  WHERE l_shipmode IN ('AIR', 'AIR REG') AND l_shipinstruct = 'DELIVER IN PERSON'
+    AND ((l_quantity >= 1 AND l_quantity <= 11) OR (l_quantity >= 10 AND l_quantity <= 20)
+      OR (l_quantity >= 20 AND l_quantity <= 30))""",
+    "yearly": """SELECT YEAR(l_shipdate), SUM(l_extendedprice * (1 - l_discount)), COUNT(*) FROM lineitem
+  WHERE l_discount <> 0 GROUP BY YEAR(l_shipdate)""",
+    "ym": """SELECT YEAR(l_shipdate), MONTH(l_shipdate), COUNT(*), SUM(l_quantity) FROM lineitem
+  GROUP BY YEAR(l_shipdate), MONTH(l_shipdate)""",
+    # the band query's 160 buckets under a filter: K1's route
+    "bandf": """SELECT l_shipmode, l_shipinstruct, l_returnflag, COUNT(*), SUM(l_quantity), SUM(l_extendedprice)
+  FROM lineitem WHERE NOT (l_quantity = 25) AND (l_tax > 0.02 OR l_discount IS NULL)
+  GROUP BY l_shipmode, l_shipinstruct, l_returnflag""",
+    # 100.00, not 100: the reference's DECIMAL * INT rescales the integer to
+    # the decimal's scale before its raw product (10^scale too large, on
+    # both reference engines); DECIMAL * DECIMAL adds the scales
+    "arith": """SELECT l_returnflag, SUM(l_quantity DIV 10), MAX(ABS(l_extendedprice - 50000)),
+    SUM(ROUND(l_discount * 100.00)), SUM(CAST(l_tax * 100.00 AS SIGNED)), SUM(l_quantity % 7)
+  FROM lineitem GROUP BY l_returnflag""",
+    # integer arguments: the reference's double builtins read a DECIMAL
+    # argument's scaled integer (SQRT(1.00) is 10 on both its engines)
+    "mathbits": """SELECT SUM(BIT_COUNT(l_orderkey)), SUM(l_suppkey >> 3), MAX(SQRT(l_suppkey)), COUNT(*) FROM lineitem
+  WHERE LN(l_linenumber) > 1""",
+}
+FLOAT_REL = 1e-12  # float lanes (SQRT, the math builtins) against numpy
+
+
+def _year_month(days: np.ndarray):
+    m = days.astype("datetime64[D]").astype("datetime64[M]").astype(np.int64)
+    return m // 12 + 1970, m % 12 + 1
+
+
+def builtin_oracle(name: str, c: dict) -> list[tuple]:
+    """``BUILTIN_QUERIES[name]``'s final rows from the generated arrays, in
+    numpy, sorted by ``repr``."""
+    qty, price, disc, tax, rf, ls, ship, mode, instr, okey, skey, line, commit, receipt = (c[i] for i in range(14))
+    smode = [x.decode() for x in SHIPMODES]
+    if name == "q12li":
+        m = np.isin(mode, [SHIPMODES.index(b"MAIL"), SHIPMODES.index(b"SHIP")])
+        m &= (commit < receipt) & (ship < commit)
+        m &= (receipt >= _days(dt.date(1994, 1, 1))) & (receipt < _days(dt.date(1995, 1, 1)))
+        rows = [(smode[k], int((ls[m & (mode == k)] == 1).sum()), int((rf[m & (mode == k)] == 2).sum()),
+                 int((m & (mode == k)).sum())) for k in np.unique(mode[m])]
+    elif name == "q19li":
+        q = qty
+        m = (mode == SHIPMODES.index(b"AIR")) & (instr == SHIPINSTRUCTS.index(b"DELIVER IN PERSON"))
+        m &= ((q >= 100) & (q <= 1100)) | ((q >= 1000) & (q <= 2000)) | ((q >= 2000) & (q <= 3000))
+        rows = [(_dec(int((price[m] * (100 - disc[m])).sum()), 4) if m.any() else None,)]
+    elif name == "yearly":
+        m = disc != 0
+        y, _ = _year_month(ship[m])
+        keys, (rev, cnt) = _by_key(y, (price[m] * (100 - disc[m]), np.add), (np.ones_like(y), np.add))
+        rows = [(int(k), _dec(int(r), 4), int(n_)) for k, r, n_ in zip(keys, rev, cnt)]
+    elif name == "ym":
+        y, mo = _year_month(ship)
+        keys, (cnt, sq) = _by_key(y * 100 + mo, (np.ones_like(y), np.add), (qty, np.add))
+        rows = [(int(k) // 100, int(k) % 100, int(n_), _dec(int(q_), 2)) for k, n_, q_ in zip(keys, cnt, sq)]
+    elif name == "bandf":
+        m = (qty != 2500) & (tax > 2)
+        key = (mode[m].astype(np.int64) * len(SHIPINSTRUCTS) + instr[m]) * len(RETURNFLAGS) + rf[m]
+        keys, (cnt, sq, sp) = _by_key(key, (np.ones_like(key), np.add), (qty[m], np.add), (price[m], np.add))
+        rows = []
+        for b, n_, q_, p_ in zip(keys, cnt, sq, sp):
+            mi, rest = divmod(int(b), len(SHIPINSTRUCTS) * len(RETURNFLAGS))
+            ii, fi = divmod(rest, len(RETURNFLAGS))
+            rows.append((smode[mi], SHIPINSTRUCTS[ii].decode(), RETURNFLAGS[fi].decode(), int(n_),
+                         _dec(int(q_), 2), _dec(int(p_), 2)))
+    elif name == "arith":
+        rows = []
+        for fi, f in enumerate(RETURNFLAGS):
+            m = rf == fi
+            if not m.any():
+                continue
+            rows.append((
+                f.decode(),
+                int((qty[m] // 1000).sum()),  # quantities are positive: DIV truncates as floor does
+                _dec(int(np.abs(price[m] - 5_000_000).max()), 2),
+                _dec(int(disc[m].sum()) * 10_000, 4),  # ROUND of a whole number of hundredths
+                int(tax[m].sum()),
+                _dec(int(((qty[m] // 100) % 7).sum()) * 100, 2),  # whole quantities
+            ))
+    elif name == "mathbits":
+        m = np.log(line.astype(np.float64)) > 1
+        bits = np.unpackbits(okey[m].astype(np.int64).view(np.uint8)).sum()
+        rows = [(int(bits), int((skey[m] >> 3).sum()), float(np.sqrt(skey[m].astype(np.float64)).max()), int(m.sum()))]
+    else:
+        raise KeyError(name)
+    return sorted(rows, key=repr)
+
+
+def rows_match(got: list, want: list, rel: float = FLOAT_REL) -> bool:
+    """Row-for-row equality, floats within a relative ``rel``, everything
+    else exact."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for a, b in zip(g, w):
+            if isinstance(b, float) and isinstance(a, float):
+                if not abs(a - b) <= rel * max(abs(a), abs(b)):
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+# -- every builtin, body by body: generated lanes per argument kind ----------
+# (TypeKind name, length, scale, generator(rng, n)); every lane mixes edges
+# (zero, sign, extremes, Feb 29, month ends) with draws
+
+
+def _g_ints(rng, n):
+    edge = [0, 1, -1, 2, -2, 7, -7, 10, 63, 64, (1 << 31) - 1, -(1 << 31), 1 << 62, -(1 << 62), (1 << 62) - 1]
+    wide = rng.integers(-(1 << 62), 1 << 62, n // 4)
+    mid = rng.integers(-(10**9), 10**9, n // 4)
+    return np.concatenate([edge, wide, mid, rng.integers(-100, 100, n)])[:n].astype(np.int64)
+
+
+def _g_small(rng, n):
+    return np.concatenate([[0, 1, -1, 59, 60, -59], rng.integers(-70, 70, n)])[:n].astype(np.int64)
+
+
+def _g_dec(rng, n, digits):
+    hi = 10**digits
+    edge = [0, 1, -1, hi - 1, -(hi - 1), 50, -50, 149, -149, 150, -150, 5, -5, 10 ** (digits // 2)]
+    return np.concatenate([edge, rng.integers(-hi + 1, hi, n // 2), rng.integers(-10_000, 10_000, n)])[:n].astype(np.int64)
+
+
+def _g_floats(rng, n):
+    edge = [0.0, -0.0, 0.5, -0.5, 1.5, -1.5, 2.5, -2.5, 1.0, -1.0, 0.49999999999999994, 1e300, -1e300,
+            1e-300, 9.3e18, -9.3e18, 9.2e18, 4.5e15, 0.125, 709.0, 710.0, 3.141592653589793,
+            float("nan"), float("inf"), float("-inf")]
+    wide = rng.uniform(-10, 10, n // 2) * 10.0 ** rng.integers(-300, 301, n // 2).astype(np.float64)
+    return np.concatenate([edge, wide, rng.uniform(-1000, 1000, n)])[:n].astype(np.float64)
+
+
+def _g_unit(rng, n):
+    edge = [0.0, 1.0, -1.0, 1.0000000000000002, -1.0000000000000002, 2.0, -2.0, 0.5]
+    return np.concatenate([edge, rng.uniform(-1.2, 1.2, n)])[:n]
+
+
+def _g_days(rng, n):
+    edge = [_days(dt.date(y, m, d)) for y, m, d in (
+        (1, 1, 1), (9999, 12, 31), (1970, 1, 1), (1969, 12, 31), (2000, 2, 29), (1900, 2, 28), (1900, 3, 1),
+        (2024, 2, 29), (2023, 2, 28), (2024, 1, 31), (2024, 12, 31), (2025, 1, 1), (1600, 2, 29), (4, 2, 29),
+        (2021, 1, 3), (2021, 1, 4), (2020, 12, 31), (2008, 12, 29), (2010, 1, 3), (1999, 1, 1),
+        (1992, 1, 1), (1998, 12, 31), (1582, 10, 15), (1, 12, 31), (9999, 1, 1), (2027, 1, 1),
+    )]
+    lo, hi = _days(dt.date(1, 1, 1)), _days(dt.date(9999, 12, 31))
+    return np.concatenate([edge, rng.integers(lo, hi + 1, n // 2), rng.integers(8000, 10_957, n)])[:n].astype(np.int64)
+
+
+def _g_micros(rng, n):
+    day_us = 86_400_000_000
+    tod = rng.integers(0, day_us, n)
+    tod[:6] = [0, day_us - 1, 1, day_us // 2, 0, 999_999]
+    return _g_days(rng, n) * day_us + tod
+
+
+def _g_durations(rng, n):
+    cap = 838 * 3_600_000_000 + 59 * 60_000_000 + 59_000_000
+    edge = [0, 1, -1, cap, -cap, 3_600_000_000, -3_600_000_000, 86_399_999_999, -1_000_000]
+    return np.concatenate([edge, rng.integers(-cap, cap + 1, n)])[:n].astype(np.int64)
+
+
+def _g_periods(rng, n):
+    yymm = rng.integers(0, 100, n // 2) * 100 + rng.integers(1, 13, n // 2)
+    yyyymm = rng.integers(1000, 9999, n) * 100 + rng.integers(1, 13, n)
+    return np.concatenate([[6901, 7001, 9912, 1, 199801, 200001, 12], yymm, yyyymm])[:n].astype(np.int64)
+
+
+def _g_daynrs(rng, n):
+    return np.concatenate([[0, 366, 719528, 3652424, 3652425, 1, -5], rng.integers(-1000, 3_700_000, n)])[:n].astype(np.int64)
+
+
+def _g_shifts(rng, n):
+    return np.concatenate([[0, 1, 63, 64, 65, -1, 100, 32], rng.integers(-3, 70, n)])[:n].astype(np.int64)
+
+
+def _g_bools(rng, n):
+    return np.concatenate([[0, 1, 2, -1, 0, 1], rng.integers(-1, 3, n)])[:n].astype(np.int64)
+
+
+def _g_narrow(rng, n):
+    # an int32 storage lane (dictionary codes, binder-proven narrow columns)
+    return np.concatenate([[0, 1, -1, (1 << 31) - 1, -(1 << 31), 3], rng.integers(-5, 40, n)])[:n].astype(np.int32)
+
+
+BUILTIN_KINDS = {
+    "i": ("INT", 20, 0, _g_ints),
+    "s": ("INT", 20, 0, _g_small),
+    "b": ("INT", 1, 0, _g_bools),
+    "sh": ("INT", 20, 0, _g_shifts),
+    "p": ("INT", 20, 0, _g_periods),
+    "dn": ("INT", 20, 0, _g_daynrs),
+    "m": ("INT", 20, 0, lambda rng, n: rng.integers(0, 16, n).astype(np.int64)),
+    "n": ("INT", 11, 0, _g_narrow),
+    "d2": ("DECIMAL", 12, 2, lambda rng, n: _g_dec(rng, n, 12)),
+    "d6": ("DECIMAL", 20, 6, lambda rng, n: _g_dec(rng, n, 17)),
+    "f": ("FLOAT", 0, 0, _g_floats),
+    "u": ("FLOAT", 0, 0, _g_unit),
+    "dt": ("DATE", 0, 0, _g_days),
+    "ts": ("DATETIME", 0, 0, _g_micros),
+    "du": ("DURATION", 0, 0, _g_durations),
+}
+
+
+def _c(kind, value):
+    """A constant argument (physical units; None for a NULL constant)."""
+    return ("c", kind, value)
+
+
+_NUM2 = [("i", "i"), ("d2", "d6"), ("i", "f"), ("d2", "f"), ("f", "f"), ("i", _c("i", 7)), ("d2", _c("f", 2.5)),
+         ("i", _c("i", None))]
+_CMP2 = _NUM2 + [("dt", "dt"), ("ts", "ts"), ("d6", _c("d2", 150)), ("f", _c("i", 0)), ("n", _c("i", 3)), ("n", "n"),
+                 ("n", "i")]
+_DATE1 = [("dt",), ("ts",)]
+_FLOAT1 = [("f",), ("i",), ("d2",), ("u",)]
+_BITS2 = [("i", "i"), ("i", _c("i", 0xFF)), ("b", "i")]
+_SHIFT2 = [("i", "sh"), ("i", _c("sh", 3)), ("i", _c("sh", 64)), ("i", _c("sh", -1))]
+_LOGIC2 = [("b", "b"), ("b", _c("b", 0)), ("b", _c("b", 1)), ("b", _c("b", None)), ("f", "b"), ("n", "b")]
+
+# every builtin the reference may run on its device → argument signatures:
+# a kind is a column with NULLs, ``_c(kind, value)`` a constant
+BUILTIN_CASES = {
+    "plus": _NUM2 + [("n", _c("i", 3))], "minus": _NUM2 + [("n", "n")], "mul": _NUM2 + [("n", _c("i", -2))],
+    "div": _NUM2 + [("d2", "i"), ("i", _c("i", 0)), ("d6", _c("d2", 0))],
+    "intdiv": _NUM2 + [("i", _c("i", 0)), ("f", _c("f", 0.0))],
+    "mod": _NUM2 + [("i", _c("i", 0)), ("d6", _c("d2", -300))],
+    "unaryminus": [("i",), ("d2",), ("f",)],
+    "eq": _CMP2, "ne": _CMP2, "lt": _CMP2, "le": _CMP2, "gt": _CMP2, "ge": _CMP2, "nulleq": _CMP2,
+    "and": _LOGIC2, "or": _LOGIC2,
+    "xor": [("b", "b"), ("b", _c("b", 1)), ("b", _c("b", None))],
+    "not": [("b",), ("f",), ("n",), (_c("b", 0),)],
+    "in": [("i", _c("i", 7), _c("i", -1), _c("i", 1 << 62)), ("i", _c("i", 0), _c("i", None)),
+           ("d2", _c("d2", 150), _c("d2", -50)), ("dt", _c("dt", 0), _c("dt", 10_957)), ("s", _c("s", 3)),
+           ("f", _c("f", 0.5), _c("f", 1e300)), ("n", _c("i", 3), _c("i", 0), _c("i", None))],
+    "isnull": [("i",), ("f",), ("n",), (_c("i", None),), (_c("i", 3),)],
+    "ifnull": [("i", "i"), ("i", _c("i", -5)), ("f", "f"), ("d2", "d2")],
+    "coalesce": [("i", "i", "i"), ("i", _c("i", 9)), ("f", "f"), ("dt", "dt")],
+    "if": [("b", "i", "i"), ("b", "n", _c("i", 7)), ("b", "f", "f"), ("b", "i", _c("i", 0)),
+           ("b", _c("i", 1), _c("i", 0)), ("f", "d2", "d2")],
+    "case_when": [("b", "i", "b", "i", "i"), ("b", "n", "b", _c("i", 5), "n"), ("b", "f", "b", "f"),
+                  ("b", _c("i", 1), _c("i", 0)), ("b", "d2", "b", _c("d2", 5), "d2")],
+    "abs": [("i",), ("d2",), ("f",)],
+    "sign": [("i",), ("d2",), ("f",)],
+    "ceil": [("i",), ("d2",), ("d6",), ("f",)],
+    "floor": [("i",), ("d2",), ("d6",), ("f",)],
+    "round": [("i",), ("d2",), ("d6",), ("f",), ("d6", _c("s", 2)), ("d2", _c("s", 5)), ("i", _c("s", -2)),
+              ("f", _c("s", 2)), ("f", _c("s", -1)), ("d2", _c("s", -1))],
+    "truncate": [("i", _c("s", 0)), ("i", _c("s", -2)), ("d2", _c("s", 1)), ("d6", _c("s", 0)), ("f", _c("s", 2)),
+                 ("f", _c("s", -1)), ("d2", _c("s", -1)), ("d2", _c("s", 4))],
+    "greatest": [("i", "i", "i"), ("d2", "d6"), ("i", "f"), ("d2", "f"), ("i", "d2")],
+    "least": [("i", "i", "i"), ("d2", "d6"), ("i", "f"), ("d2", "f"), ("i", "d2")],
+    "cast_int": [("i",), ("d2",), ("d6",), ("f",)],
+    "cast_float": [("i",), ("d2",), ("d6",), ("f",)],
+    "cast_decimal": [("i",), ("d2",), ("d6",), ("f",)],
+    "year": _DATE1, "month": _DATE1, "quarter": _DATE1, "dayofmonth": _DATE1, "dayofweek": _DATE1,
+    "dayofyear": _DATE1, "weekday": _DATE1, "weekofyear": _DATE1, "last_day": _DATE1, "date": _DATE1,
+    "to_days": _DATE1, "unix_timestamp": _DATE1,
+    "week": _DATE1 + [("dt", _c("m", k)) for k in range(8)] + [("dt", "m"), ("ts", _c("m", 3))],
+    "yearweek": _DATE1 + [("dt", _c("m", k)) for k in range(8)],
+    "date_add_days": [("dt", "s"), ("ts", "s"), ("dt", _c("i", 31))],
+    "date_add_months": [("dt", "s"), ("ts", "s"), ("dt", _c("i", 1)), ("dt", _c("i", -13))],
+    "date_add_micros": [("dt", "du"), ("ts", "du"), ("ts", _c("i", 1))],
+    "datediff": [("dt", "dt"), ("ts", "dt"), ("dt", _c("dt", 0))],
+    "from_days": [("dn",)],
+    "from_unixtime": [("s",), ("i",)],
+    "hour": [("ts",), ("du",)], "minute": [("ts",), ("du",)], "second": [("ts",), ("du",)],
+    "time_to_sec": [("du",)], "sec_to_time": [("s",), ("i",)],
+    "maketime": [("s", "s", "s"), ("s", _c("s", 30), _c("s", 0))],
+    "addtime": [("ts", "du"), ("dt", "du"), ("du", "du"), ("ts", "ts")],
+    "subtime": [("ts", "du"), ("dt", "du"), ("du", "du"), ("ts", "dt")],
+    "timediff": [("ts", "ts"), ("du", "du"), ("ts", "du"), ("dt", "ts")],
+    "tsdiff_micros": [("ts", "ts"), ("dt", "ts"), ("dt", "dt")],
+    "tsdiff_months": [("dt", "dt"), ("ts", "ts"), ("dt", "ts")],
+    "period_add": [("p", "s"), ("p", _c("s", 13))],
+    "period_diff": [("p", "p"), ("p", _c("p", 199801))],
+    "bitand": _BITS2, "bitor": _BITS2, "bitxor": _BITS2,
+    "bitneg": [("i",), ("b",)],
+    "bit_count": [("i",), ("b",)],
+    "shl": _SHIFT2, "shr": _SHIFT2,
+    "sqrt": _FLOAT1, "exp": _FLOAT1, "ln": _FLOAT1, "log2": _FLOAT1, "log10": _FLOAT1,
+    "sin": _FLOAT1 + [("ts",)], "cos": _FLOAT1 + [("ts",)], "tan": _FLOAT1, "cot": _FLOAT1,
+    "asin": _FLOAT1, "acos": _FLOAT1, "atan": _FLOAT1 + [("f", "f"), ("i", "u")],
+    "atan2": [("f", "f"), ("i", "i"), ("u", "d2")],
+    "pow": [("f", "f"), ("u", "s"), ("s", "s"), ("d2", _c("f", 0.5)), ("i", _c("i", 2))],
+    "degrees": _FLOAT1, "radians": _FLOAT1,
+}
+# cast_decimal's target (precision, scale) is the function's return type
+CAST_DEC_TARGETS = [(12, 2), (20, 6), (10, 0)]
+
+
+def builtin_cases(name: str) -> list:
+    """[(argument signature, cast_decimal's target or None)] for ``name``."""
+    sigs = BUILTIN_CASES[name]
+    if name == "cast_decimal":
+        return [(sig, t) for sig in sigs for t in CAST_DEC_TARGETS]
+    return [(sig, None) for sig in sigs]
+
+
+def builtin_lanes(sig, rng, n: int, lane=None) -> list:
+    """Per argument: ("col", kind, data, valid) with about 15 % NULLs (the
+    first six rows valid), or ("const", kind, value). ``lane(kind, i)``,
+    when given, supplies the column of argument ``i`` instead of ``rng``."""
+    out = []
+    for i, a in enumerate(sig):
+        if isinstance(a, tuple):
+            out.append(("const", a[1], a[2]))
+        elif lane is not None:
+            out.append(("col", a, *lane(a, i)))
+        else:
+            data = np.asarray(BUILTIN_KINDS[a][3](rng, n))
+            valid = rng.random(n) > 0.15
+            valid[:6] = True
+            out.append(("col", a, data, valid))
+    return out
+
+
+def builtin_expr(expr_mod, field_type, type_kind, name: str, lanes, ret=None):
+    """``name`` over ``lanes`` as an expression of the package whose
+    ``expression.expr``, ``FieldType`` and ``TypeKind`` are given: column
+    arguments are ColumnRefs numbered in order."""
+    args, ci = [], 0
+    for ln in lanes:
+        tk, length, scale, _ = BUILTIN_KINDS[ln[1]]
+        ft = field_type(getattr(type_kind, tk), length=length, scale=scale, nullable=ln[0] == "col" or ln[2] is None)
+        if ln[0] == "col":
+            args.append(expr_mod.col(ci, ft))
+            ci += 1
+        else:
+            args.append(expr_mod.Constant(ln[2], ft))
+    r = None if ret is None else field_type(type_kind.DECIMAL, length=ret[0], scale=ret[1])
+    return expr_mod.func(name, *args, ret=r)
 
 
 def _decimal_text(cents: int) -> str:
@@ -580,7 +950,8 @@ def htap_writes(cols: dict, seed: int, n_update: int = 1000, n_delete: int = 200
             f"{_decimal_text(int(new[3][i]))}, '{RETURNFLAGS[new[4][i]].decode()}', "
             f"'{LINESTATUS[new[5][i]].decode()}', DATE '{_date(new[6][i]).isoformat()}', "
             f"'{SHIPMODES[new[7][i]].decode()}', '{SHIPINSTRUCTS[new[8][i]].decode()}', "
-            f"{new[9][i]}, {new[10][i]}, {new[11][i]})"
+            f"{new[9][i]}, {new[10][i]}, {new[11][i]}, DATE '{_date(new[12][i]).isoformat()}', "
+            f"DATE '{_date(new[13][i]).isoformat()}')"
         )
     insert = "INSERT INTO lineitem VALUES " + ", ".join(values)
     after = {k: np.concatenate([v[~gone], new[k].astype(v.dtype)]) for k, v in c.items()}
@@ -915,11 +1286,18 @@ def main() -> int:
 
     # 6. HTAP: reads after writes on the same database, the delta pending
     t0 = time.perf_counter()
-    delta_launches, err = _htap_phase(db, cols, gs, warm, args.seed)
+    delta_launches, err, after = _htap_phase(db, cols, gs, warm, args.seed)
     max_err = max(max_err, err)
-    db.stop_background()
     torch.cuda.synchronize()
     print(f"HTAP phase: {time.perf_counter() - t0:.1f} s; K1 launches on the delta path {delta_launches}")
+
+    # 7. the device builtins: the same database, the writes folded in
+    t0 = time.perf_counter()
+    builtin_launches = _builtins_phase(db, after, gs)
+    db.stop_background()
+    torch.cuda.synchronize()
+    print(f"builtins phase: {time.perf_counter() - t0:.1f} s; K1 launches on the builtins path {builtin_launches}")
+    print(json.dumps({"builtins": _builtins_check(args.seed)}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -930,6 +1308,7 @@ def main() -> int:
         "launches": sql_launches,
         "launches_dag_path": main_launches,
         "launches_delta_path": delta_launches,
+        "launches_builtins_path": builtin_launches,
         "max_abs_err": max_err,
         **k1,
     }]}))
@@ -1036,7 +1415,7 @@ def _htap_phase(db, cols: dict, gs, before: dict, seed: int, reps: int = 10):
     operand's host-to-card bytes and time, then folds the deltas with the
     compactor and checks the statements again. → (K1 launches over the
     cold drive of the statements, K1's largest error on the delta path's
-    input)."""
+    input, the columns after the writes)."""
     import dataclasses
 
     import torch
@@ -1102,7 +1481,7 @@ def _htap_phase(db, cols: dict, gs, before: dict, seed: int, reps: int = 10):
                 if got_n != want_n:
                     raise AssertionError(f"htap band: K1 ran over n = {got_n}, not the padded region + delta {want_n}")
         launches = gs.LAUNCHES
-        # the delta operand of a full-width scan (all twelve columns), per region
+        # the delta operand of a full-width scan (all fourteen columns), per region
         tasks.clear()
         s.query("SELECT * FROM lineitem WHERE l_quantity < 0")
         operand = [(r, d) for r, d, _st, _rg in tasks]
@@ -1178,7 +1557,191 @@ def _htap_phase(db, cols: dict, gs, before: dict, seed: int, reps: int = 10):
     after_merge = {name: run(name, 0)[0] for name in SQL_QUERIES}
     print(f"htap: compactor folded {merged} deltas (threshold 1; the default 2,048 folded none); the statements "
           f"equal the oracle on gpu with no delta: first run ms {json.dumps({k: round(v, 3) for k, v in after_merge.items()})}")
-    return launches, err
+    return launches, err, after
+
+
+BUILTIN_ROWS = 4_194_304  # one device block
+# builtins whose integer result converts a double: out of the int64 range
+# (and NaN) the host's C cast gives INT64_MIN, the device saturates (and
+# maps NaN to 0) as the reference's XLA conversion does
+_F2I_NAMES = frozenset({"cast_int", "ceil", "floor", "sign", "intdiv", "cast_decimal"})
+_TINY = 2.2250738585072014e-308  # the least normal double
+
+
+def _builtins_phase(db, cols: dict, gs, reps: int = 10):
+    """``BUILTIN_QUERIES`` on the SQL phase's database after the HTAP phase
+    (``cols``: the columns the writes left): each once cold and ``reps``
+    times warm. Every run must equal ``builtin_oracle`` (integer and
+    decimal lanes exact, float lanes within ``FLOAT_REL``), every cop task
+    must run on ``gpu`` with none degraded and copy bytes off the card, and
+    K1 must launch during ``bandf``. Prints per statement each task's path
+    and routes, the cold wall, the warm median, the summed and longest
+    cop-task walls, and the host engine's median of 3 on the same data
+    (what the parent commit ran these statements on). → K1 launches over
+    the cold drive."""
+    from tidb_tpu_torch.copr import gpu_engine
+
+    n_regions = len(db.store.regions())
+    want = {name: builtin_oracle(name, cols) for name in BUILTIN_QUERIES}
+    s = db.session()
+
+    def run(name, sess=s, engine="gpu"):
+        t0 = time.perf_counter()
+        rows = sorted(sess.query(BUILTIN_QUERIES[name]), key=repr)
+        wall = (time.perf_counter() - t0) * 1e3
+        summ = sess.exec_summary
+        if summ is None or summ.engines != {engine: n_regions} or summ.degraded:
+            raise AssertionError(f"builtins {name}: cop tasks {summ and summ.engines}, degraded {summ and summ.degraded}")
+        if engine == "gpu" and summ.d2h_bytes <= 0:
+            raise AssertionError(f"builtins {name}: the tasks report {summ.d2h_bytes} bytes copied off the card")
+        if not rows_match(rows, want[name]):
+            raise AssertionError(f"builtins {name}: rows disagree with the numpy oracle: {rows[:3]} against {want[name][:3]}")
+        return wall, summ
+
+    tasks = []
+    real_exec = gpu_engine.execute_region
+
+    def recording_exec(region, dag, ranges, warn=None, device="cuda", stats=None):
+        stats = {} if stats is None else stats
+        tasks.append(stats)
+        return real_exec(region, dag, ranges, warn, device, stats)
+
+    gpu_engine.execute_region = recording_exec
+    cold, by_query, routes = {}, {}, {}
+    try:
+        gs.LAUNCHES = 0  # the builtins path: counts from 0 just before it
+        for name in BUILTIN_QUERIES:
+            tasks.clear()
+            before = gs.LAUNCHES
+            cold[name] = run(name)[0]
+            by_query[name] = gs.LAUNCHES - before
+            routes[name] = [(st.get("path"), st.get("routes")) for st in tasks]
+        launches = gs.LAUNCHES
+    finally:
+        gpu_engine.execute_region = real_exec
+    print(f"builtins: K1 launches by statement (cold drive): {by_query}")
+    if by_query["bandf"] < 1:
+        raise AssertionError(f"K1 must run for bandf: {by_query}")
+    host = db.session()
+    host.execute("SET tidb_isolation_read_engines='host'")
+    for name in BUILTIN_QUERIES:
+        runs = [run(name) for _ in range(reps)]
+        walls = [w for w, _m in runs]
+        host_ms = statistics.median(run(name, host, "host")[0] for _ in range(3))
+        med = statistics.median(walls)
+        print(f"builtins {name}: tasks (path, routes) {routes[name]}; cold_ms {cold[name]:.3f}; warm sql_ms median "
+              f"{med:.3f} min {min(walls):.3f}; cop_task_sum_ms median "
+              f"{statistics.median(sum(m.procs) for _w, m in runs):.3f}; cop_task_max_ms median "
+              f"{statistics.median(max(m.procs) for _w, m in runs):.3f}; d2h bytes "
+              f"{runs[-1][1].d2h_bytes}; host engine median of 3 {host_ms:.3f} (host/gpu {host_ms / med:.2f}x); "
+              f"rows {len(want[name])}")
+    return launches
+
+
+def _builtin_lane_cache(seed: int, n: int, device):
+    """(kind, argument index) → (data, valid, data on ``device``, valid on
+    ``device``), each drawn once from its own seed."""
+    import torch
+
+    cache = {}
+
+    def lane(kind, i):
+        key = (kind, i)
+        if key not in cache:
+            rng = np.random.default_rng([seed, i, list(BUILTIN_KINDS).index(kind)])
+            data = np.asarray(BUILTIN_KINDS[kind][3](rng, n))
+            valid = rng.random(n) > 0.15
+            valid[:6] = True
+            cache[key] = (data, valid, torch.from_numpy(data).to(device), torch.from_numpy(valid).to(device))
+        return cache[key]
+
+    return lane
+
+
+def _np_lane(x, n: int, dtype=None):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        x = x.cpu().numpy()
+    if x is None:
+        x = True
+    return np.broadcast_to(np.asarray(x, dtype=dtype), (n,))
+
+
+def _builtins_check(seed: int, n: int = BUILTIN_ROWS, device: str = "cuda") -> dict:
+    """Every gpu-legal builtin, each argument signature of
+    ``BUILTIN_CASES``, over ``n``-row lanes on the card, held against the
+    same body run with numpy on the host: validity and integer, decimal,
+    date and boolean lanes exact; float lanes bit-equal or within
+    ``FLOAT_REL`` (their worst distance in ulps kept); counted apart: a
+    double converted out of the int64 range (``_F2I_NAMES``) and two
+    floats both below the least normal double. Raises on any other
+    difference. → the ``builtins`` line's object."""
+    import torch
+
+    from tidb_tpu_torch.expression import expr as port_expr
+    from tidb_tpu_torch.expression.registry import REGISTRY
+    from tidb_tpu_torch.types import FieldType, TypeKind
+
+    t0 = time.perf_counter()
+    names = sorted(k for k, spec in REGISTRY.items() if "gpu" in spec.engines)
+    if sorted(BUILTIN_CASES) != names:
+        raise AssertionError(f"the gpu-legal builtins and the cases differ: {sorted(set(names) ^ set(BUILTIN_CASES))}")
+    lane = _builtin_lane_cache(seed, n, torch.device(device))
+    status, ulps, cases, saturated, subnormal = {}, {}, 0, 0, 0
+    i64_min, i64_max = -(1 << 63), (1 << 63) - 1
+    for name in names:
+        worst, exact = 0.0, True
+        for sig, ret in builtin_cases(name):
+            lanes = builtin_lanes(sig, None, n, lane=lambda k, i: lane(k, i)[:2])
+            e = builtin_expr(port_expr, FieldType, TypeKind, name, lanes, ret)
+            host_cols = [lane(a, i)[:2] for i, a in enumerate(sig) if not isinstance(a, tuple)]
+            dev_cols = [lane(a, i)[2:] for i, a in enumerate(sig) if not isinstance(a, tuple)]
+            hd, hv, _ = port_expr.eval_expr(e, port_expr.EvalBatch(host_cols, [None] * len(host_cols), n), np)
+            dd, dv, _ = port_expr.eval_expr(e, port_expr.EvalBatch(dev_cols, [None] * len(dev_cols), n), torch)
+            cases += 1
+            hv = _np_lane(hv, n, bool)
+            if not np.array_equal(_np_lane(dv, n, bool), hv):
+                raise AssertionError(f"builtin {name} {sig}: validity differs between the card and numpy")
+            hd, dd = _np_lane(hd, n), _np_lane(dd, n)
+            if e.ftype.kind == TypeKind.FLOAT:
+                hd, dd = hd.astype(np.float64)[hv], dd.astype(np.float64)[hv]
+                same = (hd.view(np.int64) == dd.view(np.int64)) | (np.isnan(hd) & np.isnan(dd))
+                if not same.all():
+                    exact = False
+                    a, b = dd[~same], hd[~same]
+                    # both below the least normal double: libdevice's exp
+                    # flushes to 0 where glibc returns a subnormal, and a
+                    # relative tolerance means nothing there
+                    tiny = (np.abs(a) < _TINY) & (np.abs(b) < _TINY)
+                    subnormal += int(tiny.sum())
+                    a, b = a[~tiny], b[~tiny]
+                    with np.errstate(all="ignore"):
+                        close = np.abs(a - b) <= FLOAT_REL * np.maximum(np.abs(a), np.abs(b))
+                    if not close.all():
+                        raise AssertionError(f"builtin {name} {sig}: card {a[~close][:4]} against numpy {b[~close][:4]}")
+                    if len(a):
+                        worst = max(worst, float((np.abs(a - b) / np.spacing(np.abs(b))).max()))
+            else:
+                hd, dd = hd.astype(np.int64)[hv], dd.astype(np.int64)[hv]
+                bad = hd != dd
+                if bad.any() and name in _F2I_NAMES and any(
+                        not isinstance(a, tuple) and BUILTIN_KINDS[a][0] == "FLOAT" for a in sig):
+                    sat = bad & (hd == i64_min) & np.isin(dd, [i64_min, i64_max, 0])
+                    saturated += int(sat.sum())
+                    bad &= ~sat
+                if bad.any():
+                    raise AssertionError(f"builtin {name} {sig}: card {dd[bad][:4]} against numpy {hd[bad][:4]}")
+        status[name] = "exact" if exact else "within_tolerance"
+        if not exact:
+            ulps[name] = worst
+    return {
+        "rows": n, "names": len(names), "cases": cases,
+        "exact": sum(v == "exact" for v in status.values()),
+        "within_tolerance": sum(v == "within_tolerance" for v in status.values()),
+        "worst_float_ulp": max(ulps.values(), default=0.0), "ulp_by_name": ulps,
+        "saturated_rows": saturated, "subnormal_rows": subnormal, "seconds": round(time.perf_counter() - t0, 3),
+    }
 
 
 def _drive(regions, dags, gs):

@@ -244,7 +244,7 @@ def test_band_query_k1_route_with_a_delta_beyond_the_base_envelope(monkeypatch):
         (ref, port),
         "UPDATE lineitem SET l_extendedprice = 99999999.99, l_quantity = 75.00 WHERE l_orderkey = 1",
         "INSERT INTO lineitem VALUES (3.00, 4500.00, 0.06, 0.00, 'N', 'O', DATE '1997-01-09', 'MAIL', "
-        "'COLLECT COD', 8, 4, 2)",
+        "'COLLECT COD', 8, 4, 2, DATE '1996-12-20', DATE '1997-01-30')",
     )
     tasks = _spy_tasks(monkeypatch)
     calls = te._spy(monkeypatch)

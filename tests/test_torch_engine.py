@@ -293,6 +293,89 @@ def test_default_device_raises_without_a_card(setup, monkeypatch):
         gpu_engine.execute_region(reg, _port_dag(dag), _port_ranges(ranges))
 
 
+def _port_table(n=200):
+    """A port handle (device="cpu") with one table keyed by its handle."""
+    import tidb_tpu_torch
+
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cpu")
+    db.execute("CREATE TABLE t (id BIGINT PRIMARY KEY, v BIGINT, p DECIMAL(10,2))")
+    db.execute("INSERT INTO t VALUES " + ", ".join(f"({i}, {i * 3 % 17}, {i}.25)" for i in range(1, n + 1)))
+    return db
+
+
+def test_gpu_task_counts_the_bytes_it_copies_off_the_card():
+    """A ``gpu`` cop task reports the bytes of the program buffers it
+    copies to the host (ExecDetails ``d2h_bytes``, the transfer metric,
+    EXPLAIN ANALYZE's ``d2h:``), as the reference's device engine does."""
+    from tidb_tpu_torch.utils import metrics
+
+    db = _port_table()
+    s = db.session()
+    before = metrics.DEVICE_TRANSFER.get(dir="d2h")
+    for sql in ("SELECT id, v FROM t ORDER BY id DESC LIMIT 3", "SELECT SUM(v), COUNT(*) FROM t WHERE v = 3"):
+        s.query(sql)
+        assert s.exec_summary.engines == {"gpu": 1}
+        assert s.exec_summary.d2h_bytes > 0
+    assert metrics.DEVICE_TRANSFER.get(dir="d2h") > before
+    lines = [r[0] for r in db.query("EXPLAIN ANALYZE SELECT SUM(v), COUNT(*) FROM t WHERE v = 3")]
+    (reader,) = [line for line in lines if "PhysTableReader" in line]
+    d2h = reader.split("d2h: ")[1].split("B")[0]
+    assert "[gpu]" in reader and int(d2h) > 0
+    db.stop_background()
+
+
+@pytest.mark.parametrize("shape", ["nine_ranges", "descending"])
+def test_execute_dag_hands_point_lookups_and_descending_scans_to_host(monkeypatch, shape):
+    """A task of more than ``MAX_RANGES`` ranges, or a descending scan,
+    runs on the host engine with nothing marked degraded (the reference's
+    split, tpu_engine._execute_dag_device); ``execute_region`` still raises
+    for a direct caller."""
+    from tidb_tpu_torch.copr import host_engine as port_host
+    from tidb_tpu_torch.utils import execdetails as ed
+
+    db = _port_table()
+    seen = []
+    real = gpu_engine._execute_dag_device
+
+    def spy(store, dag, region, ranges, read_ts, warn=None):
+        seen.append((store, dag, region, ranges, read_ts))
+        return real(store, dag, region, ranges, read_ts, warn)
+
+    monkeypatch.setattr(gpu_engine, "_execute_dag_device", spy)
+    db.session().query("SELECT id, v, p FROM t WHERE v >= 3")
+    store, dag, region, ranges, read_ts = seen[0]
+    tid = dag.executors[0].table_id
+    if shape == "nine_ranges":
+        ranges = [ttc.handle_range(tid, h, h + 1) for h in (2, 5, 9, 30, 31, 77, 150, 151, 199)]
+        assert len(ranges) > dag_kernel.MAX_RANGES
+    else:
+        pb = dag.to_pb()
+        pb["executors"][0]["desc"] = True
+        dag = carry.dag_from_pb(pb)
+        assert dag.executors[0].desc
+    det = ed.CopExecDetails()
+    with ed.collecting(det):
+        got = gpu_engine.execute_dag(store, dag, region, ranges, read_ts)
+    assert not det.degraded
+    want = port_host.execute_dag(store, dag, region, ranges, read_ts)
+    assert got.rows() == want.rows() and len(got) > 0
+    with pytest.raises(UnsupportedForDevice):
+        reg = gpu_engine.RegionView(region.region_id, tid, *_entry_of(store, dag, region, read_ts))
+        gpu_engine.execute_region(reg, dag, ranges, device="cpu")
+    db.stop_background()
+
+
+def _entry_of(store, dag, region, read_ts):
+    from tidb_tpu_torch.copr.colcache import cache_for as port_cache_for
+    from tidb_tpu_torch.kv.rowcodec import RowSchema as PortRowSchema
+
+    scan = dag.executors[0]
+    cache = port_cache_for(store)
+    slots = [c.column_id for c in scan.columns if not c.is_handle]
+    entry, _delta = cache.get_split(region, scan.table_id, PortRowSchema(scan.storage_schema), slots, read_ts)
+    return entry, cache
+
+
 def _fixture_pbs():
     db = _lineitem_db(n=600)
     return {name: args[0].to_pb() for name, args in _capture(db).items() if name in QUERIES}

@@ -239,3 +239,46 @@ def test_band_dag_with_a_delta_on_card_matches_cpu_path(monkeypatch, block, fuse
     assert chip_smoke._same_chunk(gpu, cpu) and gpu.rows() == cpu.rows()
     assert gpu_stats == cpu_stats and gpu_stats["delta_rows"] == len(handles)
     assert gpu_stats["routes"] == ("k1",)
+
+
+@pytest.mark.gpu
+def test_builtin_statements_on_card_match_cpu_and_oracle():
+    """The seven statements of ``chip_smoke.BUILTIN_QUERIES`` on the card
+    and on the CPU over the same 200,000-row lineitem in two regions: equal
+    rows, equal to the numpy oracle, every cop task on ``gpu`` with bytes
+    copied off the card, and K1 launching for ``bandf``."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    cols = chip_smoke.lineitem_sf1(seed=12, n=200_000)
+    sessions = {}
+    for device in ("cuda", "cpu"):
+        db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+        chip_smoke.lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+        sessions[device] = (db, db.session())
+    for name, sql in chip_smoke.BUILTIN_QUERIES.items():
+        got = {}
+        before = gs.LAUNCHES
+        for device, (_db, s) in sessions.items():
+            got[device] = sorted(s.query(sql), key=repr)
+            assert s.exec_summary.engines == {"gpu": 2} and not s.exec_summary.degraded
+            assert s.exec_summary.d2h_bytes > 0
+        assert (gs.LAUNCHES > before) == (name == "bandf"), name
+        assert chip_smoke.rows_match(got["cuda"], got["cpu"]), name
+        assert chip_smoke.rows_match(got["cuda"], chip_smoke.builtin_oracle(name, cols)), name
+    for db, _s in sessions.values():
+        db.stop_background()
+
+
+@pytest.mark.gpu
+def test_every_builtin_on_card_matches_numpy():
+    """Every gpu-legal builtin over 65,536-row lanes on the card against the
+    same body in numpy on the host (``chip_smoke._builtins_check``: exact
+    integer, decimal, date and boolean lanes and validity, floats within a
+    relative 1e-12)."""
+    _need_card()
+    out = chip_smoke._builtins_check(seed=3, n=65_536)
+    assert out["names"] == 91 and out["exact"] + out["within_tolerance"] == 91
+    assert out["worst_float_ulp"] < 1e4

@@ -144,8 +144,8 @@ def test_band_query_takes_the_k1_route(monkeypatch, dbs):
 # the first orders' lines (the first region's leading rows, changed in place)
 _WRITES = (
     "INSERT INTO lineitem VALUES (17.00, 25500.00, 0.04, 0.02, 'R', 'F', DATE '1994-03-05', "
-    "'AIR', 'NONE', 7, 3, 1), (3.00, 4500.00, 0.06, 0.00, 'N', 'O', DATE '1997-01-09', 'MAIL', "
-    "'COLLECT COD', 8, 4, 2)",
+    "'AIR', 'NONE', 7, 3, 1, DATE '1994-02-10', DATE '1994-03-20'), (3.00, 4500.00, 0.06, 0.00, 'N', 'O', "
+    "DATE '1997-01-09', 'MAIL', 'COLLECT COD', 8, 4, 2, DATE '1996-12-20', DATE '1997-01-30')",
     "UPDATE lineitem SET l_quantity = l_quantity + 1 WHERE l_orderkey <= 40",
 )
 
@@ -203,12 +203,16 @@ def test_analyze_then_explain_analyze(x64_shim, cols):
 @pytest.mark.parametrize(
     "sql",
     [
-        "SELECT COUNT(*), SUM(l_quantity) FROM lineitem WHERE bit_count(l_orderkey) > 9",
-        "SELECT l_returnflag, COUNT(*) FROM lineitem WHERE l_suppkey % 7 = 3 GROUP BY l_returnflag",
+        "SELECT COUNT(*), SUM(l_quantity) FROM lineitem WHERE bit_count(l_orderkey) > 9 AND LENGTH(l_shipmode) > 2",
+        "SELECT l_returnflag, COUNT(*) FROM lineitem WHERE l_suppkey % 7 = 3 AND UPPER(l_shipinstruct) <> 'X' "
+        "GROUP BY l_returnflag",
     ],
     ids=["bit_count", "mod_eq"],
 )
 def test_device_illegal_builtin_is_planned_to_host(x64_shim, dbs, sql):
+    """BIT_COUNT and % are device-legal; the string builtin beside each
+    (LENGTH, UPPER: host-only, as in the reference) holds the whole
+    fragment on the host engine, with nothing marked degraded."""
     ref, port, parts = dbs
     plan = "\n".join(r[0] for r in port.query("EXPLAIN " + sql))
     assert "[host]" in plan and "[gpu]" not in plan

@@ -111,12 +111,27 @@ SEAMS: dict[str, frozenset] = {
     "kv/kv.py": frozenset({"StoreType"}),
     "session/session.py": frozenset({"DEFAULT_SYSVARS", "Session._plan_select", "Session._select", "open_db"}),
     "planner/optimizer.py": frozenset({"_demote_ci_order", "_pick_engine", "_try_push_window"}),
-    "expression/expr.py": frozenset({"can_push_down"}),
-    # gpu legal only for the builtins the device evaluation carries
-    "expression/registry.py": frozenset({"ALL_ENGINES", "GPU_BUILTINS", "register"}),
+    # eval_expr hands a torch caller's bodies expression/arrays.py
+    "expression/expr.py": frozenset({"can_push_down", "eval_expr"}),
+    # every builtin legal on tpu is legal on gpu, as declared per builtin
+    "expression/registry.py": frozenset({"ALL_ENGINES"}),
     "copr/binder.py": frozenset({"Binder.bind_expr"}),
-    # torch-capable compares, a numpy and a torch popcount
-    "expression/eval.py": frozenset({"_as_i64", "_bit_count", "_cmp", "_cmp_const_fast"}),
+    # the bodies that call the helpers of expression/arrays.py (the port's
+    # own module, the device's array namespace: casts, float64 widening,
+    # correctly rounded division, saturating float→int, logical shift,
+    # popcount) where the reference's body relies on numpy or jax.numpy
+    # semantics torch lacks
+    "expression/eval.py": frozenset(
+        {
+            "<imports>",
+            "_acos", "_and", "_asin", "_atan", "_atan2", "_bit_count", "_bitand", "_bitneg",
+            "_bitor", "_bitxor", "_cast_decimal", "_cast_float", "_cast_int", "_ceil", "_civil_from_days",
+            "_cmp", "_coerce_pair", "_cos", "_cot", "_days_from_civil", "_degrees",
+            "_div", "_exp", "_floor", "_fold_extreme", "_in", "_intdiv", "_isnull", "_log_impl", "_not",
+            "_nulleq", "_or", "_pow", "_radians", "_round", "_shift", "_sign", "_sin", "_sqrt", "_tan",
+            "_truncate", "_tsdiff_months", "_xor",
+        }
+    ),
     # the engine registry; no device failure degrades to the host
     "copr/client.py": frozenset({"CopClient.send", "_engines", "run_task_resilient"}),
     # a store-less cache for carried regions, and the GPU engine's LRUs

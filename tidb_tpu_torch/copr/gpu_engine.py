@@ -319,8 +319,14 @@ def store_device(store) -> torch.device:
 
 
 def _execute_dag_device(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRange], read_ts: int, warn=None) -> Chunk:
-    dev = store_device(store)
     scan = dag.executors[0]
+    if scan.desc or len(ranges) > MAX_RANGES:
+        # descending scans are order-sensitive row streams, and many-range
+        # tasks are point lookups: the host engine slices exactly the
+        # requested handles from the same column cache (the reference's
+        # split, tpu_engine._execute_dag_device)
+        return host_engine.execute_dag(store, dag, region, ranges, read_ts, warn)
+    dev = store_device(store)
     schema = RowSchema(scan.storage_schema)
     slots = [c.column_id for c in scan.columns if not c.is_handle]
     cache = cache_for(store)
@@ -492,11 +498,22 @@ def _fused_block_inputs(region: RegionView, scan, device: torch.device):
     return tuple(handles_blocks), tuple(tuple(cb) for cb in cols_blocks), nvalids, len(bounds)
 
 
+def _d2h(t: torch.Tensor) -> np.ndarray:
+    """Copy one tensor off the card, counting its bytes on the task's
+    ExecDetails (``d2h_bytes``) and in the transfer metric."""
+    a = t.cpu().numpy()
+    det = _ed.current_cop()
+    if det is not None:
+        det.d2h_bytes += int(a.nbytes)
+    _metrics.DEVICE_TRANSFER.inc(int(a.nbytes), dir="d2h")
+    return a
+
+
 def _to_host(packed):
     """(int buffer, float buffer or None) as numpy arrays."""
     if isinstance(packed, tuple):
-        return packed[0].cpu().numpy(), packed[1].cpu().numpy()
-    return packed.cpu().numpy(), None
+        return _d2h(packed[0]), _d2h(packed[1])
+    return _d2h(packed), None
 
 
 def _probe_slice_rows(packed_list: list, kernel):
@@ -506,7 +523,7 @@ def _probe_slice_rows(packed_list: list, kernel):
     → (counts, sliced buffers)."""
     tup = isinstance(packed_list[0], tuple)
     ibufs = [p[0] if tup else p for p in packed_list]
-    metas = torch.stack([b[0, :2] for b in ibufs]).cpu().numpy()
+    metas = _d2h(torch.stack([b[0, :2] for b in ibufs]))
     sliced = []
     for p, m in zip(packed_list, metas):
         w = min(kernel.out_n, bucket_size(max(2, int(m[0]))))
@@ -633,8 +650,8 @@ def _blocks_stacked(run_block, nb: int, kernel, dag, cache, scan, warn=None):
             _emit_kernel_warnings(buf, kernel, warn)
             chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
         return _concat_chunks(chunks)
-    bi_all = torch.stack([p[0] if tup else p for p in packed]).cpu().numpy()
-    bf_all = torch.stack([p[1] for p in packed]).cpu().numpy() if tup else None
+    bi_all = _d2h(torch.stack([p[0] if tup else p for p in packed]))
+    bf_all = _d2h(torch.stack([p[1] for p in packed])) if tup else None
     if kernel.kind == "agg" and any(int(b[0, 1]) > kernel.agg_cap for b in bi_all):
         return None
     for b in range(nb):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from tidb_tpu_torch.types import TypeKind
 from tidb_tpu_torch.types.field_type import FieldType, bool_type, double_type, bigint_type, decimal_type, string_type
+from tidb_tpu_torch.expression.arrays import astype, dec_to_f64, logical_shr, popcount64, to_f64, to_i64, true_div, zeros_n
 from tidb_tpu_torch.expression.registry import (
     ALL_ENGINES,
     HOST_ONLY,
@@ -41,8 +42,8 @@ def _coerce_pair(xp, ctx, i, j):
     ta, tb = ctx.arg_types[i], ctx.arg_types[j]
     if ta.kind == TypeKind.DECIMAL or tb.kind == TypeKind.DECIMAL:
         if ta.kind == TypeKind.FLOAT or tb.kind == TypeKind.FLOAT:
-            da = da / (10**ta.scale) if ta.kind == TypeKind.DECIMAL else da * 1.0
-            db = db / (10**tb.scale) if tb.kind == TypeKind.DECIMAL else db * 1.0
+            da = dec_to_f64(xp, da, ta.scale) if ta.kind == TypeKind.DECIMAL else to_f64(xp, da)
+            db = dec_to_f64(xp, db, tb.scale) if tb.kind == TypeKind.DECIMAL else to_f64(xp, db)
         else:
             sa = ta.scale if ta.kind == TypeKind.DECIMAL else 0
             sb = tb.scale if tb.kind == TypeKind.DECIMAL else 0
@@ -50,8 +51,8 @@ def _coerce_pair(xp, ctx, i, j):
             da = da * (10 ** (s - sa))
             db = db * (10 ** (s - sb))
     elif ta.kind == TypeKind.FLOAT or tb.kind == TypeKind.FLOAT:
-        da = da * 1.0
-        db = db * 1.0
+        da = to_f64(xp, da)
+        db = to_f64(xp, db)
     return da, va, db, vb
 
 
@@ -143,9 +144,9 @@ def _div(xp, args, ctx):
         absq = absq + (2 * rem >= xp.abs(den))
         q = xp.sign(num) * xp.sign(den) * absq
         return q, and_valid(xp, va, vb, nz)
-    da = da / (10**ta.scale) if ta.kind == TypeKind.DECIMAL else da * 1.0
-    db = db / (10**tb.scale) if tb.kind == TypeKind.DECIMAL else db * 1.0
-    return xp.where(nz, da / xp.where(nz, db, 1.0), 0.0), and_valid(xp, va, vb, nz)
+    da = dec_to_f64(xp, da, ta.scale) if ta.kind == TypeKind.DECIMAL else to_f64(xp, da)
+    db = dec_to_f64(xp, db, tb.scale) if tb.kind == TypeKind.DECIMAL else to_f64(xp, db)
+    return xp.where(nz, true_div(xp, da, xp.where(nz, db, 1.0)), 0.0), and_valid(xp, va, vb, nz)
 
 
 @register("intdiv", lambda args: bigint_type())
@@ -155,7 +156,7 @@ def _intdiv(xp, args, ctx):
     _warn_div0(xp, ctx, nz, va, vb)
     den = xp.where(nz, db, 1)
     if ctx.arg_types[0].kind == TypeKind.FLOAT or ctx.arg_types[1].kind == TypeKind.FLOAT:
-        q = (da / den).astype("int64") if hasattr(da / den, "astype") else int(da / den)
+        q = to_i64(xp, true_div(xp, da, den))
     else:
         # MySQL DIV truncates toward zero
         q = xp.sign(da) * xp.sign(den) * (xp.abs(da) // xp.abs(den))
@@ -181,17 +182,6 @@ def _unaryminus(xp, args, ctx):
 # ---------------------------------------------------------------------------
 # comparisons (binder guarantees numeric/physical-comparable inputs)
 # ---------------------------------------------------------------------------
-
-
-def _as_i64(res):
-    """Boolean compare result → int64 lane (torch, numpy or Python)."""
-    if hasattr(res, "to"):
-        import torch
-
-        return res.to(torch.int64)
-    if hasattr(res, "astype"):
-        return res.astype("int64")
-    return int(res)
 
 
 def _cmp(xp, ctx, op, sig=None):
@@ -221,7 +211,7 @@ def _cmp(xp, ctx, op, sig=None):
         if ta.kind == tb.kind == TypeKind.STRING and dict_a is dict_b and dict_a is not None and dict_a.sorted:
             # same sorted dictionary: codes are order-preserving
             res = op(da, db)
-            return _as_i64(res), and_valid(xp, va, vb)
+            return res.astype("int64"), and_valid(xp, va, vb)
         # col-vs-constant fast path: bind the constant into the column's
         # dictionary once and compare codes/ranks vectorized (the host
         # analog of binder._bind_code_compare / _bind_rank_compare)
@@ -241,7 +231,7 @@ def _cmp(xp, ctx, op, sig=None):
                 out[i] = int(op(x, y))
         return out, and_valid(xp, va, vb)
     da, va, db, vb = _coerce_pair(xp, ctx, 0, 1)
-    return _as_i64(op(da, db)), and_valid(xp, va, vb)
+    return astype(xp, op(da, db), "int64"), and_valid(xp, va, vb)
 
 
 def _cmp_const_fast(xp, ctx, sig):
@@ -266,7 +256,7 @@ def _cmp_const_fast(xp, ctx, sig):
         if s in ("eq", "ne"):
             code = col_dict.try_encode(val)
             res = (dcol == code) if s == "eq" else (dcol != code)
-            return _as_i64(res), and_valid(xp, vcol, vconst)
+            return res.astype("int64"), and_valid(xp, vcol, vconst)
         if not col_dict.sorted:
             return None  # ordering needs order-preserving codes
         import bisect
@@ -280,7 +270,7 @@ def _cmp_const_fast(xp, ctx, sig):
             res = dcol >= bisect.bisect_right(vals, val)
         else:  # ge
             res = dcol >= bisect.bisect_left(vals, val)
-        return _as_i64(res), and_valid(xp, vcol, vconst)
+        return res.astype("int64"), and_valid(xp, vcol, vconst)
     return None
 
 
@@ -336,7 +326,7 @@ def _in(xp, args, ctx):
     if hit is None:
         hit = d == d  # empty list after nulls: all False
         hit = hit & False
-    res = hit.astype("int64") if hasattr(hit, "astype") else int(hit)
+    res = astype(xp, hit, "int64")
     validity = v
     if any_null:
         # x IN (..., NULL): FALSE becomes NULL
@@ -367,7 +357,7 @@ def _and(xp, args, ctx):
     res = ta & tb
     is_false = fa | fb
     valid = is_false | (ta & tb)
-    return res.astype("int64"), valid if (na is not None or nb is not None) else None
+    return astype(xp, res, "int64"), valid if (na is not None or nb is not None) else None
 
 
 @register("or", infer_bool)
@@ -378,7 +368,7 @@ def _or(xp, args, ctx):
     res = ta | tb
     is_true = res
     valid = is_true | (fa & fb)
-    return res.astype("int64"), valid if (na is not None or nb is not None) else None
+    return astype(xp, res, "int64"), valid if (na is not None or nb is not None) else None
 
 
 @register("not", infer_bool, arity=1)
@@ -387,14 +377,14 @@ def _not(xp, args, ctx):
     res = d == 0
     # scalar lane from a constant-folded child (e.g. ISNULL on a folded
     # string function) yields a python bool, not an array
-    return res.astype("int64") if hasattr(res, "astype") else int(res), v
+    return astype(xp, res, "int64"), v
 
 
 @register("xor", infer_bool)
 def _xor(xp, args, ctx):
     (da, va), (db, vb) = args
     res = xp.asarray((da != 0) ^ (db != 0))  # scalar const ^ const is a bool
-    return res.astype("int64"), and_valid(xp, va, vb)
+    return astype(xp, res, "int64"), and_valid(xp, va, vb)
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +397,10 @@ def _isnull(xp, args, ctx):
     (d, v) = args[0]
     if v is None or v is True:  # scalar True: constant-folded valid value
         z = d != d  # all False
-        return z.astype("int64") if hasattr(z, "astype") else 0, None
+        return astype(xp, z, "int64"), None
     if v is False:
-        return (d * 0 + 1).astype("int64") if hasattr(d, "astype") else 1, None
-    return (~v).astype("int64"), None
+        return astype(xp, d * 0 + 1, "int64"), None
+    return astype(xp, ~v, "int64"), None
 
 
 def _string_rows(ctx, i):
@@ -476,13 +466,13 @@ def _nulleq(xp, args, ctx):
     ``=`` — only the NULL handling differs."""
     (da, va), (db, vb) = args
     eq_d, eq_v = _cmp(xp, ctx, lambda a, b: a == b, "eq")
-    null_a = xp.zeros(ctx.n, bool) if va is None else ~xp.broadcast_to(xp.asarray(va), (ctx.n,))
-    null_b = xp.zeros(ctx.n, bool) if vb is None else ~xp.broadcast_to(xp.asarray(vb), (ctx.n,))
+    null_a = zeros_n(xp, ctx.n, bool, (da, db)) if va is None else ~xp.broadcast_to(xp.asarray(va), (ctx.n,))
+    null_b = zeros_n(xp, ctx.n, bool, (da, db)) if vb is None else ~xp.broadcast_to(xp.asarray(vb), (ctx.n,))
     eq = xp.broadcast_to(xp.asarray(eq_d) != 0, (ctx.n,))
     if eq_v is not None and eq_v is not True:
         eq = eq & xp.broadcast_to(xp.asarray(eq_v), (ctx.n,))
     out = xp.where(null_a | null_b, null_a & null_b, eq)
-    return out.astype(xp.int64), None
+    return astype(xp, out, xp.int64), None
 
 
 def _infer_case(args):
@@ -556,7 +546,7 @@ def _ceil(xp, args, ctx):
         f = 10**t.scale
         return -((-d) // f), v
     if t.kind == TypeKind.FLOAT:
-        return xp.ceil(d).astype("int64"), v
+        return to_i64(xp, xp.ceil(d)), v
     return d, v
 
 
@@ -567,7 +557,7 @@ def _floor(xp, args, ctx):
     if t.kind == TypeKind.DECIMAL:
         return d // (10**t.scale), v
     if t.kind == TypeKind.FLOAT:
-        return xp.floor(d).astype("int64"), v
+        return to_i64(xp, xp.floor(d)), v
     return d, v
 
 
@@ -587,7 +577,7 @@ def _round(xp, args, ctx):
         return q, v
     if t.kind == TypeKind.FLOAT:
         f = 10.0**nd
-        return xp.where(d >= 0, xp.floor(d * f + 0.5), xp.ceil(d * f - 0.5)) / f, v
+        return true_div(xp, xp.where(d >= 0, xp.floor(d * f + 0.5), xp.ceil(d * f - 0.5)), f), v
     if nd >= 0:
         return d, v
     f = 10 ** (-nd)
@@ -597,7 +587,7 @@ def _round(xp, args, ctx):
 @register("sqrt", infer_double, arity=1)
 def _sqrt(xp, args, ctx):
     (d, v) = args[0]
-    d = d * 1.0
+    d = to_f64(xp, d)
     ok = d >= 0
     return xp.where(ok, xp.sqrt(xp.where(ok, d, 0.0)), 0.0), and_valid(xp, v, ok)
 
@@ -605,17 +595,17 @@ def _sqrt(xp, args, ctx):
 @register("pow", infer_double)
 def _pow(xp, args, ctx):
     (da, va), (db, vb) = args
-    return xp.power(da * 1.0, db * 1.0), and_valid(xp, va, vb)
+    return xp.power(to_f64(xp, da), to_f64(xp, db)), and_valid(xp, va, vb)
 
 
 @register("exp", infer_double, arity=1)
 def _exp(xp, args, ctx):
     (d, v) = args[0]
-    return xp.exp(d * 1.0), v
+    return xp.exp(to_f64(xp, d)), v
 
 
 def _log_impl(xp, d, v, base_log):
-    d = d * 1.0
+    d = to_f64(xp, d)
     ok = d > 0
     return base_log(xp.where(ok, d, 1.0)), and_valid(xp, v, ok)
 
@@ -641,29 +631,14 @@ def _log10(xp, args, ctx):
 @register("sign", lambda args: bigint_type(), arity=1)
 def _sign(xp, args, ctx):
     (d, v) = args[0]
-    return xp.sign(d).astype("int64"), v
+    return to_i64(xp, xp.sign(d)), v
 
 
 @register("bit_count", lambda args: bigint_type(), arity=1)
 def _bit_count(xp, args, ctx):
     (d, v) = args[0]
     # popcount over the two's-complement uint64 view (MySQL BIT_COUNT(-1)=64)
-    if getattr(xp, "__name__", "") == "torch":
-        # torch has no bitwise_count: SWAR over the two 32-bit halves, each
-        # held non-negative in int64 so no shift sees a sign bit
-        d = xp.as_tensor(d, dtype=xp.int64)
-        total = 0
-        for half in (d & 0xFFFFFFFF, (d >> 32) & 0xFFFFFFFF):
-            x = half - ((half >> 1) & 0x55555555)
-            x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-            x = (x + (x >> 4)) & 0x0F0F0F0F
-            total = total + (((x * 0x01010101) & 0xFFFFFFFF) >> 24)
-        return xp.atleast_1d(total), v
-    import numpy as np
-
-    arr = np.atleast_1d(np.asarray(d, dtype=np.int64)).view(np.uint64)
-    bits = np.unpackbits(arr.view(np.uint8)).reshape(len(arr), 64).sum(axis=1)
-    return bits.astype(np.int64), v
+    return popcount64(xp, d), v
 
 
 # ---------------------------------------------------------------------------
@@ -753,7 +728,7 @@ def _cast_int(xp, args, ctx):
         f = 10**t.scale
         return xp.sign(d) * ((xp.abs(d) + f // 2) // f), v
     if t.kind == TypeKind.FLOAT:
-        return xp.where(d >= 0, xp.floor(d + 0.5), xp.ceil(d - 0.5)).astype("int64"), v
+        return to_i64(xp, xp.where(d >= 0, xp.floor(d + 0.5), xp.ceil(d - 0.5))), v
     return d, v
 
 
@@ -769,8 +744,8 @@ def _cast_float(xp, args, ctx):
         valid = np.array([x is not None for x in vals], dtype=bool)
         return data, valid
     if t.kind == TypeKind.DECIMAL:
-        return d / (10**t.scale), v
-    return d * 1.0, v
+        return dec_to_f64(xp, d, t.scale), v
+    return to_f64(xp, d), v
 
 
 @register("cast_decimal", lambda args: args[0], arity=1)
@@ -811,7 +786,7 @@ def _cast_decimal(xp, args, ctx):
         return xp.sign(d) * ((xp.abs(d) + f // 2) // f), v
     if t.kind == TypeKind.FLOAT:
         scaled = d * (10.0**target.scale)
-        return xp.where(scaled >= 0, xp.floor(scaled + 0.5), xp.ceil(scaled - 0.5)).astype("int64"), v
+        return to_i64(xp, xp.where(scaled >= 0, xp.floor(scaled + 0.5), xp.ceil(scaled - 0.5))), v
     return d * (10**target.scale), v
 
 
@@ -825,7 +800,7 @@ def _civil_from_days(xp, days):
     # integer division is emulated on TPU (each i64 div compiles to a large
     # multiword sequence — a chain of them made WEEK()-style expressions
     # take minutes to compile); 32-bit division lowers natively
-    z = xp.asarray(days + 719468).astype(xp.int32)
+    z = astype(xp, xp.asarray(days + 719468), xp.int32)
     era = z // 146097
     doe = z - era * 146097
     yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
@@ -876,7 +851,7 @@ def _fold_extreme(xp, ctx, op):
         ft = ctx.arg_types[i]
         dd = xp.asarray(dd)
         if rft.kind == TypeKind.FLOAT:
-            dd = dd / (10.0 ** ft.scale) if ft.kind == TypeKind.DECIMAL else dd * 1.0
+            dd = dec_to_f64(xp, dd, ft.scale) if ft.kind == TypeKind.DECIMAL else to_f64(xp, dd)
         elif rft.kind == TypeKind.DECIMAL:
             ds = ft.scale if ft.kind == TypeKind.DECIMAL else 0
             dd = dd * (10 ** (rft.scale - ds))
@@ -916,7 +891,7 @@ def _truncate(xp, args, ctx):
         return q, and_valid(xp, v, nv)
     if ft.kind == TypeKind.FLOAT:
         m = 10.0 ** k
-        return xp.trunc(xp.asarray(d) * m) / m, and_valid(xp, v, nv)
+        return true_div(xp, xp.trunc(xp.asarray(d) * m), m), and_valid(xp, v, nv)
     if k >= 0:
         return d, and_valid(xp, v, nv)
     return _trunc_step(d, 10 ** (-k)), and_valid(xp, v, nv)
@@ -1510,11 +1485,11 @@ def _json_type(xp, args, ctx):
 def _days_from_civil(xp, y, m, d):
     """Inverse of _civil_from_days (Howard Hinnant's civil_from_days).
     int32 math — see _civil_from_days for why."""
-    y = xp.asarray(y).astype(xp.int32) - (m <= 2)
+    y = astype(xp, xp.asarray(y), xp.int32) - astype(xp, xp.asarray(m <= 2), xp.int32)
     era = xp.where(y >= 0, y, y - 399) // 400
     yoe = y - era * 400
-    mp = xp.asarray(m).astype(xp.int32) + xp.where(m > 2, -3, 9)
-    doy = (153 * mp + 2) // 5 + xp.asarray(d).astype(xp.int32) - 1
+    mp = astype(xp, xp.asarray(m), xp.int32) + xp.where(m > 2, -3, 9)
+    doy = (153 * mp + 2) // 5 + astype(xp, xp.asarray(d), xp.int32) - 1
     doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
     return era * 146097 + doe - 719468
 
@@ -1760,32 +1735,32 @@ def _uint_ft(args):
 @register("bitand", _uint_ft, arity=2)
 def _bitand(xp, args, ctx):
     (da, va), (db, vb) = args
-    return xp.asarray(da).astype(xp.int64) & xp.asarray(db).astype(xp.int64), and_valid(xp, va, vb)
+    return astype(xp, xp.asarray(da), xp.int64) & astype(xp, xp.asarray(db), xp.int64), and_valid(xp, va, vb)
 
 
 @register("bitor", _uint_ft, arity=2)
 def _bitor(xp, args, ctx):
     (da, va), (db, vb) = args
-    return xp.asarray(da).astype(xp.int64) | xp.asarray(db).astype(xp.int64), and_valid(xp, va, vb)
+    return astype(xp, xp.asarray(da), xp.int64) | astype(xp, xp.asarray(db), xp.int64), and_valid(xp, va, vb)
 
 
 @register("bitxor", _uint_ft, arity=2)
 def _bitxor(xp, args, ctx):
     (da, va), (db, vb) = args
-    return xp.asarray(da).astype(xp.int64) ^ xp.asarray(db).astype(xp.int64), and_valid(xp, va, vb)
+    return astype(xp, xp.asarray(da), xp.int64) ^ astype(xp, xp.asarray(db), xp.int64), and_valid(xp, va, vb)
 
 
 @register("bitneg", _uint_ft, arity=1)
 def _bitneg(xp, args, ctx):
     (d, v) = args[0]
-    return ~xp.asarray(d).astype(xp.int64), v
+    return ~astype(xp, xp.asarray(d), xp.int64), v
 
 
 def _shift(xp, da, db, left: bool):
-    a = xp.asarray(da).astype(xp.int64)
-    b = xp.asarray(db).astype(xp.int64)
+    a = astype(xp, xp.asarray(da), xp.int64)
+    b = astype(xp, xp.asarray(db), xp.int64)
     safe = xp.clip(b, 0, 63)
-    out = (a << safe) if left else ((a.astype(xp.uint64) >> safe.astype(xp.uint64)).astype(xp.int64))
+    out = (a << safe) if left else logical_shr(xp, a, safe)
     # MySQL: shifts outside [0, 64) yield 0 (operands are 64-bit unsigned)
     return xp.where((b < 0) | (b >= 64), 0, out)
 
@@ -2330,25 +2305,25 @@ def _concat_ws(xp, args, ctx):
 @register("sin", infer_double, arity=1)
 def _sin(xp, args, ctx):
     (d, v) = args[0]
-    return xp.sin(d * 1.0), v
+    return xp.sin(to_f64(xp, d)), v
 
 
 @register("cos", infer_double, arity=1)
 def _cos(xp, args, ctx):
     (d, v) = args[0]
-    return xp.cos(d * 1.0), v
+    return xp.cos(to_f64(xp, d)), v
 
 
 @register("tan", infer_double, arity=1)
 def _tan(xp, args, ctx):
     (d, v) = args[0]
-    return xp.tan(d * 1.0), v
+    return xp.tan(to_f64(xp, d)), v
 
 
 @register("cot", infer_double, arity=1)
 def _cot(xp, args, ctx):
     (d, v) = args[0]
-    t = xp.tan(d * 1.0)
+    t = xp.tan(to_f64(xp, d))
     ok = t != 0
     return xp.where(ok, 1.0 / xp.where(ok, t, 1.0), 0.0), and_valid(xp, v, ok)
 
@@ -2356,7 +2331,7 @@ def _cot(xp, args, ctx):
 @register("asin", infer_double, arity=1)
 def _asin(xp, args, ctx):
     (d, v) = args[0]
-    d = d * 1.0
+    d = to_f64(xp, d)
     ok = (d >= -1) & (d <= 1)
     return xp.arcsin(xp.where(ok, d, 0.0)), and_valid(xp, v, ok)
 
@@ -2364,7 +2339,7 @@ def _asin(xp, args, ctx):
 @register("acos", infer_double, arity=1)
 def _acos(xp, args, ctx):
     (d, v) = args[0]
-    d = d * 1.0
+    d = to_f64(xp, d)
     ok = (d >= -1) & (d <= 1)
     return xp.arccos(xp.where(ok, d, 0.0)), and_valid(xp, v, ok)
 
@@ -2373,27 +2348,27 @@ def _acos(xp, args, ctx):
 def _atan(xp, args, ctx):
     (d, v) = args[0]
     if len(args) == 1:
-        return xp.arctan(d * 1.0), v
+        return xp.arctan(to_f64(xp, d)), v
     (d2, v2) = args[1]  # ATAN(y, x) == ATAN2(y, x)
-    return xp.arctan2(d * 1.0, d2 * 1.0), and_valid(xp, v, v2)
+    return xp.arctan2(to_f64(xp, d), to_f64(xp, d2)), and_valid(xp, v, v2)
 
 
 @register("atan2", infer_double)
 def _atan2(xp, args, ctx):
     (da, va), (db, vb) = args
-    return xp.arctan2(da * 1.0, db * 1.0), and_valid(xp, va, vb)
+    return xp.arctan2(to_f64(xp, da), to_f64(xp, db)), and_valid(xp, va, vb)
 
 
 @register("degrees", infer_double, arity=1)
 def _degrees(xp, args, ctx):
     (d, v) = args[0]
-    return d * (180.0 / 3.141592653589793), v
+    return to_f64(xp, d) * (180.0 / 3.141592653589793), v
 
 
 @register("radians", infer_double, arity=1)
 def _radians(xp, args, ctx):
     (d, v) = args[0]
-    return d * (3.141592653589793 / 180.0), v
+    return to_f64(xp, d) * (3.141592653589793 / 180.0), v
 
 
 @register("crc32", lambda args: FieldType(TypeKind.UINT, nullable=True), engines=HOST_ONLY, arity=1)
@@ -2855,8 +2830,8 @@ def _tsdiff_months(xp, args, ctx):
     ua = _temporal_micros(xp, ctx, 0, ctx.args)
     ub = _temporal_micros(xp, ctx, 1, ctx.args)
     day_us = 86_400_000_000
-    p1 = d1.astype("int64") * day_us + (ua[0] % day_us if ua is not None else 0)
-    p2 = d2.astype("int64") * day_us + (ub[0] % day_us if ub is not None else 0)
-    months = (y2.astype("int64") - y1) * 12 + (m2 - m1)
-    months = months - ((months > 0) & (p2 < p1)) + ((months < 0) & (p2 > p1))
+    p1 = astype(xp, d1, "int64") * day_us + (ua[0] % day_us if ua is not None else 0)
+    p2 = astype(xp, d2, "int64") * day_us + (ub[0] % day_us if ub is not None else 0)
+    months = (astype(xp, y2, "int64") - y1) * 12 + (m2 - m1)
+    months = months - astype(xp, (months > 0) & (p2 < p1), "int64") + ((months < 0) & (p2 > p1))
     return months, and_valid(xp, va, vb)

@@ -250,8 +250,12 @@ def _const_physical(c: Constant, xp):
 
 
 def eval_expr(expr: Expression, batch: EvalBatch, xp=np):
-    """→ (data, validity, dictionary|None). Fully traceable under jax.jit
-    when every builtin in the tree is tpu-legal and strings are pre-bound."""
+    """→ (data, validity, dictionary|None). With ``xp=torch`` every
+    builtin runs on tensors through ``expression.arrays`` (numpy's spelling
+    over torch) when every builtin in the tree is gpu-legal and strings are
+    pre-bound."""
+    if getattr(xp, "__name__", "") == "torch":
+        from tidb_tpu_torch.expression import arrays as xp
     if isinstance(expr, ColumnRef):
         d, v = batch.cols[expr.index]
         return d, v, batch.dicts[expr.index]

@@ -25,10 +25,6 @@ from tidb_tpu_torch.types.field_type import bool_type, double_type, merge_types
 
 ALL_ENGINES = frozenset({"host", "gpu"})
 HOST_ONLY = frozenset({"host"})
-# the builtins the GPU engine's device evaluation carries (torch-capable
-# bodies in eval.py); every other builtin is host-only here, so the
-# planner's legality gate keeps it off the device at plan time
-GPU_BUILTINS = frozenset({"plus", "minus", "mul", "lt", "le", "ge"})
 
 
 @dataclass
@@ -47,9 +43,6 @@ REGISTRY: dict[str, FuncSpec] = {}
 
 
 def register(name: str, infer, engines=ALL_ENGINES, variadic=False, arity=2):
-    if name not in GPU_BUILTINS:
-        engines = engines - {"gpu"}
-
     def deco(fn):
         REGISTRY[name] = FuncSpec(name, fn, infer, engines, variadic, arity)
         return fn
