@@ -67,7 +67,22 @@
    card against the same body in numpy on the host, printed as one
    ``{"builtins": {...}}`` line (names exact, names within tolerance,
    the worst float distance in ulps).
-8. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+8. Windows, over the phase-3 columns loaded as ONE region (two blocks:
+   the reference bench's layout): the eight ``WINDOW_QUERIES`` (bench.py's
+   WINDOWED; RANK/DENSE_RANK/PERCENT_RANK/CUME_DIST; LAG/LEAD/NTILE/
+   FIRST_VALUE/LAST_VALUE over 10,000 supplier partitions; a bounded ROWS
+   frame; running MIN/MAX; a string order key; a window then TopN; a
+   window over a 1.5M-group aggregate at the root), each once cold and
+   five times warm, each equal to the port's host engine on the same
+   database, on ``gpu``, none degraded, the window inside the task (path
+   ``fused``) but for the root one, whose cost-model choice is printed.
+   Prints per statement the packed sort key's bits, the warm median, the
+   cop-task walls, the host engine's wall and one profiled task's device
+   busy time and top ops. Then ``htap_writes`` on this database: WINDOWED
+   merges the pending delta first and equals the host engine. Last, the
+   ``{"window_costs": ...}`` line: both sides of the root's device/host
+   cost model at the root window's input, and the constants they imply.
+9. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
    ``launches_delta_path`` and ``launches_builtins_path`` the DAG, HTAP
    and builtins phases'), then, last, the ``{"ok": true, "device":
@@ -1298,6 +1313,13 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"builtins phase: {time.perf_counter() - t0:.1f} s; K1 launches on the builtins path {builtin_launches}")
     print(json.dumps({"builtins": _builtins_check(args.seed)}))
+
+    # 8. windows: one SF1 region, the window program in the task and at the root
+    t0 = time.perf_counter()
+    costs = _window_phase(cols, args.seed)
+    torch.cuda.synchronize()
+    print(json.dumps({"window_costs": costs}))
+    print(f"window phase: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1741,6 +1763,350 @@ def _builtins_check(seed: int, n: int = BUILTIN_ROWS, device: str = "cuda") -> d
         "within_tolerance": sum(v == "within_tolerance" for v in status.values()),
         "worst_float_ulp": max(ulps.values(), default=0.0), "ulp_by_name": ulps,
         "saturated_rows": saturated, "subnormal_rows": subnormal, "seconds": round(time.perf_counter() - t0, 3),
+    }
+
+
+# -- windows: the sorted-batch window program in the region task and at the
+# root, over one SF1 region (the reference bench's layout, bench.py:67)
+
+_WIN_SUPP = "PARTITION BY l_suppkey ORDER BY l_orderkey"
+WINDOW_QUERIES = {
+    # bench.py's WINDOWED, verbatim
+    "win": """SELECT l_returnflag, MAX(rn), MAX(cum) FROM (
+    SELECT l_returnflag,
+           ROW_NUMBER() OVER (PARTITION BY l_returnflag ORDER BY l_extendedprice) AS rn,
+           SUM(l_quantity) OVER (PARTITION BY l_returnflag ORDER BY l_extendedprice) AS cum
+    FROM lineitem WHERE l_shipdate < DATE '1994-01-01') t
+    GROUP BY l_returnflag ORDER BY l_returnflag""",
+    # the doubles sum as integers (1e-9 units: exact in any order), and their
+    # extremes compare as doubles
+    "ranks": """SELECT l_returnflag, l_linestatus, SUM(r), SUM(dr), SUM(CAST(pr * 1000000000 AS SIGNED)),
+      SUM(CAST(cd * 1000000000 AS SIGNED)), MAX(pr), MIN(cd) FROM (
+    SELECT l_returnflag, l_linestatus,
+      RANK() OVER (PARTITION BY l_returnflag, l_linestatus ORDER BY l_quantity DESC) AS r,
+      DENSE_RANK() OVER (PARTITION BY l_returnflag, l_linestatus ORDER BY l_quantity DESC) AS dr,
+      PERCENT_RANK() OVER (PARTITION BY l_returnflag, l_linestatus ORDER BY l_quantity DESC) AS pr,
+      CUME_DIST() OVER (PARTITION BY l_returnflag, l_linestatus ORDER BY l_quantity DESC) AS cd
+    FROM lineitem) t GROUP BY l_returnflag, l_linestatus ORDER BY l_returnflag, l_linestatus""",
+    "leadlag": """SELECT COUNT(*), SUM(lg), COUNT(lg), SUM(ld), SUM(nt), SUM(fv), SUM(lv) FROM (
+    SELECT LAG(l_extendedprice) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate) AS lg,
+      LEAD(l_quantity, 2, 0) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate) AS ld,
+      NTILE(4) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate) AS nt,
+      FIRST_VALUE(l_orderkey) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate) AS fv,
+      LAST_VALUE(l_orderkey) OVER (PARTITION BY l_suppkey ORDER BY l_shipdate) AS lv
+    FROM lineitem) t""",
+    "frames": f"""SELECT SUM(sq), SUM(ap), SUM(cd) FROM (
+    SELECT SUM(l_quantity) OVER ({_WIN_SUPP} ROWS BETWEEN 3 PRECEDING AND 1 FOLLOWING) AS sq,
+      AVG(l_extendedprice) OVER ({_WIN_SUPP} ROWS BETWEEN 3 PRECEDING AND 1 FOLLOWING) AS ap,
+      COUNT(l_discount) OVER ({_WIN_SUPP} ROWS BETWEEN 3 PRECEDING AND 1 FOLLOWING) AS cd
+    FROM lineitem) t""",
+    "running": f"""SELECT SUM(mn), SUM(mx) FROM (
+    SELECT MIN(l_extendedprice) OVER ({_WIN_SUPP}) AS mn, MAX(l_quantity) OVER ({_WIN_SUPP}) AS mx
+    FROM lineitem) t""",
+    "strord": """SELECT l_returnflag, SUM(r), SUM(dr), COUNT(*) FROM (
+    SELECT l_returnflag, RANK() OVER (PARTITION BY l_returnflag ORDER BY l_shipmode) AS r,
+      DENSE_RANK() OVER (PARTITION BY l_returnflag ORDER BY l_shipmode) AS dr
+    FROM lineitem) t GROUP BY l_returnflag ORDER BY l_returnflag""",
+    "wtopn": """SELECT * FROM (
+    SELECT l_orderkey, l_linenumber, l_extendedprice,
+      ROW_NUMBER() OVER (ORDER BY l_extendedprice DESC) AS rn
+    FROM lineitem) t ORDER BY rn LIMIT 10""",
+    # a window over an aggregate (1.5M groups): the root's WindowExec
+    "rootwin": """SELECT COUNT(*), SUM(r), MAX(r) FROM (
+    SELECT RANK() OVER (ORDER BY s DESC) AS r FROM (
+      SELECT l_orderkey, SUM(l_quantity) AS s FROM lineitem GROUP BY l_orderkey) t1) t2""",
+}
+WINDOW_ROOT = "rootwin"
+
+# window_program cases (name, has_arg, arg_is_float, c0, c1, c2_is_float)
+# and the argument lane each reads ("i" integer/decimal, "f" double)
+WINDOW_SPECS = [
+    (("row_number", False, False, 0, 0, False), None),
+    (("rank", False, False, 0, 0, False), None),
+    (("dense_rank", False, False, 0, 0, False), None),
+    (("percent_rank", False, False, 0, 0, False), None),
+    (("cume_dist", False, False, 0, 0, False), None),
+    (("ntile", False, False, 4, 0, False), None),
+    (("ntile", False, False, 7, 0, False), None),
+    (("lead", True, False, 2, 0, False), "i"),  # NULL default
+    (("lag", True, False, 1, -7, True), "i"),  # constant default
+    (("lag", True, True, 3, 2.5, True), "f"),
+    (("lead", True, True, 1, 0, False), "f"),
+    (("first_value", True, False, 0, 0, False), "i"),
+    (("last_value", True, True, 0, 0, False), "f"),
+    (("count", False, False, 0, 0, False), None),  # COUNT(*)
+    (("count", True, False, 0, 0, False), "i"),
+    (("sum", True, False, 0, 0, False), "i"),
+    (("sum", True, True, 0, 0, False), "f"),
+    (("avg", True, False, 10**4, 0, False), "i"),  # DECIMAL(.., 2) → scale 6
+    (("avg", True, True, 0, 0, False), "f"),
+    (("min", True, False, 0, 0, False), "i"),
+    (("max", True, False, 0, 0, False), "i"),
+    (("min", True, True, 0, 0, False), "f"),
+    (("max", True, True, 0, 0, False), "f"),
+]
+
+
+def window_batch(sort: str, n: int, seed: int, n_part: int = 1):
+    """Seeded window_program inputs: (mask, partition lanes, order lanes,
+    order descs, argument lanes by kind, sort bounds). ``sort`` picks the
+    sort the bounds lead to: "int32" (a packed key of at most 31 bits),
+    "int64" (32..62 bits) or "multilane" (a double order key, no bounds).
+    A padded tail and random filtered rows are dead; NULL slots of every
+    lane hold garbage values; ~5 % of the keys and ~15 % of the arguments
+    are NULL."""
+    from tidb_tpu_torch.ops.window_core import widen_bounds
+
+    rng = np.random.default_rng(seed)
+    mask = (np.arange(n) < n - n // 8) & (rng.random(n) > 0.1)
+
+    def lane(vals, p_null):
+        valid = rng.random(n) > p_null
+        garbage = rng.integers(-(1 << 40), 1 << 40, n).astype(vals.dtype)
+        return np.where(valid, vals, garbage), valid
+
+    part_dom = 5 if sort != "int64" else 1 << 10
+    parts = [lane(rng.integers(0, part_dom, n), 0.05) for _ in range(n_part)]
+    if sort == "int32":
+        orders, descs = [lane(rng.integers(0, 100, n), 0.05)], [True]
+    elif sort == "int64":
+        orders = [lane(rng.integers(-(1 << 20), 1 << 20, n), 0.05), lane(rng.integers(0, 6, n), 0.1)]
+        descs = [False, True]
+    else:
+        orders = [lane(rng.integers(0, 9, n), 0.05), lane(np.round(rng.random(n) * 50, 1), 0.05)]
+        descs = [False, True]
+    args = {"i": lane(rng.integers(-10**6, 10**6, n), 0.15), "f": lane(rng.normal(0, 1e3, n), 0.15)}
+    bounds = None
+    if sort != "multilane":
+        bounds = widen_bounds([(int(d[v].min()), int(d[v].max())) for d, v in parts + orders])
+    return mask, parts, orders, descs, args, bounds
+
+
+def _window_key_bits(bounds, n: int):
+    """The packed sort key's bits (live bit included), or None."""
+    from tidb_tpu_torch.ops.window_core import packed_bits
+
+    widths = packed_bits(bounds, n)
+    return None if widths is None else 1 + sum(max(int(w - 1).bit_length(), 1) for w in widths)
+
+
+def _window_phase(cols: dict, seed: int, reps: int = 5, device: str = "cuda"):
+    """``WINDOW_QUERIES`` through ``tidb_tpu_torch.open`` over ``cols`` as
+    ONE region (6,001,215 rows, two blocks: the fused window program runs
+    over 8,388,608 rows), each once cold and ``reps`` times warm. Every
+    statement must equal the port's host engine on the same database
+    (integers and decimals exact, doubles within ``FLOAT_REL``); every cop
+    task must run on ``gpu``, none degraded, and each statement but
+    ``rootwin`` must carry its window inside its task (path ``fused``);
+    ``rootwin``'s window runs on the root, and the phase prints where the
+    cost model sent it. Prints per statement the packed key's bits, the
+    warm median, the cop-task walls, the host engine's wall and the device
+    busy time and top ops of one profiled task. Then commits
+    ``htap_writes``: ``win`` must merge the pending delta first and equal
+    the host engine. Last, times both sides of the root's cost model at
+    ``rootwin``'s input (``_window_costs``). → the cost model's line."""
+    import tidb_tpu_torch
+    from tidb_tpu_torch.copr import colcache, gpu_engine
+    from tidb_tpu_torch.copr.binder import Binder
+    from tidb_tpu_torch.executor import executors
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+    from tidb_tpu_torch.ops import window_kernel as wk
+
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+    load_s = lineitem_sql(db, bulk_load, record_key, cols, parts=1)
+    if len(db.store.regions()) != 1:
+        raise AssertionError(f"window phase: {len(db.store.regions())} regions, not one")
+    print(f"window: bulk load {load_s:.3f} s, {len(cols[0])} rows, one region")
+    s, host = db.session(), db.session()
+    host.execute("SET tidb_isolation_read_engines='host'")
+    tasks, roots = [], []
+    real_exec, real_try = gpu_engine.execute_region, executors.WindowExec._try_device
+
+    def recording_exec(region, dag, ranges, warn=None, device="cuda", stats=None):
+        stats = {} if stats is None else stats
+        tasks.append((region, dag, ranges, stats))
+        return real_exec(region, dag, ranges, warn, device, stats)
+
+    def recording_try(self, chunk, n):
+        out = real_try(self, chunk, n)
+        roots.append((self, chunk, n, out is not None))
+        return out
+
+    def run(name, sess=s, engine="gpu"):
+        del tasks[:], roots[:]
+        t0 = time.perf_counter()
+        rows = sess.query(WINDOW_QUERIES[name])
+        wall = (time.perf_counter() - t0) * 1e3
+        summ = sess.exec_summary
+        if summ is None or summ.engines != {engine: 1} or summ.degraded:
+            raise AssertionError(f"window {name}: cop tasks {summ and summ.engines}, degraded {summ and summ.degraded}")
+        if engine == "gpu":
+            win_tasks = [t for t in tasks if gpu_engine._has_window(t[1])]
+            want_tasks = 0 if name == WINDOW_ROOT else 1
+            if len(win_tasks) != want_tasks or any(t[3]["path"] != "fused" for t in win_tasks):
+                raise AssertionError(f"window {name}: window tasks {[(t[3].get('path')) for t in win_tasks]}")
+        return rows, wall, summ
+
+    gpu_engine.execute_region, executors.WindowExec._try_device = recording_exec, recording_try
+    try:
+        host_rows = {}
+        for name in WINDOW_QUERIES:
+            t0 = time.perf_counter()
+            host_rows[name] = run(name, host, "host")[0]
+            host_ms = (time.perf_counter() - t0) * 1e3
+            rows, cold, _summ = run(name)
+            if not rows_match(rows, host_rows[name]):
+                raise AssertionError(f"window {name}: rows disagree with the host engine: {rows[:3]} against "
+                                     f"{host_rows[name][:3]}")
+            if name == WINDOW_ROOT:
+                (wexec, chunk, n, on_card), = roots
+                nf = len(wexec.plan.funcs)
+                choice = wk.device_beats_host(n, len(wexec.plan.order_by) + len(wexec.plan.partition_by), nf)
+                where = f"root window over {n} rows, cost model picks {'the card' if choice else 'the host'}; " \
+                        f"ran on {'the card' if on_card else 'the host'}"
+                profiled = lambda: real_try(wexec, chunk, n)  # noqa: E731
+                bits = "in the cost line"
+            else:
+                region, dag, ranges, st = next(t for t in tasks if gpu_engine._has_window(t[1]))
+                scan = dag.executors[0]
+                bound = Binder(region.cache, scan.table_id, scan.columns, region.entry).bind_dag(dag)
+                wex = next(ex for ex in bound.executors if ex.tp == "window")
+                n_total = gpu_engine._n_blocks(region.entry.n) * gpu_engine._BLOCK
+                bits = _window_key_bits([tuple(b) if b is not None else None for b in wex.sort_bounds], n_total)
+                where = f"window in the task, path {st['path']}, routes {list(st.get('routes', ()))}, n {n_total}"
+                profiled = lambda: real_exec(region, dag, ranges, device=device)  # noqa: E731
+            runs = [run(name) for _ in range(reps)]
+            for r in runs:
+                if not rows_match(r[0], host_rows[name]):
+                    raise AssertionError(f"window {name}: a warm run disagrees with the host engine")
+            walls = [w for _r, w, _m in runs]
+            med = statistics.median(walls)
+            kernels = _profile_device(profiled)
+            busy = sum(k[1] for k in kernels) if kernels else None
+            print(f"window {name}: {where}; key bits {bits}; cold_ms {cold:.3f}; warm sql_ms median {med:.3f} "
+                  f"min {min(walls):.3f}; cop_task_sum_ms median {statistics.median(sum(m.procs) for _r, _w, m in runs):.3f}; "
+                  f"cop_task_max_ms median {statistics.median(max(m.procs) for _r, _w, m in runs):.3f}; "
+                  f"host engine ms {host_ms:.3f} (host/gpu {host_ms / med:.2f}x); profiled device_busy_ms {_ms(busy)}; "
+                  f"rows {len(rows)}")
+            for k, ms, calls in kernels[:4]:
+                print(f"    top op {ms:.3f} ms x{calls}: {k[:110]}")
+
+        # a window read after writes: the delta folds into the base first
+        updates, deletes, insert, after, d1, d2 = htap_writes(cols, seed)
+        commit_rows(db, updates, ())
+        commit_rows(db, {}, deletes)
+        db.execute(insert)
+        s.query("SELECT COUNT(*) FROM lineitem")  # builds the delta; it stays pending
+        cache = colcache.cache_for(db.store)
+        pending = cache.delta_rows_pending()
+        if pending <= 0:
+            raise AssertionError("window: no delta pending after the writes")
+        rows, wall, summ = run("win")
+        (_r, _d, _g, st), = [t for t in tasks if gpu_engine._has_window(t[1])]
+        if st["delta_rows"] != 0 or summ.delta_rows != 0 or cache.delta_rows_pending() != 0:
+            raise AssertionError(f"window after writes: delta rows {st['delta_rows']}, {cache.delta_rows_pending()} pending")
+        want = run("win", host, "host")[0]
+        if not rows_match(rows, want) or rows == host_rows["win"]:
+            raise AssertionError("window after writes: rows disagree with the host engine, or the writes did not show")
+        print(f"window win after writes ({pending} changed handles pending): merged first, path {st['path']}, "
+              f"{wall:.3f} ms cold; equal to the host engine; {len(after[0])} rows")
+        del roots[:]
+        s.query(WINDOW_QUERIES[WINDOW_ROOT])  # rootwin's root window and its input, once more
+        (wexec, chunk, n, _on_card), = roots
+        costs = _window_costs(wexec, chunk, n, device)
+    finally:
+        gpu_engine.execute_region, executors.WindowExec._try_device = real_exec, real_try
+    db.stop_background()
+    return costs
+
+
+def _window_costs(wexec, chunk, n: int, device: str, reps: int = 5) -> dict:
+    """Both sides of ``window_kernel.device_beats_host`` at the root
+    window's input: the host sweep (WindowExec with no session) and its
+    sort; the device path whole (``_try_device``: lanes, upload, program,
+    one download) and in parts: the upload of its lanes, the program at
+    the padded size and at 1,024 rows, the download. → the constants they
+    imply, the measured walls and the model's estimate of each side."""
+    import torch
+
+    from tidb_tpu_torch.copr import gpu_engine, host_engine
+    from tidb_tpu_torch.executor.executors import WindowExec
+    from tidb_tpu_torch.ops import window_kernel as wk
+
+    p = wexec.plan
+    nf = len(p.funcs)
+    lanes_up = len(p.partition_by) + len(p.order_by)
+
+    class _Given:
+        def execute(self):
+            return chunk
+
+    def med_ms(fn, k=reps):
+        out = []
+        for _ in range(k):
+            t0 = time.perf_counter()
+            fn()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    sweep = WindowExec(plan=p, child=_Given(), session=None)
+    keys = [[e.to_pb(), False] for e in p.partition_by] + [[e.to_pb(), d] for e, d in p.order_by]
+    host_ms = med_ms(sweep.execute, 3)
+    sort_ms = med_ms(lambda: host_engine.sort_perm(chunk, keys), 3)
+    captured = {}
+    real_get = wk.get_window_fn
+
+    def capturing_get(spec, n_pad, bounds=None):
+        fn = real_get(spec, n_pad, bounds)
+
+        def wrapped(*args):
+            captured.update(spec=spec, n_pad=n_pad, bounds=bounds, fn=fn, args=args)
+            return fn(*args)
+
+        return wrapped
+
+    wk.get_window_fn = capturing_get
+    try:
+        if wexec._try_device(chunk, n) is None:
+            raise AssertionError("window costs: the root window did not take the card")
+        dev_ms = med_ms(lambda: wexec._try_device(chunk, n))
+    finally:
+        wk.get_window_fn = real_get
+    fn, args, n_pad = captured["fn"], captured["args"], captured["n_pad"]
+    part, order, arg, _nv, dev = args
+    lanes = [x for pair in part + order + arg for x in pair]
+    host_lanes = [x.cpu().numpy() for x in lanes]
+    up_bytes = sum(a.nbytes for a in host_lanes)
+    up_ms = med_ms(lambda: [torch.from_numpy(a).to(dev) for a in host_lanes])
+    prog_ms = med_ms(lambda: fn(*args))
+    small = real_get(captured["spec"], 1024, captured["bounds"])
+    cut = lambda pairs: tuple((d[:1024], v[:1024]) for d, v in pairs)  # noqa: E731
+    small_ms = med_ms(lambda: small(cut(part), cut(order), cut(arg), min(n, 1024), dev))
+    flat = fn(*args)
+    rows = torch.stack([x.view(torch.int64) if x.is_floating_point() else x.to(torch.int64) for x in flat])[:, :n]
+    down_bytes = rows.numel() * 8
+    down_ms = med_ms(lambda: gpu_engine._d2h(rows))
+    implied = {
+        "DEV_FIXED_S": small_ms / 1e3,
+        "H2D_NS_PER_BYTE": up_ms * 1e6 / up_bytes,
+        "D2H_NS_PER_BYTE": down_ms * 1e6 / down_bytes,
+        "DEV_ROW_NS_PER_FUNC": max(prog_ms - small_ms, 0.0) * 1e6 / (n * nf),
+        "HOST_ROW_NS_PER_FUNC": max(host_ms - sort_ms, 0.0) * 1e6 / (n * nf),
+        "HOST_SORT_ROW_NS": sort_ms * 1e6 / n,
+    }
+    model_dev = (wk.DEV_FIXED_S + n * (wk.H2D_NS_PER_BYTE * 9 * lanes_up + wk.D2H_NS_PER_BYTE * 16 * nf
+                                       + wk.DEV_ROW_NS_PER_FUNC * nf) * 1e-9) * 1e3
+    model_host = n * (wk.HOST_ROW_NS_PER_FUNC * nf + wk.HOST_SORT_ROW_NS) * 1e-6
+    return {
+        "rows": n, "n_pad": n_pad, "key_bits": _window_key_bits(captured["bounds"], n_pad), "funcs": nf, "lanes_up": lanes_up,
+        "host_sweep_ms": host_ms, "host_sort_ms": sort_ms, "device_path_ms": dev_ms,
+        "upload_ms": up_ms, "upload_bytes": up_bytes, "program_ms": prog_ms, "program_1024_ms": small_ms,
+        "download_ms": down_ms, "download_bytes": down_bytes,
+        "implied": implied, "model_device_ms": model_dev, "model_host_ms": model_host,
+        "device_beats_host": wk.device_beats_host(n, lanes_up, nf),
     }
 
 

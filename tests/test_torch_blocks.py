@@ -237,10 +237,6 @@ def _rollup(pb):
     pb["executors"][-1]["rollup"] = True
 
 
-def _window(pb):
-    pb["executors"].append({"tp": "window", "partition_by": [], "order_by": [], "win_funcs": [], "frame": "whole"})
-
-
 def _desc(pb):
     pb["executors"][0]["desc"] = True
 
@@ -254,8 +250,8 @@ def _many_ranges(pb):
 
 @pytest.mark.parametrize(
     "name,edit",
-    [("q1", _complete), ("band", _rollup), ("rows", _window), ("rows", _desc), ("count", _many_ranges)],
-    ids=["complete", "rollup", "window", "desc", "too_many_ranges"],
+    [("q1", _complete), ("band", _rollup), ("rows", _desc), ("count", _many_ranges)],
+    ids=["complete", "rollup", "desc", "too_many_ranges"],
 )
 def test_unported_shapes_raise_on_a_blocked_region(setup, monkeypatch, name, edit):
     db, caps, reg = setup
@@ -263,6 +259,28 @@ def test_unported_shapes_raise_on_a_blocked_region(setup, monkeypatch, name, edi
     dag, ranges = _unsupported(caps, name, edit)
     with pytest.raises(UnsupportedForDevice):
         gpu_engine.execute_region(reg, dag, ranges, device="cpu")
+
+
+WINDOW_SQL = """SELECT l_returnflag, l_quantity,
+    ROW_NUMBER() OVER (PARTITION BY l_returnflag ORDER BY l_extendedprice),
+    SUM(l_quantity) OVER (PARTITION BY l_returnflag ORDER BY l_extendedprice)
+  FROM lineitem WHERE l_discount >= 0.02"""
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_window_runs_as_one_program_on_a_blocked_region(setup, monkeypatch, layout):
+    """A partition's rows must share one computation: a window DAG runs as
+    one program over every block, whatever the fusion cap, and equals the
+    reference's fused window program row for row."""
+    db, _caps, reg = setup
+    _blocks(monkeypatch, *LAYOUTS[layout][:2])
+    dag, region, ranges, ts = te._capture(db, {"win": WINDOW_SQL})["win"]
+    assert any(ex.tp == "window" for ex in dag.executors)
+    ref = _reference(db, dag, region, ranges, ts)
+    stats = {}
+    got = gpu_engine.execute_region(reg, te._port_dag(dag), te._port_ranges(ranges), device="cpu", stats=stats)
+    assert got.rows() == ref
+    assert stats["path"] == "fused"
 
 
 def test_delta_operand_raises(setup, monkeypatch):

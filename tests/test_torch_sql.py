@@ -231,14 +231,25 @@ _WINDOW = """SELECT l_returnflag, MAX(rn), MAX(cum) FROM (
     GROUP BY l_returnflag ORDER BY l_returnflag"""
 
 
-def test_window_runs_on_the_root(x64_shim, dbs):
+def test_window_runs_on_the_root(x64_shim, dbs, monkeypatch):
+    """The window pushes into the [gpu] reader as the reference's into
+    [tpu]; over several regions its tasks carry no window and it runs on
+    the root (the cop client's host tail), at one region inside the task."""
     ref, port, parts = dbs
-    plan = [r[0] for r in port.query("EXPLAIN " + _WINDOW)]
-    assert any(line.lstrip().startswith("PhysWindow") for line in plan)
-    readers = [line for line in plan if "PhysTableReader" in line]
-    assert readers and all("[gpu]" in line and "Window(" not in line for line in readers)
+    plan = "\n".join(str(r[0]) for r in port.query("EXPLAIN " + _WINDOW))
+    assert plan == "\n".join(str(r[0]) for r in ref.query("EXPLAIN " + _WINDOW)).replace("[tpu]", "[gpu]")
+    assert "[gpu]" in plan and "Window(" in plan
+    windowed = []
+    real = gpu_engine.execute_region
+
+    def spy(region, dag, ranges, warn=None, device="cuda", stats=None):
+        windowed.append(gpu_engine._has_window(dag))
+        return real(region, dag, ranges, warn, device, stats)
+
+    monkeypatch.setattr(gpu_engine, "execute_region", spy)
     got, summ = _port_run(port, _WINDOW)
-    assert summ.engines == {"gpu": parts}
+    assert summ.engines == {"gpu": parts} and not summ.degraded
+    assert windowed == [parts == 1] * parts
     assert got == _ref_rows(ref, _WINDOW, "host") == _ref_rows(ref, _WINDOW, "tpu")
 
 

@@ -110,6 +110,7 @@ SEAMS: dict[str, frozenset] = {
     # the engine name: StoreType.GPU in place of TPU
     "kv/kv.py": frozenset({"StoreType"}),
     "session/session.py": frozenset({"DEFAULT_SYSVARS", "Session._plan_select", "Session._select", "open_db"}),
+    # window pushdown gated on StoreType.GPU
     "planner/optimizer.py": frozenset({"_demote_ci_order", "_pick_engine", "_try_push_window"}),
     # eval_expr hands a torch caller's bodies expression/arrays.py
     "expression/expr.py": frozenset({"can_push_down", "eval_expr"}),
@@ -138,9 +139,11 @@ SEAMS: dict[str, frozenset] = {
     "copr/colcache.py": frozenset(
         {"ColumnCache", "ColumnCache.__init__", "ColumnCache.add_region", "ColumnCache.ensure_sorted_dict", "ColumnCache.next_region_id"}
     ),
-    # no MPP, no device window
+    # no MPP
     "planner/plans.py": frozenset({"explain_plan"}),
-    "executor/executors.py": frozenset({"_build_executor", "WindowExec.execute", "WindowExec._try_device"}),
+    # the root window runs on the store's card through the port's window
+    # program; no MPP executor
+    "executor/executors.py": frozenset({"_build_executor", "WindowExec._try_device"}),
     # the row codec builds into the package's _build/
     "native/__init__.py": frozenset({"_OUT_DIR"}),
 }

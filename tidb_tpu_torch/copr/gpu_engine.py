@@ -19,9 +19,10 @@ the region's columns from the store's ``ColumnCache`` and runs
    - a region of at most one device block (``_BLOCK`` rows), or a
      complete-mode aggregation: one padded array, one program
      (``_exec_single``);
-   - an aggregation-last DAG over 2..``_FUSE_MAX_NB`` blocks: one program
-     over every block (``_exec_fused_blocks``) — the blocks concatenate,
-     or the int8 dot accumulates block by block;
+   - an aggregation-last DAG over 2..``_FUSE_MAX_NB`` blocks, or a window
+     DAG over any number of blocks (a partition's rows must share one
+     computation): one program over every block (``_exec_fused_blocks``) —
+     the blocks concatenate, or the int8 dot accumulates block by block;
    - anything else over several blocks: one program per block, partial
      results in block (handle) order (``_exec_blocks``); a LIMIT-last DAG
      pages through the blocks and stops once the limit can be met;
@@ -37,7 +38,8 @@ where order matters. On the blocked path every block masks against the
 whole delta and each delta row unions into the block whose handle span
 holds it, so block outputs stay in handle order. A delta past the capacity
 folds into the base through the cache's merge; it never reaches the host
-engine.
+engine. A window DAG takes no delta operand (its ties break by row
+position): ``_execute_dag_device`` merges the delta into the base first.
 
 Block results concatenate without a merge: aggregations run in partial
 mode (the root merges groups across tasks and blocks), TopN and LIMIT tasks
@@ -71,6 +73,7 @@ from tidb_tpu_torch.kv import tablecodec
 from tidb_tpu_torch.kv.kv import KeyRange
 from tidb_tpu_torch.kv.rowcodec import RowSchema
 from tidb_tpu_torch.ops.dag_kernel import MAX_RANGES, get_kernel
+from tidb_tpu_torch.ops.window_core import packed_bits
 from tidb_tpu_torch.types import FieldType, TypeKind
 from tidb_tpu_torch.types.field_type import bigint_type, double_type
 from tidb_tpu_torch.utils import execdetails as _ed
@@ -334,6 +337,10 @@ def _execute_dag_device(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRa
     # bounded delta operand the program folds in (get_split merges a delta
     # past the operand capacity into the base)
     entry, delta = cache.get_split(region, scan.table_id, schema, slots, read_ts)
+    if delta is not None and delta.n and _has_window(dag):
+        # window ties break by row position: fold the delta into the base
+        # now; the merge keeps the clean blocks' device copies
+        entry, delta = cache.merge_now(region, scan.table_id, schema, slots, read_ts), None
     view = RegionView(region.region_id, scan.table_id, entry, cache, cacheable=entry.complete, delta=delta)
     return execute_region(view, dag, ranges, warn, dev)
 
@@ -342,13 +349,14 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
     """Run one pushed-down DAG over one region on ``device`` → Chunk.
 
     ``ranges`` are the task's record-key ranges (at most ``MAX_RANGES``);
-    ``warn(level, code, msg)`` receives the program's warnings (the ported
-    builtins raise none). ``stats``, a dict when given, receives the task's
+    ``warn(level, code, msg)`` receives the program's warnings (division by
+    zero: 1365, counted per row). ``stats``, a dict when given, receives the task's
     engine ``path`` ("single", "fused", "blockwise dot", "per-block
     stacked" or "paged limit"), the ``routes`` of its aggregations, the
     number of agg-cap ``regrows`` and the ``delta_rows`` it folded in
     (``region.delta``). Raises ``UnsupportedForDevice`` for a DAG shape
-    the port does not carry.
+    the port does not carry or a window sort that does not pack past 2^20
+    rows, and ValueError for a window DAG with a delta.
     """
     dev = resolve(device)
     scan = dag.executors[0]
@@ -358,11 +366,12 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
         raise UnsupportedForDevice("descending scans are host-engine work (not ported)")
     if len(ranges) > MAX_RANGES:
         raise UnsupportedForDevice(f"{len(ranges)} ranges: point-lookup tasks are host-engine work (not ported)")
-    if any(ex.tp == dagpb.WINDOW for ex in dag.executors[1:]):
-        raise UnsupportedForDevice("window programs are not ported")
     if region.delta is not None and not region.delta.n:
         region = dataclasses.replace(region, delta=None)
     entry, delta = region.entry, region.delta
+    has_window = _has_window(dag)
+    if delta is not None and has_window:
+        raise ValueError("a window DAG takes no delta operand: merge it first")
     if delta is not None and delta.n > _delta_cap():
         raise ValueError(f"a delta of {delta.n} rows exceeds the operand capacity {_delta_cap()}: merge it first")
     stats = stats if stats is not None else {}
@@ -378,6 +387,12 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
     rarr = np.zeros((MAX_RANGES, 2), dtype=np.int64)
     for i, kr in enumerate(ranges):
         rarr[i] = tablecodec.range_to_handles(kr, scan.table_id)
+    if has_window:
+        _window_pack_guard(bound, entry.n)
+        if entry.n > _BLOCK:
+            # a partition's rows must share one computation: one program
+            # over every block of the region
+            return _exec_fused_blocks(region, dag, bound, scan, rarr, dev, warn, stats)
     if _should_fuse_agg(dag, entry):
         return _exec_fused_blocks(region, dag, bound, scan, rarr, dev, warn, stats)
     agg_complete = any(
@@ -387,6 +402,24 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
     if entry.n > _BLOCK and not agg_complete:
         return _exec_blocks(region, dag, bound, scan, rarr, dev, warn, stats)
     return _exec_single(region, dag, bound, scan, rarr, dev, warn, stats)
+
+
+def _has_window(dag: dagpb.DAGRequest) -> bool:
+    return any(ex.tp == dagpb.WINDOW for ex in dag.executors[1:])
+
+
+def _window_pack_guard(bound: dagpb.DAGRequest, n: int) -> None:
+    """Past 2^20 rows a window sort must pack into one key (the reference's
+    gate: its multi-lane chain was pathological at that scale); otherwise
+    the task is the host engine's, marked degraded by ``execute_dag``."""
+    if n <= (1 << 20):
+        return
+    n_total = bucket_size(max(n, 1)) if n <= _BLOCK else _n_blocks(n) * _BLOCK
+    for ex in bound.executors[1:]:
+        if ex.tp == dagpb.WINDOW:
+            sb = [tuple(b) if b is not None else None for b in ex.sort_bounds] or None
+            if packed_bits(sb, n_total) is None:
+                raise UnsupportedForDevice("window sort not packable at this scale")
 
 
 def _device_inputs(region: RegionView, scan, unit, lo: int, hi: int, n_pad: int, device: torch.device):
@@ -483,21 +516,6 @@ def _delta_args(region: RegionView, scan, device: torch.device, u_lo: int, u_hi:
     return dh, dcols, dtomb, (region.delta.n, u_lo, u_hi)
 
 
-def _fused_block_inputs(region: RegionView, scan, device: torch.device):
-    """(handles per block, per column its pairs per block, live rows per
-    block, block count) for the fused multi-block program."""
-    bounds = _block_bounds(region.entry.n)
-    handles_blocks = []
-    cols_blocks: list[list] = [[] for _ in scan.columns]
-    for bi, (lo, hi) in enumerate(bounds):
-        h, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
-        handles_blocks.append(h)
-        for ci, pair in enumerate(cols_dev):
-            cols_blocks[ci].append(pair)
-    nvalids = tuple(hi - lo for lo, hi in bounds)
-    return tuple(handles_blocks), tuple(tuple(cb) for cb in cols_blocks), nvalids, len(bounds)
-
-
 def _d2h(t: torch.Tensor) -> np.ndarray:
     """Copy one tensor off the card, counting its bytes on the task's
     ExecDetails (``d2h_bytes``) and in the transfer metric."""
@@ -575,8 +593,9 @@ def _exec_single(region: RegionView, dag, bound, scan, rarr, device: torch.devic
 
 
 def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
-    """An aggregation-last DAG over a region of several blocks: one program
-    over every block, one dispatch, no merge of per-block partials."""
+    """An aggregation-last or window DAG over a region of several blocks:
+    one program over every block, one dispatch, no merge of per-block
+    partials."""
     entry, delta = region.entry, region.delta
     handles_blocks, cols_blocks, nvalids, nb = _fused_block_inputs(region, scan, device)
     dcap = _delta_cap() if delta is not None else 0

@@ -911,6 +911,9 @@ class WindowExec(Executor):
                     for f in p.funcs
                 ]
             )
+        dev = self._try_device(chunk, n)
+        if dev is not None:
+            return dev
         keys = [[e.to_pb(), False] for e in p.partition_by] + [
             [e.to_pb(), d] for e, d in p.order_by
         ]
@@ -946,6 +949,113 @@ class WindowExec(Executor):
                 else None
             )
             out_cols.append(Column(data, valid, f.ftype, dic))
+        return Chunk(list(chunk.columns) + out_cols)
+
+    def _try_device(self, chunk: Chunk, n: int):
+        """Window evaluation on the store's card through ops/window_kernel
+        (the sorted-batch segment program) when the shape qualifies; None →
+        the host sweep. None only for the shape, the engines, the size gate
+        or the cost model: a device failure raises."""
+        import torch
+
+        from tidb_tpu_torch.copr import gpu_engine
+        from tidb_tpu_torch.ops import window_core as wc
+        from tidb_tpu_torch.ops import window_kernel as wk
+        from tidb_tpu_torch.utils import metrics as _metrics
+
+        p = self.plan
+        if self.session is None or n > wk.DEVICE_MAX_ROWS:
+            return None
+        engines = str(self.session.vars.get("tidb_isolation_read_engines", "gpu,host"))
+        if "gpu" not in engines:
+            return None
+        # phase 1: reject on static structure only (expression ftypes and
+        # plan-time constants) — no column evaluation until the shape is
+        # known-supported, so fallbacks don't pay O(n) twice
+        spec_res = wc.derive_specs(
+            p.funcs,
+            whole_partition=p.whole_partition,
+            rows_frame=p.rows_frame,
+            frame=p.frame,
+            # dict codes are not ORDER-comparable at this layer (the cop
+            # binder legalizes them with sorted dictionaries; here the chunk
+            # may carry arbitrary-order codes)
+            order_is_string=any(e.ftype.kind == TypeKind.STRING for e, _ in p.order_by),
+        )
+        if spec_res is None:
+            return None
+        frame_tag, specs = spec_res
+        # measured-cost routing: the device wins when its fixed cost, the
+        # copies and its per-row work undercut the host sweep
+        n_lanes_up = len(p.partition_by) + len(p.order_by) + sum(1 for _n, ha, *_ in specs if ha)
+        if not wk.device_beats_host(n, n_lanes_up, len(p.funcs)):
+            return None
+
+        # phase 2: evaluate lanes (shape is supported from here on)
+        batch = EvalBatch.from_chunk(chunk)
+
+        def lane_of(e):
+            c = eval_to_column(e, batch, np)
+            return (c.data.astype(np.float64 if c.ftype.kind == TypeKind.FLOAT else np.int64), c.validity)
+
+        # partition keys need only identity → dictionary codes qualify
+        part = [lane_of(e) for e in p.partition_by]
+        order = [lane_of(e) for e, _ in p.order_by]
+        arg_lanes = [lane_of(f.args[0]) if sp[1] else None for f, sp in zip(p.funcs, specs)]
+
+        from tidb_tpu_torch.utils.chunk import bucket_size
+
+        n_pad = bucket_size(n)
+        # integer sort-lane bounds (one numpy pass) enable the packed
+        # single-key sort; past MULTILANE_MAX_ROWS an unpackable sort stays
+        # on the host sweep
+        bounds = []
+        for d, v in part + order:
+            if np.issubdtype(d.dtype, np.floating):
+                bounds.append(None)
+                continue
+            lv = d[v]
+            bounds.append((int(lv.min()), int(lv.max())) if lv.size else (0, 0))
+        bounds = wc.widen_bounds(bounds)
+        if wc.packed_bits(bounds, n_pad) is None:
+            if n > wk.MULTILANE_MAX_ROWS:
+                return None
+            bounds = None
+
+        dev = gpu_engine.store_device(self.session.store)
+        h2d = 0
+
+        def up(pair):
+            nonlocal h2d
+            d, v = pair
+            pd = np.zeros(n_pad, dtype=d.dtype)
+            pd[:n] = d
+            pv = np.zeros(n_pad, dtype=bool)
+            pv[:n] = v
+            h2d += pd.nbytes + pv.nbytes
+            return (torch.from_numpy(pd).to(dev), torch.from_numpy(pv).to(dev))
+
+        spec = (len(part), tuple(d for _, d in p.order_by), frame_tag, tuple(specs))
+        fn = wk.get_window_fn(spec, n_pad, tuple(bounds) if bounds is not None else None)
+        flat = fn(
+            tuple(up(x) for x in part),
+            tuple(up(x) for x in order),
+            # only real arg lanes travel: they ride the sort as payloads
+            tuple(up(x) for x in arg_lanes if x is not None),
+            n,
+            dev,
+        )
+        _metrics.DEVICE_TRANSFER.inc(h2d, dir="h2d")
+        # one copy off the card: every lane as int64 rows (a float lane's
+        # bits reinterpreted), cut to the live rows
+        rows = [x.view(torch.int64) if x.is_floating_point() else x.to(torch.int64) for x in flat]
+        got = gpu_engine._d2h(torch.stack(rows)[:, :n])
+        out_cols = []
+        for i, f in enumerate(p.funcs):
+            data = got[2 * i].view(np.float64) if flat[2 * i].is_floating_point() else got[2 * i]
+            valid = got[2 * i + 1].astype(bool)
+            dt = _np_dtype(f.ftype)
+            out_cols.append(Column(data.astype(dt, copy=False), valid, f.ftype))
         return Chunk(list(chunk.columns) + out_cols)
 
     def _compute(self, f, argcols, perm, pbounds, peer_start):

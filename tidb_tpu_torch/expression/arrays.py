@@ -95,6 +95,10 @@ def where(c, a, b):
     return _torch().where(_t(c), _t(a), _t(b))
 
 
+def sum(x):  # noqa: A001  (numpy's name; a 0-d int64 count for a bool lane)
+    return _torch().sum(_t(x))
+
+
 def broadcast_to(x, shape):
     t = _t(x)
     # a constant stays a 0-d CPU tensor: it broadcasts against the lanes it

@@ -37,14 +37,24 @@ Routes ported, chosen by the reference's rule and constants:
   follow the host engine's scan order. The rows in one program are then
   ``n_pad * nb + delta_cap``, and the routes read that count.
 
-Complete-mode finalize and WINDOW raise ``UnsupportedForDevice`` when the
-program is built.
+- WINDOW: the sorted-batch window program (``window_core.window_program``)
+  over every row of the program. An aggregation that follows reads the rows
+  in sorted order (no inverse permutation), with the base columns it needs
+  sorted along; any other consumer gets the original row order back. A
+  window program takes no delta operand: the engine merges the delta first.
+- Device warnings: every expression evaluates with a ``_DeviceWarnSink``,
+  whose per-site counts (division by zero: 1365) ride the meta row after
+  ``[count, ngroups]``; ``CompiledKernel.warn_specs`` names their slots.
+
+Complete-mode finalize raises ``UnsupportedForDevice`` when the program is
+built.
 """
 
 from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
@@ -52,11 +62,11 @@ import torch
 
 from tidb_tpu_torch.copr import dagpb
 from tidb_tpu_torch.copr.binder import UnsupportedForDevice
-from tidb_tpu_torch.expression.expr import AggDesc, ColumnRef, EvalBatch, eval_expr, expr_from_pb
+from tidb_tpu_torch.expression.expr import AggDesc, ColumnRef, EvalBatch, _ft_from_pb, eval_expr, expr_from_pb
 from tidb_tpu_torch.ops.grouped_sums import _BLK, MAX_ROWS, grouped_sums
 from tidb_tpu_torch.ops.mxu_groupby import MAX_B as _DOT_MAX_B
 from tidb_tpu_torch.ops.mxu_groupby import dot_acc, dot_plan, dot_recombine, grouped_sums_dot
-from tidb_tpu_torch.ops.window_core import _seg_running, seg_value_sorted
+from tidb_tpu_torch.ops.window_core import _seg_running, derive_specs, seg_value_sorted, window_program
 from tidb_tpu_torch.types import TypeKind
 
 MAX_RANGES = 8
@@ -185,6 +195,24 @@ def agg_route(ex, group_exprs, aggs, scan, n: int, agg_cap: int):
     return "lex", []
 
 
+class _DeviceWarnSink:
+    """The device's warning channel for one program run (the analog of
+    stmtctx.AppendWarning): each (code, msg) site an expression body reports
+    adds one count, a 0-d int64 tensor on the device that is never read on
+    the host inside the program; ``_pack`` writes the counts into the meta
+    row and the engine turns nonzero ones into session warnings. Counts are
+    per row over valid lanes; rows a later mask drops may be included."""
+
+    def __init__(self):
+        self.items: list = []  # [(code, msg, count)]
+
+    def add_traced(self, code: int, msg: str, cnt) -> None:
+        self.items.append((code, msg, cnt))
+
+    def __call__(self, level, code, msg):  # a host-style call: count 1
+        self.items.append((code, msg, 1))
+
+
 @dataclass
 class CompiledKernel:
     # (handles, cols, ranges, nvalid) -> packed buffer(s); with nb > 1,
@@ -209,7 +237,7 @@ class CompiledKernel:
         return self._lanes["vloc"]
 
     @property
-    def warn_specs(self):  # [(code, msg, meta_slot)]: no ported builtin warns
+    def warn_specs(self):  # [(code, msg, meta_slot)] packed at meta[slot]
         return self._lanes.get("warns", ())
 
 
@@ -296,6 +324,10 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
     if scan.tp != dagpb.TABLE_SCAN:
         raise UnsupportedForDevice(f"{scan.tp} scans are not ported")
     D = delta_cap
+    if D and any(ex.tp == dagpb.WINDOW for ex in executors[1:]):
+        # windows tie-break by row position inside window_core; the engine
+        # merges the delta first instead of shipping it
+        raise ValueError("window DAG cannot take a delta operand")
     n_total = n_pad * nb  # base rows: every block of a fused region
     n = n_total + D  # rows in one program once the delta unions in
     # parse every executor and fix every route now: the program raises
@@ -331,6 +363,33 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             parsed.append(ex.limit)
         elif ex.tp == dagpb.PROJECTION:
             parsed.append([expr_from_pb(e) for e in ex.exprs])
+        elif ex.tp == dagpb.WINDOW:
+            funcs_ir = [
+                SimpleNamespace(name=f["name"], args=[expr_from_pb(a) for a in f["args"]], ftype=_ft_from_pb(f["ft"]))
+                for f in ex.win_funcs
+            ]
+            fr = ex.frame
+            res = derive_specs(
+                funcs_ir,
+                whole_partition=fr == "whole",
+                rows_frame=fr == "rows_cur",
+                frame=tuple(fr[1:]) if isinstance(fr, tuple) else None,
+                # the binder legalized string order keys to sorted-dictionary
+                # codes, so codes ARE order-comparable here
+                order_is_string=False,
+            )
+            if res is None:
+                raise ValueError("window shape not device-supported (planner gate missed)")
+            parsed.append(
+                (
+                    [expr_from_pb(p) for p in ex.partition_by],
+                    [(expr_from_pb(p), d) for p, d in ex.order_by],
+                    res[0],
+                    res[1],
+                    funcs_ir,
+                    [tuple(b) if b is not None else None for b in ex.sort_bounds] or None,
+                )
+            )
         else:
             raise UnsupportedForDevice(f"executor {ex.tp} is not ported")
 
@@ -369,7 +428,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 mask = mask | ((handles >= int(lo)) & (handles < int(hi)))
         return mask & live  # padding rows are never live
 
-    def _batches(cols_nw, nn):
+    def _batches(cols_nw, nn, dws):
         # lanes may be stored narrow (int32 dict codes / bounded values). The
         # default batch upcasts integer lanes to int64; binder-proven narrow
         # expressions evaluate on the storage-dtype view instead
@@ -377,7 +436,10 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             (d.to(torch.int64) if not d.is_floating_point() and d.dtype != torch.bool else d, v)
             for d, v in cols_nw
         )
-        return EvalBatch(list(cols), [None] * len(cols), nn), EvalBatch(list(cols_nw), [None] * len(cols_nw), nn)
+        return (
+            EvalBatch(list(cols), [None] * len(cols), nn, warn=dws),
+            EvalBatch(list(cols_nw), [None] * len(cols_nw), nn, warn=dws),
+        )
 
     def _select(ex, conds, batch, batch_nw, mask, nn, dev):
         nok = getattr(ex, "narrow_ok", [])
@@ -788,6 +850,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             [(_bcast(d2, cur_n, dev)[head], _vmask(v2, cur_n, dev)[head]) for d2, v2 in batch.cols],
             batch.dicts,
             head_n,
+            warn=batch.warn,
         )
         count = torch.clamp(mask.sum(), max=limit)
         return batch, torch.arange(head_n, device=dev) < count, count
@@ -798,17 +861,76 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         for e in exprs:
             d, v, _ = eval_expr(e, batch, torch)
             cols.append((_bcast(d, cur_n, dev), _vmask(v, cur_n, dev)))
-        return EvalBatch(cols, [None] * len(cols), cur_n)
+        return EvalBatch(cols, [None] * len(cols), cur_n, warn=batch.warn)
 
-    def _pack(outs, count, og, dev):
+    def _window(exi, pre, batch, mask, dev):
+        part_exprs, order_pairs, frame_tag, specs, funcs_ir, bounds = pre
+
+        def lane(e):
+            d, v, _ = eval_expr(e, batch, torch)
+            return _bcast(d, n, dev), _vmask(v, n, dev)
+
+        part_lanes = [lane(e) for e in part_exprs]
+        order_lanes = [lane(e) for e, _ in order_pairs]
+        # None (not a zeros pair) for a function without argument: argument
+        # lanes ride the sort as payloads
+        arg_lanes = [lane(f.args[0]) if sp[1] else None for f, sp in zip(funcs_ir, specs)]
+        base_cols = [(_bcast(d, n, dev), _vmask(v, n, dev)) for d, v in batch.cols]
+        agg_next = exi + 1 < len(parsed) and executors[2 + exi].tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG)
+        ship: list = []
+        if agg_next:
+            # only the base columns the aggregation reads ride the sort
+            from tidb_tpu_torch.planner.optimizer import _expr_cols
+
+            used: set = set()
+            g_exprs, a_descs = parsed[exi + 1][:2]
+            for e in g_exprs:
+                _expr_cols(e, used)
+            for a in a_descs:
+                if a.arg is not None:
+                    _expr_cols(a.arg, used)
+            ship = sorted(i for i in used if i < len(base_cols))
+        outs, perm, sm, base_sorted = window_program(
+            mask=mask,
+            part_lanes=part_lanes,
+            order_lanes=order_lanes,
+            order_descs=[d for _, d in order_pairs],
+            frame_tag=frame_tag,
+            specs=specs,
+            arg_lanes=arg_lanes,
+            n=n,
+            bounds=bounds,
+            extra_lanes=[base_cols[i] for i in ship],
+        )
+        if agg_next:
+            # an aggregation reads rows in any order: everything stays
+            # sorted, and unread columns keep their unsorted lanes (the
+            # aggregation never evaluates them)
+            new_cols = list(base_cols)
+            for i, pair in zip(ship, base_sorted):
+                new_cols[i] = pair
+            new_cols += outs
+            mask = sm
+        else:
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(n, device=dev)
+            new_cols = base_cols + [(d[inv], v[inv]) for d, v in outs]
+        return EvalBatch(new_cols, list(batch.dicts) + [None] * len(outs), n, warn=batch.warn), mask
+
+    def _pack(outs, count, og, dev, dws):
         loc: list = []
         vloc: list = []
         ilanes: list = []
         flanes: list = []
-        L = max(max((int(d.shape[0]) if d.dim() else 1) for d, _ in outs) if outs else 2, 2)
+        # meta row: [count, ngroups, warning counts...]: the warnings ride
+        # the same copy off the card as the data
+        witems = dws.items
+        L = max(max((int(d.shape[0]) if d.dim() else 1) for d, _ in outs) if outs else 2, 2 + len(witems))
         meta = torch.zeros(L, dtype=torch.int64, device=dev)
         meta[0] = count
         meta[1] = og
+        for wi, (_code, _msg, cnt) in enumerate(witems):
+            meta[2 + wi] = cnt
         ilanes.append(meta)
         for d, v in outs:
             d = d.expand(L) if d.dim() == 0 else d
@@ -825,19 +947,20 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 vv = torch.nn.functional.pad(vv, (0, L - vv.shape[0]))
             vloc.append(len(ilanes))
             ilanes.append(vv.to(torch.int64))
-        lanes_holder.update({"loc": tuple(loc), "vloc": tuple(vloc), "warns": ()})
+        warns = tuple((code, msg, 2 + wi) for wi, (code, msg, _c) in enumerate(witems))
+        lanes_holder.update({"loc": tuple(loc), "vloc": tuple(vloc), "warns": warns})
         if flanes:
             return torch.stack(ilanes), torch.stack(flanes)
         return torch.stack(ilanes)
 
-    def _pack_groups(out_data, out_valid, ngroups, dev):
+    def _pack_groups(out_data, out_valid, ngroups, dev, dws):
         out_len = int(out_data[0].shape[0])
         gvalid_slot = torch.arange(out_len, device=dev) < ngroups
         out_valid = [ov & gvalid_slot for ov in out_valid]
         offsets = dag.output_offsets or list(range(len(out_data)))
-        return _pack([(out_data[i], out_valid[i]) for i in offsets], ngroups, ngroups, dev)
+        return _pack([(out_data[i], out_valid[i]) for i in offsets], ngroups, ngroups, dev, dws)
 
-    def _blockwise_dot(handles_blocks, cols_blocks, ranges, nvalid):
+    def _blockwise_dot(handles_blocks, cols_blocks, ranges, nvalid, dws):
         # one (B, C) limb accumulator carried across the blocks: no
         # concatenation of the region's columns
         group_exprs, aggs, route, doms = parsed[-1]
@@ -849,7 +972,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         for b in range(nb):
             live = torch.arange(n_pad, dtype=torch.int32, device=dev) < int(nvalid[b])
             mask_b = live if full_scan else _range_mask(handles_blocks[b].to(torch.int64), ranges, live)
-            batch_b, batch_nw_b = _batches(tuple(c[b] for c in cols_blocks), n_pad)
+            batch_b, batch_nw_b = _batches(tuple(c[b] for c in cols_blocks), n_pad, dws)
             for ex, pre in zip(executors[1:-1], parsed[:-1]):
                 mask_b = _select(ex, pre, batch_b, batch_nw_b, mask_b, n_pad, dev)
             gvals_b = _group_vals(agg_ex, group_exprs, batch_b, batch_nw_b, n_pad, dev)
@@ -874,7 +997,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             out_data, out_valid, ngroups = _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev)
         else:
             out_data, out_valid, ngroups = _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
-        return _pack_groups(out_data, out_valid, ngroups, dev)
+        return _pack_groups(out_data, out_valid, ngroups, dev, dws)
 
     def _rollup_agg(ex, aggs, layout, gvals, batch, batch_nw, mask, dev):
         # every grouping set in one (G+1)-hot int8 dot over the rows
@@ -927,10 +1050,11 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         return torch.cat([handles, dh]), torch.cat([live, dlive]), cols, hrank
 
     def kernel(handles, cols, ranges, nvalid, dh=None, dcols=None, dtomb=None, dn=None):
+        dws = _DeviceWarnSink()  # this run's warnings: runs may overlap in threads
         handles_blocks = None
         if nb > 1:
             if blockwise:
-                return _blockwise_dot(handles, cols, ranges, nvalid)
+                return _blockwise_dot(handles, cols, ranges, nvalid, dws)
             # the fused program: blocks concatenate, each block's padding
             # stays at its tail and is masked by the block's own count
             handles_blocks = handles
@@ -948,12 +1072,12 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         if D:
             handles, live, cols, hrank = _fold_delta(handles, handles_blocks, live, cols, nvalid, dh, dcols, dtomb, dn)
         mask = live if full_scan else _range_mask(handles, ranges, live)  # full_scan: coverage proven
-        batch, batch_nw = _batches(cols, n)
+        batch, batch_nw = _batches(cols, n, dws)
         kind = "rows"
         count = None
         ngroups = None
 
-        for ex, pre in zip(executors[1:], parsed):
+        for exi, (ex, pre) in enumerate(zip(executors[1:], parsed)):
             if ex.tp == dagpb.SELECTION:
                 mask = _select(ex, pre, batch, batch_nw, mask, n, dev)
                 continue
@@ -971,7 +1095,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 out_len = int(out_data[0].shape[0])
                 gvalid_slot = torch.arange(out_len, device=dev) < ngroups
                 out_valid = [ov & gvalid_slot for ov in out_valid]
-                batch = EvalBatch(list(zip(out_data, out_valid)), [None] * len(out_data), out_len)
+                batch = EvalBatch(list(zip(out_data, out_valid)), [None] * len(out_data), out_len, warn=dws)
                 mask = gvalid_slot
                 kind = "agg"
                 hrank = None  # rows rebuilt: no longer the scan's
@@ -984,6 +1108,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 batch, mask, count = _limit(pre, batch, mask, hrank, dev)
                 kind = "rows"
                 hrank = None
+            elif ex.tp == dagpb.WINDOW:
+                batch, mask = _window(exi, pre, batch, mask, dev)
             else:  # PROJECTION: the same rows, hrank still holds
                 batch = _project(pre, batch, dev)
             batch_nw = batch  # lanes rebuilt: the storage-dtype view is stale
@@ -992,15 +1118,15 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         og = ngroups if ngroups is not None else -1
         offsets = dag.output_offsets or list(range(len(batch.cols)))
         if kind == "agg":
-            return _pack([batch.cols[i] for i in offsets], ngroups, og, dev)
+            return _pack([batch.cols[i] for i in offsets], ngroups, og, dev, dws)
         cur_n = batch.n
         if count is None:
             # compact selected rows to the front, in handle order
             perm = _lex_perm([~mask, hrank]) if hrank is not None else torch.argsort(_sortable(~mask), stable=True)
             count = torch.clamp(mask.sum(), max=out_n)
             outs = [(_bcast(d, cur_n, dev)[perm][:out_n], _vmask(v, cur_n, dev)[perm][:out_n]) for d, v in batch.cols]
-            return _pack([outs[i] for i in offsets], count, og, dev)
+            return _pack([outs[i] for i in offsets], count, og, dev, dws)
         outs = [(_bcast(d, cur_n, dev), _vmask(v, cur_n, dev)) for d, v in batch.cols]
-        return _pack([outs[i] for i in offsets], count, og, dev)
+        return _pack([outs[i] for i in offsets], count, og, dev, dws)
 
     return CompiledKernel(kernel, "agg" if agg_is_last else "rows", out_n, agg_cap, lanes_holder, routes, blockwise)

@@ -981,11 +981,50 @@ def _physical(plan: LogicalPlan, engines: list[str], stats=None, vars=None) -> P
 
 
 def _try_push_window(plan: LogicalWindow, child, engines: list[str]) -> bool:
-    """Window pushdown into the coprocessor fragment. The GPU engine carries
-    no window program yet, and a host cop window would just move the same
-    host sweep behind an extra indirection: every window stays on the root
-    (WindowExec's sweep over the reader's rows)."""
-    return False
+    """Window pushdown into the coprocessor fragment (ref: the role tipb
+    window pushdown plays for TiFlash in pkg/planner/core — window executed
+    inside the columnar engine, feeding a fused device program). Gated on the
+    GPU engine: a host cop window would just move the same host sweep behind
+    an extra indirection. The cop client falls back to a host-side window
+    when the table spans multiple regions (partition rows must share one
+    computation)."""
+    if not (
+        isinstance(child, PhysTableReader)
+        and child.pushed_agg is None
+        and child.pushed_topn is None
+        and child.pushed_limit is None
+        and child.pushed_window is None
+        and child.table.partition is None
+    ):
+        return False
+    from tidb_tpu_torch.ops.window_core import derive_specs
+
+    spec = derive_specs(
+        plan.funcs,
+        whole_partition=plan.whole_partition,
+        rows_frame=plan.rows_frame,
+        frame=plan.frame,
+        # string order keys are legal in the fragment: the device binder
+        # rank-sorts the dictionary, the host fallback compares bytes
+        order_is_string=False,
+    )
+    if spec is None:
+        return False
+    keys = list(plan.partition_by) + [e for e, _ in plan.order_by]
+    # ci collation folds at compare time — device dictionary codes are raw-
+    # byte identities, so case-insensitive grouping/ordering stays host-side
+    if any(e.ftype.kind == TypeKind.STRING and e.ftype.collation == "ci" for e in keys):
+        return False
+    exprs = keys + [a for f in plan.funcs for a in f.args]
+    st = _pick_engine(engines, list(child.pushed_conditions) + exprs)
+    if st != StoreType.GPU:
+        return False
+    if not all(can_push_down(e, st.value) for e in exprs):
+        return False
+    child.store_type = st
+    child.pushed_window = plan
+    child.schema = plan.schema
+    return True
 
 
 _INT_JOIN_KINDS = (TypeKind.INT, TypeKind.UINT, TypeKind.DECIMAL, TypeKind.DATE, TypeKind.DATETIME, TypeKind.DURATION)
