@@ -82,11 +82,25 @@
    merges the pending delta first and equals the host engine. Last, the
    ``{"window_costs": ...}`` line: both sides of the root's device/host
    cost model at the root window's input, and the constants they imply.
-9. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+9. MPP: lineitem's six join and aggregate columns (the phase-3 arrays
+   and their part keys), orders (one per order key, o_custkey over the
+   two thirds of SF1's 150,000 customers that have orders, o_orderdate
+   drawn independently of lineitem's dates), customer (150,000, five
+   market segments) and part (200,000, 25 brands, 40 containers), one
+   region each, ANALYZEd; the four ``MPP_QUERIES`` (bench.py's Q3, TPC-H
+   Q3 with JOIN ... ON, TPC-H Q17, a TopN over lineitem ⋈ orders) at 1
+   and 4 virtual shards, each once cold and five times warm. Each must
+   equal the numpy oracle and the port with ``tidb_allow_mpp = 0``, plan
+   one ``PhysMPPGather`` with ``MPP_PLANS``' fragments and stages, report
+   no retry and no fallback event; K1 must not launch. Prints per
+   statement the warm median, the ``tidb_allow_mpp = 0`` wall, the
+   gather's wall, per-shard rows and exchanged bytes, ``stage_bytes``
+   and one profiled run's device busy time and top ops.
+10. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
-   ``launches_delta_path`` and ``launches_builtins_path`` the DAG, HTAP
-   and builtins phases'), then, last, the ``{"ok": true, "device":
-   {...}}`` line.
+   ``launches_delta_path``, ``launches_builtins_path`` and
+   ``launches_mpp_path`` the DAG, HTAP, builtins and MPP phases'), then,
+   last, the ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -96,6 +110,7 @@ from __future__ import annotations
 
 import argparse
 import datetime as dt
+import gc
 import json
 import os
 import re
@@ -1310,7 +1325,10 @@ def main() -> int:
     t0 = time.perf_counter()
     builtin_launches = _builtins_phase(db, after, gs)
     db.stop_background()
+    db = after = warm = None  # the SQL database's columns leave the host and the card
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     print(f"builtins phase: {time.perf_counter() - t0:.1f} s; K1 launches on the builtins path {builtin_launches}")
     print(json.dumps({"builtins": _builtins_check(args.seed)}))
 
@@ -1320,6 +1338,15 @@ def main() -> int:
     torch.cuda.synchronize()
     print(json.dumps({"window_costs": costs}))
     print(f"window phase: {time.perf_counter() - t0:.1f} s")
+
+    # 9. MPP: the join fragments of Q3, Q17 and a TopN over virtual shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gs.LAUNCHES = 0  # the MPP path: counts from 0 just before it
+    _mpp_phase(cols, args.seed, gs)
+    mpp_launches = gs.LAUNCHES
+    print(f"MPP phase: {time.perf_counter() - t0:.1f} s; K1 launches on the MPP path {mpp_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1331,6 +1358,7 @@ def main() -> int:
         "launches_dag_path": main_launches,
         "launches_delta_path": delta_launches,
         "launches_builtins_path": builtin_launches,
+        "launches_mpp_path": mpp_launches,
         "max_abs_err": max_err,
         **k1,
     }]}))
@@ -2108,6 +2136,250 @@ def _window_costs(wexec, chunk, n: int, device: str, reps: int = 5) -> dict:
         "implied": implied, "model_device_ms": model_dev, "model_host_ms": model_host,
         "device_beats_host": wk.device_beats_host(n, lanes_up, nf),
     }
+
+
+# -- MPP: the join fragments of TPC-H Q3 and Q17 over virtual shards ---------
+
+SEGMENTS = [b"AUTOMOBILE", b"BUILDING", b"FURNITURE", b"HOUSEHOLD", b"MACHINERY"]
+CONTAINERS = [
+    f"{size} {kind}".encode()
+    for size in ("SM", "LG", "MED", "JUMBO", "WRAP")
+    for kind in ("CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM")
+]
+MPP_SCHEMA = (
+    """CREATE TABLE lineitem (l_orderkey BIGINT, l_partkey BIGINT, l_quantity DECIMAL(12,2),
+    l_extendedprice DECIMAL(12,2), l_discount DECIMAL(12,2), l_shipdate DATE)""",
+    "CREATE TABLE orders (o_orderkey BIGINT PRIMARY KEY, o_custkey BIGINT, o_orderdate DATE, o_shippriority BIGINT)",
+    "CREATE TABLE customer (c_custkey BIGINT PRIMARY KEY, c_mktsegment VARCHAR(10))",
+    "CREATE TABLE part (p_partkey BIGINT PRIMARY KEY, p_brand VARCHAR(10), p_container VARCHAR(10))",
+)
+MPP_TABLES = ("lineitem", "orders", "customer", "part")
+# bench.py's Q3 (BASELINE config 5, ``q3_join_mpp_ms``) over lineitem and
+# orders; TPC-H Q3 with JOIN ... ON from lineitem (the comma form plans a
+# cross join in both packages, and a chain from customer keeps the string
+# filter between its joins, on the root); TPC-H Q17 (its correlated AVG
+# runs as a device stage);
+# a TopN over lineitem ⋈ orders whose extra order keys make every tie a
+# duplicate row
+MPP_QUERIES = {
+    "q3": """SELECT o_orderdate, SUM(l_extendedprice) AS rev FROM lineitem, orders
+  WHERE l_orderkey = o_orderkey GROUP BY o_orderdate ORDER BY rev DESC, o_orderdate LIMIT 10""",
+    "q3full": """SELECT l_orderkey, SUM(l_extendedprice * (1 - l_discount)) AS revenue, o_orderdate, o_shippriority
+  FROM lineitem JOIN orders ON l_orderkey = o_orderkey JOIN customer ON o_custkey = c_custkey
+  WHERE c_mktsegment = 'BUILDING' AND o_orderdate < DATE '1995-03-15' AND l_shipdate > DATE '1995-03-15'
+  GROUP BY l_orderkey, o_orderdate, o_shippriority ORDER BY revenue DESC, o_orderdate LIMIT 10""",
+    "q17": """SELECT SUM(l_extendedprice) / 7.0 AS avg_yearly FROM lineitem JOIN part ON p_partkey = l_partkey
+  WHERE p_brand = 'Brand#23' AND p_container = 'MED BOX'
+    AND l_quantity < (SELECT 0.2 * AVG(l_quantity) FROM lineitem WHERE l_partkey = p_partkey)""",
+    "topn": """SELECT l_extendedprice, l_orderkey, l_partkey, o_orderdate FROM lineitem
+  JOIN orders ON l_orderkey = o_orderkey ORDER BY l_extendedprice DESC, l_orderkey, l_partkey LIMIT 20""",
+}
+# (fragments, stages) of each statement's PhysMPPGather, as the reference
+# plans them (tests/test_torch_sql_mpp.py holds the port to the reference)
+MPP_PLANS = {"q3": (3, 1), "q3full": (4, 1), "q17": (4, 2), "topn": (3, 1)}
+
+
+def lineitem_partkey(seed: int, n: int = SF1_ROWS) -> np.ndarray:
+    """``lineitem_sf1``'s part keys: its second draw, replayed (the columns
+    it returns keep their values)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(1, 51, n)
+    return rng.integers(1, 200_001, n)
+
+
+def mpp_tables(cols: dict, partkey: np.ndarray, seed: int, n_part: int = 200_000, n_cust: int = 150_000) -> dict:
+    """{table: column arrays} of the MPP phase, TPC-H §4.2.3's widths:
+    lineitem (l_orderkey, l_partkey, l_quantity, l_extendedprice,
+    l_discount, l_shipdate) from ``cols`` and ``partkey``; orders, one per
+    distinct l_orderkey, o_custkey uniform over the customer keys not
+    divisible by 3 (the two thirds of 1..n_cust that have orders),
+    o_orderdate uniform in [1992-01-01, 1998-08-02], drawn independently
+    of lineitem's dates, o_shippriority 0; customer, c_mktsegment uniform
+    over the five segments; part, p_brand 'Brand#MN' (M, N in 1..5) and
+    p_container one of the 40. Strings are bytes; decimals scaled
+    integers; dates days since 1970-01-01."""
+    rng = np.random.default_rng([seed, 3])
+    okeys = np.unique(cols[9])
+    with_orders = np.arange(1, n_cust + 1)
+    with_orders = with_orders[with_orders % 3 != 0]
+    lo, hi = _days(dt.date(1992, 1, 1)), _days(dt.date(1998, 8, 2))
+    brands = np.array([f"Brand#{m}{k}".encode() for m in range(1, 6) for k in range(1, 6)])
+    return {
+        "lineitem": [cols[9], partkey.astype(np.int64), cols[0], cols[1], cols[2], cols[6]],
+        "orders": [
+            okeys,
+            with_orders[rng.integers(0, len(with_orders), len(okeys))].astype(np.int64),
+            rng.integers(lo, hi + 1, len(okeys)).astype(np.int64),
+            np.zeros(len(okeys), np.int64),
+        ],
+        "customer": [np.arange(1, n_cust + 1, dtype=np.int64), np.array(SEGMENTS)[rng.integers(0, 5, n_cust)]],
+        "part": [
+            np.arange(1, n_part + 1, dtype=np.int64),
+            brands[rng.integers(0, len(brands), n_part)],
+            np.array(CONTAINERS)[rng.integers(0, len(CONTAINERS), n_part)],
+        ],
+    }
+
+
+def mpp_sql(db, bulk_load, tables: dict):
+    """Create the four tables in ``db`` (a handle opened with no automatic
+    region split: one region each), bulk-load ``tables`` and ANALYZE them
+    (the exchange choice reads the statistics). → (load s, analyze s)."""
+    for stmt in MPP_SCHEMA:
+        db.execute(stmt)
+    t0 = time.perf_counter()
+    for name in MPP_TABLES:
+        bulk_load(db, name, tables[name])
+    t1 = time.perf_counter()
+    for name in MPP_TABLES:
+        db.execute(f"ANALYZE TABLE {name}")
+    return t1 - t0, time.perf_counter() - t1
+
+
+def _avg6(s: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """AVG of a DECIMAL(12,2) at scale 6 from its scaled sum and count,
+    rounded half away from zero (counts > 0)."""
+    num = s * 10**4
+    return np.sign(num) * ((np.abs(num) + n // 2) // n)
+
+
+def mpp_oracle(name: str, t: dict) -> list[tuple]:
+    """``MPP_QUERIES[name]``'s rows from the generated tables, in numpy:
+    every row of the statement without its LIMIT, in its ORDER BY order
+    (``mpp_rows_match`` compares a LIMIT's rows against them)."""
+    lok, lpk, lq, lp, ld, lship = t["lineitem"]
+    ok, ocust, odate, oprio = t["orders"]
+    oi = np.searchsorted(ok, lok)  # every line's order (one per distinct key)
+    if name == "q3":
+        keys, (rev,) = _by_key(odate[oi], (lp, np.add))
+        order = np.lexsort((keys, -rev))
+        return [(_date(keys[i]), _dec(rev[i], 2)) for i in order]
+    if name == "q3full":
+        seg = t["customer"][1]
+        cutoff = _days(dt.date(1995, 3, 15))
+        good = (seg[ocust - 1] == b"BUILDING") & (odate < cutoff)
+        m = good[oi] & (lship > cutoff)
+        keys, (rev,) = _by_key(lok[m], (lp[m] * (100 - ld[m]), np.add))
+        kd = odate[np.searchsorted(ok, keys)]
+        order = np.lexsort((kd, -rev))
+        return [(int(keys[i]), _dec(rev[i], 4), _date(kd[i]), 0) for i in order]
+    if name == "q17":
+        _pk, brand, cont = t["part"]
+        pkeys, (sq, cnt) = _by_key(lpk, (lq, np.add), (np.ones_like(lq), np.add))
+        avg6 = np.zeros(len(brand) + 1, np.int64)
+        avg6[pkeys] = _avg6(sq, cnt)
+        chosen = (brand == b"Brand#23") & (cont == b"MED BOX")
+        m = chosen[lpk - 1] & (lq * 10**5 < 2 * avg6[lpk])
+        if not m.any():
+            return [(None,)]
+        total = int(lp[m].sum())  # at scale 2; over 7.0 at scale 6, half away from zero
+        q = (abs(total) * 10**4 + 3) // 7
+        return [(_dec(q if total >= 0 else -q, 6),)]
+    if name == "topn":
+        order = np.lexsort((lpk, lok, -lp))
+        return [(_dec(lp[i], 2), int(lok[i]), int(lpk[i]), _date(odate[oi[i]])) for i in order[:100]]
+    raise KeyError(name)
+
+
+def mpp_rows_match(name: str, got: list, want: list, limit: int) -> bool:
+    """``got`` is the statement's LIMIT: ``limit`` rows (fewer when ``want``
+    has fewer), each a row of ``want``, whose ORDER BY keys equal the
+    first ``limit`` of ``want``'s (ties at the cut may pick any of the
+    tied rows)."""
+    keys = {"q3": lambda r: r[1], "q3full": lambda r: (r[1], r[2]), "topn": lambda r: r[:3], "q17": lambda r: r}[name]
+    k = min(limit, len(want))
+    return len(got) == k and [keys(r) for r in got] == [keys(r) for r in want[:k]] and set(got) <= set(want)
+
+
+MPP_LIMITS = {"q3": 10, "q3full": 10, "q17": 1, "topn": 20}
+
+
+def _mpp_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda") -> int:
+    """``MPP_QUERIES`` through ``tidb_tpu_torch.open`` over the tables of
+    ``mpp_tables`` (SF1: lineitem 6,001,215 rows, orders ~1.5M, customer
+    150,000, part 200,000; one region each, ANALYZEd), at
+    ``parallel.mesh.FORCE_NDEV`` 1 and 4, each once cold and ``reps``
+    times warm. Every run must equal the numpy oracle (decimals exact) and
+    the port with ``tidb_allow_mpp = 0`` (what the parent ran these
+    statements on), plan one ``PhysMPPGather`` with ``MPP_PLANS``'
+    fragments and stages, report the width and no retry, and emit no MPP
+    fallback event; K1 must not launch. Prints per statement the plan's
+    exchanges, the ``tidb_allow_mpp = 0`` wall, and per width the cold wall,
+    the warm median, the gather's wall, per-shard rows and exchanged
+    bytes, ``stage_bytes``, and one profiled run's device busy time and
+    top ops. → K1's launches over the phase."""
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.parallel import mesh
+    from tidb_tpu_torch.utils import eventlog
+
+    t0 = time.perf_counter()
+    tables = mpp_tables(cols, lineitem_partkey(seed, len(cols[0])), seed)
+    gen_s = time.perf_counter() - t0
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+    load_s, analyze_s = mpp_sql(db, bulk_load, tables)
+    sizes = {name: len(tables[name][0]) for name in MPP_TABLES}
+    print(f"mpp: tables {sizes} generated in {gen_s:.3f} s; bulk load {load_s:.3f} s; ANALYZE {analyze_s:.3f} s")
+    host = db.session()
+    host.execute("SET tidb_allow_mpp = 0")
+    k1_before = gs.LAUNCHES
+    try:
+        for name, sql in MPP_QUERIES.items():
+            want = mpp_oracle(name, tables)
+            t0 = time.perf_counter()
+            host_rows = host.query(sql)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if not mpp_rows_match(name, host_rows, want, MPP_LIMITS[name]):
+                raise AssertionError(f"mpp {name}: tidb_allow_mpp = 0 disagrees with the oracle: {host_rows[:3]}")
+            for nd in (1, 4):
+                mesh.FORCE_NDEV = nd
+                s = db.session()
+                plan = "\n".join(r[0] for r in s.query("EXPLAIN " + sql))
+                head = next((ln.strip() for ln in plan.splitlines() if "PhysMPPGather" in ln), None)
+                if head is None:
+                    raise AssertionError(f"mpp {name}: no PhysMPPGather at ndev {nd}:\n{plan}")
+                since = time.time()
+
+                def run():
+                    t = time.perf_counter()
+                    rows = s.query(sql)
+                    wall = (time.perf_counter() - t) * 1e3
+                    det = s.mpp_details[-1] if s.mpp_details else None
+                    got = None if det is None else (det.n_fragments, det.stages, det.ndev, det.retries)
+                    if got != (*MPP_PLANS[name], nd, 0):
+                        raise AssertionError(f"mpp {name} ndev {nd}: gather (fragments, stages, ndev, retries) {got}")
+                    if not mpp_rows_match(name, rows, want, MPP_LIMITS[name]) or rows != host_rows:
+                        raise AssertionError(f"mpp {name} ndev {nd}: rows disagree with the oracle or the "
+                                             f"tidb_allow_mpp = 0 path: {rows[:3]} against {host_rows[:3]}")
+                    return wall, det
+
+                cold, cold_det = run()
+                runs = [run() for _ in range(reps)]
+                walls = [w for w, _d in runs]
+                det = runs[-1][1]
+                kernels = _profile_device(run)
+                busy = sum(k[1] for k in kernels) if kernels else None
+                events = [ev[3] for ev in eventlog.get().search(since=since, component="mpp")]
+                if "host_join_fallback" in events:
+                    raise AssertionError(f"mpp {name} ndev {nd}: the gather fell back to the host join: {events}")
+                med = statistics.median(walls)
+                print(f"mpp {name} ndev {nd}: {head}; cold_ms {cold:.3f}; warm sql_ms median {med:.3f} "
+                      f"min {min(walls):.3f}; gather wall_ms {det.wall_ms:.3f}; tidb_allow_mpp=0 ms {host_ms:.3f} "
+                      f"({host_ms / med:.2f}x); shards [id, ms, rows, exchanged bytes] {det.shards}; "
+                      f"stage_bytes {det.stage_bytes}; programs built cold {cold_det.compiles} warm {det.compiles}; profiled device_busy_ms {_ms(busy)}"
+                      + ("" if busy is None else f" (idle share {max(0.0, 1 - busy / med):.3f})") + f"; rows {len(want)}")
+                for k, ms, calls in kernels[:4]:
+                    print(f"    top op {ms:.3f} ms x{calls}: {k[:110]}")
+            torch.cuda.synchronize()
+    finally:
+        mesh.FORCE_NDEV = None
+        db.stop_background()
+    launches = gs.LAUNCHES - k1_before
+    if launches:
+        raise AssertionError(f"mpp: K1 launched {launches} times on the MPP path")
+    return launches
 
 
 def _drive(regions, dags, gs):

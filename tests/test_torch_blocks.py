@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import test_torch_engine as te
 
+from tidb_tpu.copr import dagpb as ref_dagpb
 from tidb_tpu.copr import host_engine, tpu_engine
 from tidb_tpu_torch.copr import carry, gpu_engine
 from tidb_tpu_torch.copr.binder import UnsupportedForDevice
@@ -254,9 +255,19 @@ def _many_ranges(pb):
     ids=["complete", "rollup", "desc", "too_many_ranges"],
 )
 def test_unported_shapes_raise_on_a_blocked_region(setup, monkeypatch, name, edit):
+    """Shapes the device path refuses raise on a blocked region. Complete
+    mode, once among them, is ported: Q1 in complete mode (the fused
+    blockwise dot, finalized on the device) equals the reference's device
+    path."""
     db, caps, reg = setup
     _blocks(monkeypatch, 1024)
     dag, ranges = _unsupported(caps, name, edit)
+    if edit is _complete:
+        _d, region, ref_ranges, ts = caps[name]
+        ref_dag = ref_dagpb.DAGRequest.from_pb(json.loads(json.dumps(dag.to_pb())))
+        want = _reference(db, ref_dag, region, ref_ranges, ts)
+        assert gpu_engine.execute_region(reg, dag, ranges, device="cpu").rows() == want
+        return
     with pytest.raises(UnsupportedForDevice):
         gpu_engine.execute_region(reg, dag, ranges, device="cpu")
 

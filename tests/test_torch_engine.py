@@ -26,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke
 import tidb_tpu
+from tidb_tpu.copr import dagpb as ref_dagpb
 from tidb_tpu.copr import host_engine, tpu_engine
 from tidb_tpu.copr.colcache import cache_for
 from tidb_tpu.executor.load import bulk_load
@@ -278,11 +279,15 @@ def test_large_rows_buffer_moves_only_live_rows():
 
 
 def test_unported_shapes_raise(setup):
+    """Complete mode, once unported, now finalizes on the device: the
+    COUNT(*) DAG in complete mode equals the reference engine's."""
     db, caps, reg = setup
-    pb = caps["count"][0].to_pb()
+    dag, region, ranges, read_ts = caps["count"]
+    pb = json.loads(json.dumps(dag.to_pb()))
     pb["executors"][1]["agg_mode"] = "complete"
-    with pytest.raises(UnsupportedForDevice):
-        gpu_engine.execute_region(reg, carry.dag_from_pb(pb), _port_ranges(caps["count"][2]), device="cpu")
+    want = tpu_engine.execute_dag(db.store, ref_dagpb.DAGRequest.from_pb(pb), region, ranges, read_ts).rows()
+    got = gpu_engine.execute_region(reg, carry.dag_from_pb(pb), _port_ranges(ranges), device="cpu").rows()
+    assert got == want == [(6000,)]
 
 
 def test_default_device_raises_without_a_card(setup, monkeypatch):

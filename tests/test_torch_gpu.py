@@ -325,3 +325,175 @@ def test_window_program_on_card_matches_cpu(sort, frame):
             assert np.allclose(gd, cd, rtol=0, atol=1e-12 * mag), spec
         else:
             assert np.array_equal(gd, cd), spec
+
+
+def _mpp_lanes(seed, ndev, n):
+    """Group keys (with NULLs), a live mask and SUM/MIN/MAX lanes, [ndev, n]."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(-3, 4000, (ndev, n)).astype(np.int64)
+    kv = rng.random((ndev, n)) > 0.05
+    mask = rng.random((ndev, n)) > 0.2
+    vd = rng.integers(-(1 << 40), 1 << 40, (ndev, n)).astype(np.int64)
+    vv = rng.random((ndev, n)) > 0.1
+    keys = [np.where(kv, k, 0), kv.astype(np.int64)]
+    vals = [np.where(vv, vd, 0), vv.astype(np.int64), np.where(vv, vd, np.iinfo(np.int64).max),
+            np.where(vv, vd, np.iinfo(np.int64).min), rng.normal(0.0, 1e3, (ndev, n))]
+    return keys, mask, vals
+
+
+def _on(arrays, device):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
+def _host(x):
+    if isinstance(x, (list, tuple)):
+        return [_host(y) for y in x]
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+
+def _same(a, b, atol=0.0):
+    """Equal lanes: integers and booleans exact, doubles within ``atol``."""
+    for x, y in zip(_host(a), _host(b)):
+        if isinstance(x, list):
+            _same(x, y, atol)
+        elif np.asarray(x).dtype.kind == "f":
+            assert np.allclose(x, y, rtol=0, atol=atol)
+        else:
+            assert np.array_equal(x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ndev,cap", [(1, 8192), (4, 4096), (4, 512)], ids=["ndev1", "ndev4", "ndev4_overflow"])
+def test_mpp_segment_partial_and_exchanges_on_card_match_cpu(ndev, cap):
+    """The fragment program's grouped partial agg (packed and lane keys),
+    row routing and group-slot exchange at 262,144 rows per shard on the
+    card against the same calls on the CPU: every lane exact, but the SUM
+    of doubles, a difference of prefix sums that the card's scan adds in
+    another order: within 1e-12 of the lane's absolute sum."""
+    _need_card()
+    from tidb_tpu_torch.parallel import mpp
+
+    n = 1 << 18
+    keys, mask, vals = _mpp_lanes(ndev + cap, ndev, n)
+    kinds = ("sum", "sum", "min", "max", "sum")
+    got = {}
+    for device in ("cuda", "cpu"):
+        k, (m,), v = _on(keys, device), _on([mask], device), _on(vals, device)
+        packed = mpp._segment_partial(k, v, m, cap, ((-3, 4000), (0, 1)), kinds)
+        lanes = mpp._segment_partial(k, v, m, cap, (), kinds)
+        owner = k[0].abs() % ndev
+        routed = mpp._route_rows([k[0], v[0]], m, owner, ndev, 2 * n // max(ndev, 1) if cap > 512 else 4096)
+        slots = mpp._exchange_group_slots(ndev, cap, packed[0], packed[1][:2], packed[2]) if ndev > 1 else ()
+        torch.cuda.synchronize()
+        got[device] = (packed, lanes, routed, slots)
+    for a, b in zip(got["cuda"], got["cpu"]):
+        _same(a, b, atol=1e-12 * float(np.abs(vals[4]).sum()))
+    if cap == 512:
+        assert int(got["cpu"][0][3].sum()) > 0 and int(got["cpu"][2][2].sum()) > 0  # overflow and drops seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("exchange", ["hash", "broadcast"])
+@pytest.mark.parametrize("ndev", [1, 4])
+def test_mpp_join_agg_pipeline_on_card_matches_cpu(exchange, ndev):
+    """build_dist_join_agg (selection, join, two-phase agg) over 4,194,304
+    probe rows on the card against the CPU: every output lane exact."""
+    _need_card()
+    from tidb_tpu_torch.parallel import make_mesh, mpp
+
+    rng = np.random.default_rng(ndev)
+    nl, nr = 1 << 22, 1 << 16
+    cols = [rng.integers(0, nr, nl), rng.integers(1, 10, nl), rng.permutation(nr), rng.integers(0, 500, nr)]
+    join = mpp.DistJoinSpec(left_keys=[0], right_keys=[0], exchange=exchange, row_cap=2 * nl // ndev)
+    agg = mpp.DistAggSpec(n_keys=1, sums=[1], group_cap=1024, key_bounds=((0, 499),))
+    got = {}
+    for device in ("cuda", "cpu"):
+        fn = mpp.build_dist_join_agg(
+            make_mesh(n_devices=ndev, devices=[torch.device(device)]), join, agg, n_left=2, n_right=2,
+            left_selection=lambda cid, qty: qty > 2, agg_inputs=lambda c: [c[3], c[1]],
+        )
+        got[device] = mpp.to_host(fn(*_on(cols, device)))
+    _same(got["cuda"], got["cpu"])
+    assert int(got["cuda"][-1]) == 0 and int(got["cuda"][-2]) == 0
+
+
+@pytest.mark.gpu
+def test_mpp_local_joins_and_finalize_on_card_match_cpu():
+    _need_card()
+    from tidb_tpu_torch.expression.expr import AggDesc, ColumnRef
+    from tidb_tpu_torch.ops import dag_kernel
+    from tidb_tpu_torch.parallel import mpp
+    from tidb_tpu_torch.types import field_type
+
+    rng = np.random.default_rng(3)
+    ndev, nprobe, nbuild = 2, 1 << 18, 1 << 16
+    lk = rng.integers(0, nbuild, (ndev, nprobe)).astype(np.int64)
+    rk_u = np.stack([rng.permutation(4 * nbuild)[:nbuild] for _ in range(ndev)]).astype(np.int64)
+    rk_n = rng.integers(0, nbuild // 4, (ndev, nbuild)).astype(np.int64)
+    lv, rv = rng.random((ndev, nprobe)) > 0.1, rng.random((ndev, nbuild)) > 0.1
+    lc, rc = rng.integers(0, 7, (ndev, nprobe)), rng.integers(0, 7, (ndev, nbuild))
+    cnt = rng.integers(0, 5, 4096)
+    s = rng.integers(-(10**9), 10**9, 4096)
+    sq = s.astype(np.float64) ** 2 + 1.0
+    got = {}
+    for device in ("cuda", "cpu"):
+        a = _on([lk, rk_u, rk_n, lv, rv, lc, rc, cnt, s, sq], device)
+        uniq = mpp._local_unique_join(a[0], [a[0]], a[3], a[1], [a[1]], [a[6]], a[4])
+        expand = mpp._local_expand_join(a[0], [a[0]], a[3], a[2], [a[2]], [a[6]], a[4], [a[0], a[5]], 1 << 21,
+                                        left_outer=True)
+        exists = mpp._local_filtered_exists(a[0], [a[0]], a[3], a[2], [a[2]], [a[6]], a[4], [a[0], a[5]], 1 << 21,
+                                            lambda ol, orr: ol[1] != orr[0])
+        fin = [dag_kernel._finalize_device([AggDesc(name, ColumnRef(0, ft))], lanes, [torch.ones_like(a[7], dtype=torch.bool)] * 3)
+               for name in ("avg", "var_samp", "stddev_pop")
+               for ft in (field_type.decimal_type(12, 2), field_type.double_type())
+               for lanes in ([a[7], a[8] if ft.kind.name == "DECIMAL" else a[8].double(), a[9]],)]
+        torch.cuda.synchronize()
+        # expansion slots follow the build side's stable sort: equal on both
+        got[device] = (uniq, expand, exists, fin)
+    _same(got["cuda"][0], got["cpu"][0])
+    _same(got["cuda"][1], got["cpu"][1])
+    _same(got["cuda"][2], got["cpu"][2])
+    # finalized doubles within a relative 1e-12 (the CPU tests' tolerance):
+    # the card's double sqrt and the CPU's differ by an ulp (STDDEV)
+    for (gd, gv), (cd, cv) in zip(got["cuda"][3], got["cpu"][3]):
+        _same(gv, cv)
+        valid = _host(cv[0])
+        a, b = _host(gd[0])[valid], _host(cd[0])[valid]
+        assert np.allclose(a, b, rtol=1e-12, atol=0) if a.dtype.kind == "f" else np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_mpp_statements_on_card_match_cpu_and_oracle():
+    """chip_smoke.MPP_QUERIES over 200,000 lineitem rows through
+    ``tidb_tpu_torch.open`` on the card and on the CPU, at 1 and 4
+    virtual shards: equal rows, each the numpy oracle's, each statement one
+    gather with the expected fragments and stages and no retry."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.parallel import mesh
+
+    n = 200_000
+    cols = chip_smoke.lineitem_sf1(seed=8, n=n)
+    tables = chip_smoke.mpp_tables(cols, chip_smoke.lineitem_partkey(8, n) % 20_000 + 1, 8, n_part=20_000, n_cust=15_000)
+    dbs = {}
+    for device in ("cuda", "cpu"):
+        dbs[device] = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+        chip_smoke.mpp_sql(dbs[device], bulk_load, tables)
+    try:
+        for nd in (1, 4):
+            mesh.FORCE_NDEV = nd
+            for name, sql in chip_smoke.MPP_QUERIES.items():
+                want = chip_smoke.mpp_oracle(name, tables)
+                rows = {}
+                for device, db in dbs.items():
+                    s = db.session()
+                    rows[device] = s.query(sql)
+                    det = s.mpp_details[-1]
+                    assert (det.n_fragments, det.stages, det.ndev, det.retries) == (*chip_smoke.MPP_PLANS[name], nd, 0)
+                assert rows["cuda"] == rows["cpu"], name
+                assert chip_smoke.mpp_rows_match(name, rows["cuda"], want, chip_smoke.MPP_LIMITS[name]), name
+    finally:
+        mesh.FORCE_NDEV = None
+        for db in dbs.values():
+            db.stop_background()

@@ -24,6 +24,12 @@ import tidb_tpu_torch.ops.grouped_sums
 import tidb_tpu_torch.ops.mxu_groupby
 import tidb_tpu_torch.ops.dag_kernel
 import tidb_tpu_torch.ops.window_core
+import tidb_tpu_torch.parallel
+import tidb_tpu_torch.parallel.gather
+import tidb_tpu_torch.parallel.mesh
+import tidb_tpu_torch.parallel.mpp
+import tidb_tpu_torch.parallel.mpptask
+import tidb_tpu_torch.parallel.probe
 import tidb_tpu_torch.native
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
@@ -31,7 +37,8 @@ print(json.dumps(bad))
 """
 
 
-# the SQL front end to end: open, load, run Q1 on the port's gpu engine
+# the SQL front end to end: open, load, run Q1 on the port's gpu engine and
+# bench.py's Q3 as one MPP gather
 _SQL_PROBE = r"""
 import json, sys
 sys.path.insert(0, {repo!r})
@@ -46,6 +53,15 @@ s = db.session()
 rows = s.query(chip_smoke.SQL_QUERIES["q1"])
 assert chip_smoke.sql_rows("q1", rows) == chip_smoke.sql_oracle("q1", cols)
 assert s.exec_summary.engines == {{"gpu": 2}}, s.exec_summary.engines
+n = 3000
+tables = chip_smoke.mpp_tables(cols, chip_smoke.lineitem_partkey(1, n), 1, n_part=2000, n_cust=1500)
+mdb = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cpu")
+chip_smoke.mpp_sql(mdb, bulk_load, tables)
+ms = mdb.session()
+rows = ms.query(chip_smoke.MPP_QUERIES["q3"])
+assert ms.mpp_details and ms.mpp_details[-1].n_fragments == 3
+assert chip_smoke.mpp_rows_match("q3", rows, chip_smoke.mpp_oracle("q3", tables), 10)
+mdb.stop_background()
 db.stop_background()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
 print(json.dumps(bad))
@@ -97,6 +113,32 @@ def test_default_open_raises_on_its_first_query_without_a_card(monkeypatch):
     assert host_calls == []
     db.execute("SET tidb_isolation_read_engines='host'")
     assert db.query("SELECT COUNT(*) FROM t WHERE b < 3") == [(1,)]
+    db.stop_background()
+
+
+def test_default_open_raises_on_its_first_mpp_fragment_without_a_card(monkeypatch):
+    """A join that plans one MPP gather on ``tidb_tpu_torch.open()``: with
+    no card the gather's first fragment raises; the statement is not
+    re-planned onto the host join."""
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.parallel import gather
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    attempts = []
+    real = gather.MPPGatherExec._execute_attempt
+    monkeypatch.setattr(gather.MPPGatherExec, "_execute_attempt", lambda self, mesh: attempts.append(mesh) or real(self, mesh))
+    db = tidb_tpu_torch.open()
+    db.execute("CREATE TABLE f (k BIGINT, v BIGINT)")
+    db.execute("CREATE TABLE d (k BIGINT PRIMARY KEY, g BIGINT)")
+    db.execute("INSERT INTO f VALUES (1, 2), (2, 3)")
+    db.execute("INSERT INTO d VALUES (1, 7), (2, 8)")
+    sql = "SELECT g, SUM(v) FROM f JOIN d ON f.k = d.k GROUP BY g"
+    assert "PhysMPPGather" in "\n".join(r[0] for r in db.query("EXPLAIN " + sql))
+    with pytest.raises(RuntimeError, match="cuda"):
+        db.query(sql)
+    assert attempts == []
     db.stop_background()
 
 

@@ -104,12 +104,17 @@ COPIES = (
     # session
     "session/__init__.py",
     "session/session.py",
+    # MPP: the planner rewrite and the coordinator (the fragment program,
+    # parallel/mpp.py, and the mesh, parallel/mesh.py, are the port's own)
+    "parallel/gather.py",
+    "parallel/probe.py",
+    "parallel/mpptask.py",
 )
 
 SEAMS: dict[str, frozenset] = {
     # the engine name: StoreType.GPU in place of TPU
     "kv/kv.py": frozenset({"StoreType"}),
-    "session/session.py": frozenset({"DEFAULT_SYSVARS", "Session._plan_select", "Session._select", "open_db"}),
+    "session/session.py": frozenset({"DEFAULT_SYSVARS", "Session._plan_select", "open_db"}),
     # window pushdown gated on StoreType.GPU
     "planner/optimizer.py": frozenset({"_demote_ci_order", "_pick_engine", "_try_push_window"}),
     # eval_expr hands a torch caller's bodies expression/arrays.py
@@ -139,11 +144,20 @@ SEAMS: dict[str, frozenset] = {
     "copr/colcache.py": frozenset(
         {"ColumnCache", "ColumnCache.__init__", "ColumnCache.add_region", "ColumnCache.ensure_sorted_dict", "ColumnCache.next_region_id"}
     ),
-    # no MPP
-    "planner/plans.py": frozenset({"explain_plan"}),
     # the root window runs on the store's card through the port's window
-    # program; no MPP executor
-    "executor/executors.py": frozenset({"_build_executor", "WindowExec._try_device"}),
+    # program
+    "executor/executors.py": frozenset({"WindowExec._try_device"}),
+    # the engine name gpu in the device admission checks; the store's
+    # device for the HBM budget and the mesh; the fragment program's lanes
+    # are torch tensors on that device, copied off it once
+    "parallel/gather.py": frozenset(
+        {
+            "_agg_mpp_ok", "_chain_cond_ok", "_reader_mpp_ok", "_stage_eligible", "try_mpp_rewrite",
+            "MPPGatherExec.execute", "MPPGatherExec._execute_attempt",
+        }
+    ),
+    # a tiny op and a synchronize on each device
+    "parallel/probe.py": frozenset({"probe_and_blacklist"}),
     # the row codec builds into the package's _build/
     "native/__init__.py": frozenset({"_OUT_DIR"}),
 }

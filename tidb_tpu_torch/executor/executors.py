@@ -101,6 +101,10 @@ def _build_executor(plan, session) -> Executor:
         return IndexLookUpExec(plan, session)
     if isinstance(plan, PhysIndexMerge):
         return IndexMergeExec(plan, session)
+    from tidb_tpu_torch.parallel.gather import MPPGatherExec, PhysMPPGather
+
+    if isinstance(plan, PhysMPPGather):
+        return MPPGatherExec(plan, session)
     raise ExecError(f"no executor for {type(plan).__name__}")
 
 

@@ -46,8 +46,9 @@ Routes ported, chosen by the reference's rule and constants:
   whose per-site counts (division by zero: 1365) ride the meta row after
   ``[count, ngroups]``; ``CompiledKernel.warn_specs`` names their slots.
 
-Complete-mode finalize raises ``UnsupportedForDevice`` when the program is
-built.
+- Complete mode (``AGG_COMPLETE``, what an MPP task sends): each route's
+  partial lanes collapse on the device to one final lane per aggregate
+  (``_finalize_device``) before the group keys.
 """
 
 from __future__ import annotations
@@ -318,6 +319,53 @@ def _hier_top_k(vals: torch.Tensor, K: int):
     return vf, g2[sel]
 
 
+def _complete(ex) -> bool:
+    return ex.agg_mode == dagpb.AGG_COMPLETE
+
+
+def _finalize_device(aggs, state_data, state_valid):
+    """Collapse partial lanes → final values, on device (complete mode):
+    decimal AVG at the result's scale (the argument's + 4), rounded half
+    away from zero; VAR/STDDEV, pop and samp, from (count, sum, sum of
+    squares) in float64. Divisions are tensor by tensor on the lanes'
+    device (a CPU scalar divisor would round differently on the card)."""
+    out_d, out_v = [], []
+    i = 0
+    for a in aggs:
+        if a.name == "avg":
+            cnt, s = state_data[i], state_data[i + 1]
+            i += 2
+            denom = cnt.clamp(min=1)
+            if a.ftype.kind == TypeKind.DECIMAL:
+                num = s * (10**4)
+                out_d.append(torch.sign(num) * ((num.abs() + denom // 2) // denom))
+            else:
+                out_d.append(s.to(torch.float64) / denom)
+            out_v.append(cnt > 0)
+        elif a.name in ("var_pop", "var_samp", "stddev_pop", "stddev_samp"):
+            cnt, s, sq = state_data[i], state_data[i + 1], state_data[i + 2]
+            i += 3
+            scale = 10.0 ** a.arg.ftype.scale if a.arg.ftype.kind == TypeKind.DECIMAL else 1.0
+            scale_t = torch.full((), scale, dtype=torch.float64, device=cnt.device)
+            nf = cnt.to(torch.float64)
+            sv = s.to(torch.float64) / scale_t
+            sqv = sq.to(torch.float64) / (scale_t * scale_t)
+            mean = sv / nf.clamp(min=1)
+            varp = (sqv / nf.clamp(min=1) - mean * mean).clamp(min=0.0)
+            if a.name.endswith("_samp"):
+                v = varp * nf / (nf - 1).clamp(min=1)
+                ok = cnt > 1
+            else:
+                v, ok = varp, cnt > 0
+            out_d.append(torch.sqrt(v) if a.name.startswith("stddev") else v)
+            out_v.append(ok)
+        else:
+            out_d.append(state_data[i])
+            out_v.append(state_valid[i])
+            i += 1
+    return out_d, out_v
+
+
 def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_scan: bool = False, delta_cap: int = 0) -> CompiledKernel:
     executors = dag.executors
     scan = executors[0]
@@ -337,8 +385,6 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         if ex.tp == dagpb.SELECTION:
             parsed.append([expr_from_pb(c) for c in ex.conditions])
         elif ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG):
-            if ex.agg_mode == dagpb.AGG_COMPLETE:
-                raise UnsupportedForDevice("complete-mode finalize is not ported")
             group_exprs = [expr_from_pb(g) for g in ex.group_by]
             aggs = [AggDesc.from_pb(a) for a in ex.aggs]
             if any("group_concat" in a.partial_kinds for a in aggs):
@@ -514,7 +560,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         pair_bounds.append((0, 0))
         return pairs, pair_bounds, lane_of_agg, occ_lane
 
-    def _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev):
+    def _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev, complete):
         out_data, out_valid = [], []
         for a, li in zip(aggs, lane_of_agg):
             cnt = counts[:, li]
@@ -525,6 +571,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 else:  # sum (gated by _mxu_aggs_ok)
                     out_data.append(sums[:, li])
                     out_valid.append(cnt > 0)
+        if complete:
+            out_data, out_valid = _finalize_device(aggs, out_data, out_valid)
         # group keys decode arithmetically from the bucket index
         bidx = torch.arange(B, device=dev)
         occupied = counts[:, occ_lane] > 0
@@ -551,7 +599,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             segs.append((torch.where(mask, seg + off, B_total).to(torch.int32), off, off + b_k))
         return segs
 
-    def _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev):
+    def _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev, complete):
         # bucket lanes → [agg partials, keys (NULL where rolled up), GROUPING
         # flags], compacted to the occupied buckets
         B_total, doms = layout["B_total"], layout["doms"]
@@ -561,6 +609,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             for pk in a.partial_kinds:
                 out_data.append(cnt if pk == "count" else sums[:, li])  # sum (gated by _mxu_aggs_ok)
                 out_valid.append(torch.ones(B_total, dtype=torch.bool, device=dev) if pk == "count" else cnt > 0)
+        if complete:
+            out_data, out_valid = _finalize_device(aggs, out_data, out_valid)
         occupied = counts[:, occ_lane] > 0
         flags = []  # the flags follow every key
         for j in range(layout["G"]):
@@ -626,7 +676,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             return _bcast(d, n, dev), _vmask(v, n, dev)
         return torch.ones(n, dtype=torch.int64, device=dev), torch.ones(n, dtype=torch.bool, device=dev)
 
-    def _eqmask_agg(aggs, doms, gvals, batch, mask, hrank, dev):
+    def _eqmask_agg(aggs, doms, gvals, batch, mask, hrank, dev, complete):
         B = _dense_b_total(doms)
         seg_dtype = torch.int32 if gvals and all(d.dtype == torch.int32 for d, _ in gvals) else torch.int64
         seg = torch.zeros(n, dtype=seg_dtype, device=dev)
@@ -662,6 +712,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         out_data, out_valid = _collect_aggs(
             aggs, lambda a: _eval_arg(a, batch, dev), reducers, first_pos, first_pos_c, B, dev
         )
+        if complete:
+            out_data, out_valid = _finalize_device(aggs, out_data, out_valid)
         for gd, gv in gvals:
             out_data.append(gd[first_pos_c])
             out_valid.append(gv[first_pos_c] & (first_pos < n))
@@ -674,7 +726,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         out_cap = min(B, agg_cap)
         return [o[order][:out_cap] for o in out_data], [o[order][:out_cap] for o in out_valid], ngroups
 
-    def _lex_agg(aggs, gvals, batch, mask, hrank, dev):
+    def _lex_agg(aggs, gvals, batch, mask, hrank, dev, complete):
         # stable sort by (live first, then per key: NULL last, value); each
         # group becomes one contiguous run, dead rows trail the last group
         lanes = [~mask]
@@ -753,6 +805,8 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             }
 
         out_data, out_valid = _collect_aggs(aggs, eval_arg, reducers, first_pos, first_pos_c, agg_cap, dev)
+        if complete:
+            out_data, out_valid = _finalize_device(aggs, out_data, out_valid)
         for gd, gv in gvals:
             at = perm[first_pos_c]
             out_data.append(gd[at])
@@ -770,7 +824,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             counts, sums = grouped_sums_dot(seg32, pairs, B, n, pair_bounds)
         else:
             counts, sums = grouped_sums(seg32, pairs, B, n, pair_bounds, device=dev)
-        return _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
+        return _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev, _complete(ex))
 
     def _topn(ex, order, limit, batch, mask, hrank, dev):
         cur_n = batch.n
@@ -994,9 +1048,13 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
             acc = dot_acc(seg, pairs, B, n_pad, plan, acc)
         counts, sums = dot_recombine(acc, plan, n_pairs, B)
         if layout is not None:
-            out_data, out_valid, ngroups = _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev)
+            out_data, out_valid, ngroups = _rollup_outputs(
+                counts, sums, lane_of_agg, occ_lane, aggs, layout, dev, _complete(agg_ex)
+            )
         else:
-            out_data, out_valid, ngroups = _mxu_outputs(counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev)
+            out_data, out_valid, ngroups = _mxu_outputs(
+                counts, sums, lane_of_agg, occ_lane, aggs, doms, strides, B, dev, _complete(agg_ex)
+            )
         return _pack_groups(out_data, out_valid, ngroups, dev, dws)
 
     def _rollup_agg(ex, aggs, layout, gvals, batch, batch_nw, mask, dev):
@@ -1008,7 +1066,7 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
         plan = dot_plan(pairs, pair_bounds)
         acc = dot_acc(segs, pairs, layout["B_total"], n, plan)
         counts, sums = dot_recombine(acc, plan, len(pairs), layout["B_total"])
-        return _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev)
+        return _rollup_outputs(counts, sums, lane_of_agg, occ_lane, aggs, layout, dev, _complete(ex))
 
     def _fold_delta(handles, handles_blocks, live, cols, nvalid, dh, dcols, dtomb, dn):
         # dn = (mask_n, union_lo, union_hi): every program masks against the
@@ -1087,9 +1145,9 @@ def _build(dag: dagpb.DAGRequest, n_pad: int, agg_cap: int, nb: int = 1, full_sc
                 if route == "rollup":
                     out_data, out_valid, ngroups = _rollup_agg(ex, aggs, doms, gvals, batch, batch_nw, mask, dev)
                 elif route == "eqmask":
-                    out_data, out_valid, ngroups = _eqmask_agg(aggs, doms, gvals, batch, mask, hrank, dev)
+                    out_data, out_valid, ngroups = _eqmask_agg(aggs, doms, gvals, batch, mask, hrank, dev, _complete(ex))
                 elif route == "lex":
-                    out_data, out_valid, ngroups = _lex_agg(aggs, gvals, batch, mask, hrank, dev)
+                    out_data, out_valid, ngroups = _lex_agg(aggs, gvals, batch, mask, hrank, dev, _complete(ex))
                 else:
                     out_data, out_valid, ngroups = _dense_agg(aggs, route, doms, gvals, ex, batch, batch_nw, mask, dev)
                 out_len = int(out_data[0].shape[0])

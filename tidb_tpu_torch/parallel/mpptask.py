@@ -1,0 +1,420 @@
+"""MPP tasks across the process boundary.
+
+Reference parity: `DispatchMPPTask` / `EstablishMPPConns`
+(/root/reference/pkg/kv/mpp.go:189-199) and the coordinator registry
+(pkg/executor/mppcoordmanager/mpp_coordinator_manager.go:33). In the
+reference, the SQL layer cuts the plan into fragments and dispatches each to
+an engine process over gRPC. Here the whole fragment tree compiles into ONE
+jitted shard_map program, so the dispatch unit is the gather itself: the
+remote SQL layer serializes the ``PhysMPPGather`` (table ids + expression
+pbs — the same contracts the cop DAGs use), the storage server — which owns
+the data AND the device mesh — reconstructs it against its own catalog
+(TiFlash keeps its own schema copy the same way) and executes the fragment
+program, streaming the merged chunk back.
+
+Wire verbs (kv/remote.py): ``mpp_ndev`` (mesh size for the remote planner),
+``mpp_dispatch`` (spec + read_ts → task id), ``mpp_conn`` (task id → result
+frame, long-polled so the client can propagate KILL), ``mpp_cancel``.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+from tidb_tpu_torch.expression.expr import AggDesc, expr_from_pb, _ft_pb, _ft_from_pb
+from tidb_tpu_torch.kv.kv import KeyRange, StoreType
+from tidb_tpu_torch.planner.plans import (
+    LogicalAggregation,
+    OutCol,
+    PhysFinalAgg,
+    PhysTableReader,
+)
+
+
+def _oc_pb(oc: OutCol) -> list:
+    return [oc.name, _ft_pb(oc.ftype), oc.slot, oc.table]
+
+
+def _oc_from_pb(v: list) -> OutCol:
+    return OutCol(v[0], _ft_from_pb(v[1]), table=v[3], slot=v[2])
+
+
+def _ranges_pb(ranges) -> Optional[list]:
+    import base64
+
+    if ranges is None:
+        return None
+    return [
+        [base64.b64encode(kr.start).decode(), base64.b64encode(kr.end).decode()]
+        for kr in ranges
+    ]
+
+
+def _ranges_from_pb(v) -> Optional[list]:
+    import base64
+
+    if v is None:
+        return None
+    return [KeyRange(base64.b64decode(a), base64.b64decode(b)) for a, b in v]
+
+
+def gather_to_pb(plan, group_cap: Optional[int] = None, schema_ver: int = -1) -> dict:
+    """PhysMPPGather → wire dict. Tables travel as ids (the server resolves
+    them against its own catalog copy); expressions travel as the same pbs
+    the coprocessor DAGs use. ``schema_ver``: the dispatching catalog's
+    version — the server reloads its snapshot when behind (TiFlash's
+    schema-sync-on-query; ref: the coprocessor's schema-version check)."""
+    def _reader_pb(r) -> dict:
+        agg_pb = None
+        if r.pushed_agg is not None:
+            agg_pb = {
+                "group": [g.to_pb() for g in r.pushed_agg.group_by],
+                "aggs": [a.to_pb() for a in r.pushed_agg.aggs],
+                "mode": r.pushed_agg_mode,
+            }
+        return {
+            "db": r.db,
+            "tid": r.table.id,
+            "store": r.store_type.value,
+            "slots": list(r.scan_slots),
+            "conds": [c.to_pb() for c in r.pushed_conditions],
+            "agg": agg_pb,
+            "schema": [_oc_pb(oc) for oc in r.schema],
+            "ranges": _ranges_pb(r.ranges),
+            "parts": [v.id for v in r.partitions] if r.partitions is not None else None,
+        }
+
+    from tidb_tpu_torch.parallel.gather import SubplanReader
+
+    def _join_pb(j) -> dict:
+        return {
+            "eq": [list(e) for e in j.eq],
+            "exchange": j.exchange,
+            "unique": bool(j.unique),
+            "kind": j.kind,
+            "str_keys": [[list(a), list(b)] for a, b in j.str_keys],
+            "other": [c.to_pb() for c in j.other],
+        }
+
+    readers = []
+    for r in plan.readers:
+        if isinstance(r, SubplanReader):
+            sub_pb = {
+                "reader": _reader_pb(r.reader),
+                "agg": {
+                    "group": [g.to_pb() for g in r.agg.group_by],
+                    "aggs": [a.to_pb() for a in r.agg.aggs],
+                    "partial": bool(r.agg.partial_input),
+                    "schema": [_oc_pb(oc) for oc in r.agg.schema],
+                },
+                "having": [c.to_pb() for c in r.having],
+                "proj": [e.to_pb() for e in r.proj] if r.proj is not None else None,
+                "schema": [_oc_pb(oc) for oc in r.schema],
+                "gpos": sorted(r.group_pos) if r.group_pos is not None else None,
+                # the stage-chain descriptor: remote dispatch must run the
+                # STAGED program too (zero host intermediates on the server)
+                "staged": bool(r.staged),
+            }
+            if r.chain is not None:
+                c_readers, c_joins, c_filters = r.chain
+                sub_pb["chain"] = {
+                    "readers": [_reader_pb(cr) for cr in c_readers],
+                    "joins": [_join_pb(j) for j in c_joins],
+                    "filters": [[pos, [c.to_pb() for c in cl]] for pos, cl in c_filters],
+                }
+            readers.append({"sub": sub_pb})
+        else:
+            readers.append(_reader_pb(r))
+    joins = [_join_pb(j) for j in plan.joins]
+    agg_pb = None
+    if plan.agg is not None:
+        agg_pb = {
+            "group": [g.to_pb() for g in plan.agg.group_by],
+            "aggs": [a.to_pb() for a in plan.agg.aggs],
+        }
+    topn_pb = None
+    if plan.topn is not None:
+        by, limit = plan.topn
+        topn_pb = {"by": [[e.to_pb(), bool(d)] for e, d in by], "limit": limit}
+    return {
+        "readers": readers,
+        "joins": joins,
+        "agg": agg_pb,
+        "topn": topn_pb,
+        "filters": [[pos, [c.to_pb() for c in cl]] for pos, cl in plan.filters],
+        "schema": [_oc_pb(oc) for oc in plan.schema],
+        "group_cap": group_cap,
+        "schema_ver": schema_ver,
+    }
+
+
+def gather_from_pb(pb: dict, table_by_id):
+    """Wire dict → PhysMPPGather with this process's TableInfo objects.
+    ``table_by_id(tid) → (db_name, TableInfo)`` resolves against the local
+    catalog; a stale id raises KeyError for the caller to reload+retry."""
+    from tidb_tpu_torch.parallel.gather import MPPJoin, PhysMPPGather, SubplanReader
+    from tidb_tpu_torch.planner.plans import PhysProjection, PhysSelection
+
+    def _join_from_pb(jp) -> "MPPJoin":
+        return MPPJoin(
+            eq=[tuple(e) for e in jp["eq"]],
+            exchange=jp["exchange"],
+            unique=jp["unique"],
+            kind=jp["kind"],
+            str_keys=[(tuple(a), tuple(b)) for a, b in jp["str_keys"]],
+            other=[expr_from_pb(c) for c in jp.get("other", ())],
+        )
+
+    def _reader_from_pb(rp):
+        db_name, table = table_by_id(rp["tid"])
+        pushed_agg = None
+        if rp["agg"] is not None:
+            pushed_agg = LogicalAggregation(
+                group_by=[expr_from_pb(g) for g in rp["agg"]["group"]],
+                aggs=[AggDesc.from_pb(a) for a in rp["agg"]["aggs"]],
+                schema=[],
+                children=[],
+            )
+        return PhysTableReader(
+            db=db_name,
+            table=table,
+            store_type=StoreType(rp["store"]),
+            pushed_conditions=[expr_from_pb(c) for c in rp["conds"]],
+            pushed_agg=pushed_agg,
+            pushed_agg_mode=rp["agg"]["mode"] if rp["agg"] is not None else "partial",
+            scan_slots=list(rp["slots"]),
+            ranges=_ranges_from_pb(rp["ranges"]),
+            schema=[_oc_from_pb(v) for v in rp["schema"]],
+            partitions=(
+                [table.partition_view(pid) for pid in rp["parts"]]
+                if rp.get("parts") is not None
+                else None
+            ),
+        )
+
+    readers = []
+    for rp in pb["readers"]:
+        if "sub" in rp:
+            sp = rp["sub"]
+            rd = _reader_from_pb(sp["reader"])
+            agg = PhysFinalAgg(
+                group_by=[expr_from_pb(g) for g in sp["agg"]["group"]],
+                aggs=[AggDesc.from_pb(a) for a in sp["agg"]["aggs"]],
+                partial_input=bool(sp["agg"]["partial"]),
+                schema=[_oc_from_pb(v) for v in sp["agg"]["schema"]],
+                children=[rd],
+            )
+            having = [expr_from_pb(c) for c in sp["having"]]
+            proj = [expr_from_pb(e) for e in sp["proj"]] if sp["proj"] is not None else None
+            schema = [_oc_from_pb(v) for v in sp["schema"]]
+            node = agg
+            if having:
+                node = PhysSelection(conditions=list(having), children=[node])
+            if proj is not None:
+                node = PhysProjection(exprs=list(proj), schema=list(schema), children=[node])
+            chain = None
+            if sp.get("chain") is not None:
+                cp = sp["chain"]
+                chain = (
+                    [_reader_from_pb(crp) for crp in cp["readers"]],
+                    [_join_from_pb(jp) for jp in cp["joins"]],
+                    [(pos, [expr_from_pb(c) for c in cl]) for pos, cl in cp["filters"]],
+                )
+            readers.append(
+                SubplanReader(
+                    plan=node,
+                    reader=rd if chain is None else chain[0][0],
+                    agg=agg,
+                    having=having,
+                    proj=proj,
+                    schema=schema,
+                    group_pos=frozenset(sp["gpos"]) if sp["gpos"] is not None else None,
+                    chain=chain,
+                    staged=bool(sp.get("staged", False)),
+                )
+            )
+        else:
+            readers.append(_reader_from_pb(rp))
+    joins = [_join_from_pb(jp) for jp in pb["joins"]]
+    agg = None
+    if pb["agg"] is not None:
+        agg = PhysFinalAgg(
+            group_by=[expr_from_pb(g) for g in pb["agg"]["group"]],
+            aggs=[AggDesc.from_pb(a) for a in pb["agg"]["aggs"]],
+            partial_input=False,
+            schema=[],
+            children=[],
+        )
+    topn = None
+    if pb["topn"] is not None:
+        topn = ([(expr_from_pb(e), d) for e, d in pb["topn"]["by"]], pb["topn"]["limit"])
+    return (
+        PhysMPPGather(
+            agg=agg,
+            readers=readers,
+            joins=joins,
+            topn=topn,
+            filters=[
+                (pos, [expr_from_pb(c) for c in cl]) for pos, cl in pb.get("filters", ())
+            ],
+            schema=[_oc_from_pb(v) for v in pb["schema"]],
+        ),
+        pb.get("group_cap"),
+    )
+
+
+class MPPTaskManager:
+    """Server-side task registry (ref: mppcoordmanager — one coordinator per
+    gather, tracked for cancel/cleanup). Tasks execute on worker threads
+    against a lazily-opened SQL context over the LOCAL store — the storage
+    process owns catalog resolution, reader materialization, the device
+    cache, and the mesh."""
+
+    def __init__(self, store):
+        self.store = store
+        self._db = None
+        self._tasks: dict[str, dict] = {}
+        self._next = 0
+        self._mu = threading.Lock()
+        self._tbl_map: dict[int, tuple] = {}
+        self._tbl_version = -1
+
+    def _get_db(self):
+        with self._mu:
+            if self._db is None:
+                from tidb_tpu_torch.session.session import DB
+
+                self._db = DB(store=self.store)
+            return self._db
+
+    def ndev(self) -> int:
+        from tidb_tpu_torch.parallel import make_mesh
+
+        return int(make_mesh().devices.size)
+
+    # -- catalog resolution -------------------------------------------------
+    def _refresh_tables(self) -> None:
+        cat = self._get_db().catalog
+        with self._mu:  # concurrent dispatches must not race the reload
+            cat.reload()  # the client's DDL may not be in this snapshot yet
+            m = {}
+            for db_name in cat.databases():
+                for tname in cat.tables(db_name):
+                    t = cat.table(db_name, tname)
+                    m[t.id] = (db_name, t)
+            self._tbl_map, self._tbl_version = m, cat.schema_version
+
+    def _table_by_id(self, tid: int):
+        if tid not in self._tbl_map:
+            self._refresh_tables()
+        if tid not in self._tbl_map:
+            raise KeyError(f"mpp dispatch references unknown table id {tid}")
+        return self._tbl_map[tid]
+
+    # -- task lifecycle ------------------------------------------------------
+    def dispatch(self, spec: dict, read_ts: int, trace: Optional[dict] = None) -> str:
+        import time as _time
+
+        from tidb_tpu_torch.parallel.gather import MPPGatherExec
+
+        sess = self._get_db().session()
+        sess._read_ts_override = read_ts
+        if trace:
+            # propagated trace context: the task session records REAL spans
+            # (fragment input materialization, mesh execution) that ship
+            # home with the result frame
+            from tidb_tpu_torch.utils.tracing import TraceContext, Tracer
+
+            tctx = TraceContext.from_pb(trace)
+            if tctx is not None and tctx.sampled:
+                sess.tracer = Tracer(trace_id=tctx.trace_id)
+        if spec.get("schema_ver", -1) != self._tbl_version:
+            # the client planned against a newer (or older) catalog than this
+            # snapshot — resync before resolving ids (ALTERed tables keep
+            # their id, so id-hit alone cannot prove freshness)
+            self._refresh_tables()
+        plan, cap_hint = gather_from_pb(spec, self._table_by_id)
+        with self._mu:
+            self._next += 1
+            task_id = str(self._next)
+            task = {"ev": threading.Event(), "blob": None, "err": None, "kind": "", "sess": sess}
+            # abandoned tasks (client died between dispatch and conn) must not
+            # accumulate: evict finished entries (kept after collection so a
+            # lost-reply mpp_conn replay can still answer) once we grow
+            if len(self._tasks) > 64:
+                for tid in [t for t, v in self._tasks.items() if v["ev"].is_set()]:
+                    del self._tasks[tid]
+            self._tasks[task_id] = task
+
+        def run():
+            from tidb_tpu_torch.utils.chunk import encode_chunk
+
+            t0 = _time.perf_counter()
+            try:
+                ex = MPPGatherExec(plan, sess)
+                if cap_hint:
+                    ex._group_cap_hint = cap_hint
+                chunk = ex.execute()
+                task["blob"] = encode_chunk(chunk)
+                # MPP exec-details sidecar: the gather recorded itself into
+                # the task session (gather.py); wall here additionally covers
+                # reader materialization + encode
+                det = sess.mpp_details[-1] if sess.mpp_details else None
+                task["exec"] = {
+                    "wall_ms": round((_time.perf_counter() - t0) * 1000.0, 3),
+                    "ndev": det.ndev if det is not None else 0,
+                    "fragments": det.n_fragments if det is not None else 0,
+                    "retries": det.retries if det is not None else 0,
+                    "rows": len(chunk),
+                    # per-shard straggler breakdown (plain lists: the header
+                    # travels as JSON) — the dispatching client renders it
+                    "shards": det.shards if det is not None else [],
+                    "compiles": det.compiles if det is not None else 0,
+                    "stages": det.stages if det is not None else 1,
+                    "stage_bytes": det.stage_bytes if det is not None else [],
+                }
+            except Exception as e:  # travels the wire as (kind, message)
+                task["kind"] = type(e).__name__
+                task["err"] = f"{e}"
+            finally:
+                if sess.tracer is not None:
+                    task["spans"] = sess.tracer.to_pb()
+                task["ev"].set()
+
+        threading.Thread(target=run, daemon=True, name=f"mpp-task-{task_id}").start()
+        return task_id
+
+    def conn(self, task_id: str, wait_s: float):
+        """(done, blob, err_kind, err_msg, warnings, exec, spans). Long-poll:
+        blocks up to ``wait_s`` so the client loop can interleave KILL
+        checks."""
+        with self._mu:
+            task = self._tasks.get(task_id)
+        if task is None:
+            # typed as MPPTaskLost (not a generic error): a server that
+            # restarted between dispatch and conn — or reclaimed the task —
+            # tells the gather to RE-DISPATCH rather than fail the query
+            # (the client-go mpp_probe lost-task recovery idiom)
+            from tidb_tpu_torch.utils import eventlog as _ev
+
+            lg = _ev.on(_ev.WARN)
+            if lg is not None:
+                lg.emit(_ev.WARN, "mpp", "task_lost", task=task_id)
+            return True, None, "MPPTaskLost", f"unknown mpp task {task_id}", (), None, None
+        if not task["ev"].wait(wait_s):
+            return False, None, None, None, (), None, None
+        # deliberately NOT popped: the reply frame can be lost on the wire
+        # and the client transparently replays mpp_conn (it is replay-safe
+        # exactly because serving the result is idempotent) — finished
+        # entries are reclaimed by cancel() or the dispatch-time sweep
+        # the task session's accumulated warnings travel back with the result
+        # (ref: per-SelectResponse warning carriage)
+        warns = [[lv, code, msg] for lv, code, msg in task["sess"].warnings[:64]]
+        return True, task["blob"], task["kind"], task["err"], warns, task.get("exec"), task.get("spans")
+
+    def cancel(self, task_id: str) -> None:
+        with self._mu:
+            task = self._tasks.pop(task_id, None)  # the client stops polling
+        if task is not None:
+            task["sess"].kill()

@@ -543,6 +543,20 @@ def explain_plan(p, indent: int = 0, stats=None) -> str:
         kind = "intersection" if p.intersection else "union"
         conds = f" -> Selection({', '.join(map(repr, p.residual_conditions))})" if p.residual_conditions else ""
         extra = f"[host] {p.table.name}: IndexMerge({kind}: {', '.join(parts)}) -> TableRowIDScan{conds}"
+    from tidb_tpu_torch.parallel.gather import PhysMPPGather
+
+    if isinstance(p, PhysMPPGather):
+        if p.joins:
+            ex = ",".join(j.exchange for j in p.joins)
+            extra = f"{len(p.fragments)} fragments, {ex} join exchange"
+        else:
+            extra = f"{len(p.fragments)} fragments"
+        lines = [f"{pad}{name} {extra}{_info(p)}"]
+        for fr in p.fragments:
+            lines.append(f"{pad}  {fr}")
+        for r in p.readers:
+            lines.append(explain_plan(r, indent + 1, stats))
+        return "\n".join(lines)
     lines = [f"{pad}{name} {extra}".rstrip() + _info(p)]
     for c in getattr(p, "children", []):
         lines.append(explain_plan(c, indent + 1, stats))

@@ -1428,10 +1428,39 @@ class Session:
                 plan = self._plan_select(stmt, cache_key=cache_key, capture=is_outer)
             from tidb_tpu_torch.executor import build_executor
 
-            # no MPP plan exists in this package, so no MPP retry falls back
-            with self.span("execute"):
-                ex = build_executor(plan, self)
-                chunk = ex.execute()
+            from tidb_tpu_torch.parallel.probe import MPPRetryExhausted
+
+            try:
+                with self.span("execute"):
+                    ex = build_executor(plan, self)
+                    chunk = ex.execute()
+            except MPPRetryExhausted as mpp_err:
+                # MPP gave up (device failures) → re-plan without MPP and run
+                # on the surviving engines (ref: mpp retry exhaustion falling
+                # back rather than failing the statement)
+                lg = _ev.on(_ev.WARN)
+                if lg is not None:
+                    lg.emit(
+                        _ev.WARN,
+                        "mpp",
+                        "host_join_fallback",
+                        trace_id=getattr(self.tracer, "trace_id", None),
+                        reason=str(mpp_err),
+                    )
+                prev = self.vars.get("tidb_allow_mpp", 1)
+                self.vars["tidb_allow_mpp"] = 0
+                # on the cached-plan prepared lane `stmt` still carries its
+                # parameter markers — rebind before re-planning
+                replan_stmt = stmt
+                if is_outer and cap.get("cached_plan") is not None and cap.get("rebind") is not None:
+                    replan_stmt = cap["rebind"]()
+                try:
+                    with self.span("mpp-fallback"):
+                        plan = self._plan_select(replan_stmt, cache_key=None)
+                        ex = build_executor(plan, self)
+                        chunk = ex.execute()
+                finally:
+                    self.vars["tidb_allow_mpp"] = prev
         finally:
             self._read_ts_override = None
             self._deadline = None
@@ -1606,9 +1635,12 @@ class Session:
                         hinted.append({"tikv": "host", "tiflash": "gpu"}.get(eng, eng))
                 if hinted:
                     engines = hinted
-        # no MPP rewrite: this package has no exchange engine, so the plan
-        # stays as the reference keeps it when no MPP rewrite applies
         plan = optimize(logical, engines, stats=self._db.stats, vars=self.vars)
+        from tidb_tpu_torch.parallel.gather import try_mpp_rewrite
+
+        plan = try_mpp_rewrite(
+            plan, self.vars, stats=self._db.stats, store=self.store, health=self._db.health
+        )
         if key is not None and not builder.uncacheable:
             self._plan_cache[key] = plan
             cap_n = sysvar_int(self.vars, "tidb_prepared_plan_cache_size", 100)
