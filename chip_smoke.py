@@ -96,11 +96,28 @@
    statement the warm median, the ``tidb_allow_mpp = 0`` wall, the
    gather's wall, per-shard rows and exchanged bytes, ``stage_bytes``
    and one profiled run's device busy time and top ops.
-10. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+10. The process topology: a store child process (``chip_smoke.py
+   --store-child``) owns the card and holds the phase-3 lineitem again as
+   two regions and the MPP tables (database ``mpp``, ANALYZEd); a SQL
+   layer booted as ``python -m tidb_tpu_torch --store remote`` answers a
+   MySQL client, and ``tidb_tpu_torch.open(remote=...)`` in this process
+   is a second SQL layer. ``SQL_QUERIES`` and ``MPP_QUERIES``' q3 and q17
+   run through both, once cold and five times warm: rows equal to the
+   oracle (the wire's as text), ``[gpu]`` readers, one ``PhysMPPGather``
+   for q3/q17 with no retry and no fallback, no task degraded, K1 exactly
+   2 launches per band statement in the store and none in this process,
+   the SQL-layer process holding no CUDA context. Prints per statement
+   the warm medians over the wire and in process, the longest cop task
+   (or the gather's wall), the wire tax and the tasks' wire time. Then a
+   boot check at a small size: ``python -m tidb_tpu_torch --store-server``
+   and ``--store remote`` with a status port (CREATE, INSERT, a grouped
+   SELECT equal to the embedded port's, ``/status``, rc 0 on SIGTERM).
+11. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
-   ``launches_delta_path``, ``launches_builtins_path`` and
-   ``launches_mpp_path`` the DAG, HTAP, builtins and MPP phases'), then,
-   last, the ``{"ok": true, "device": {...}}`` line.
+   ``launches_delta_path``, ``launches_builtins_path``,
+   ``launches_mpp_path`` and ``launches_remote_path`` the DAG, HTAP,
+   builtins, MPP and remote phases', the last counted in the store
+   process), then, last, the ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -1147,9 +1164,17 @@ def oracle(name: str, c: dict):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # the remote phase's store process (chip_smoke.py runs itself as it)
+    ap.add_argument("--store-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--rows", type=int, default=SF1_ROWS, help=argparse.SUPPRESS)
+    ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
+
+    if args.store_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return _store_child(args.seed, args.rows, args.device)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA card", file=sys.stderr)
@@ -1347,6 +1372,16 @@ def main() -> int:
     _mpp_phase(cols, args.seed, gs)
     mpp_launches = gs.LAUNCHES
     print(f"MPP phase: {time.perf_counter() - t0:.1f} s; K1 launches on the MPP path {mpp_launches}")
+
+    # 10. the process topology: a store process owns the card, SQL layers over it
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    remote_launches = _remote_phase(cols, args.seed, gs)
+    print(f"remote phase: {time.perf_counter() - t0:.1f} s; K1 launches on the remote path {remote_launches}")
+    t0 = time.perf_counter()
+    _boot_check()
+    print(f"boot check: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1359,6 +1394,7 @@ def main() -> int:
         "launches_delta_path": delta_launches,
         "launches_builtins_path": builtin_launches,
         "launches_mpp_path": mpp_launches,
+        "launches_remote_path": remote_launches,
         "max_abs_err": max_err,
         **k1,
     }]}))
@@ -2221,18 +2257,22 @@ def mpp_tables(cols: dict, partkey: np.ndarray, seed: int, n_part: int = 200_000
     }
 
 
-def mpp_sql(db, bulk_load, tables: dict):
-    """Create the four tables in ``db`` (a handle opened with no automatic
-    region split: one region each), bulk-load ``tables`` and ANALYZE them
-    (the exchange choice reads the statistics). → (load s, analyze s)."""
+def mpp_sql(db, bulk_load, tables: dict, db_name: str = "test"):
+    """Create the four tables in database ``db_name`` of ``db`` (a handle
+    opened with no automatic region split: one region each), bulk-load
+    ``tables`` and ANALYZE them (the exchange choice reads the statistics).
+    → (load s, analyze s)."""
+    s = db.session()
+    s.execute(f"CREATE DATABASE IF NOT EXISTS {db_name}")
+    s.execute(f"USE {db_name}")
     for stmt in MPP_SCHEMA:
-        db.execute(stmt)
+        s.execute(stmt)
     t0 = time.perf_counter()
     for name in MPP_TABLES:
-        bulk_load(db, name, tables[name])
+        bulk_load(db, name, tables[name], db_name=db_name)
     t1 = time.perf_counter()
     for name in MPP_TABLES:
-        db.execute(f"ANALYZE TABLE {name}")
+        s.execute(f"ANALYZE TABLE {name}")
     return t1 - t0, time.perf_counter() - t1
 
 
@@ -2380,6 +2420,360 @@ def _mpp_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda") -
     if launches:
         raise AssertionError(f"mpp: K1 launched {launches} times on the MPP path")
     return launches
+
+
+# -- the process topology: a store process that owns the card, SQL layers over it
+
+REMOTE_MPP = ("q3", "q17")  # MPP_QUERIES run through the store process
+
+
+def wire_text(row) -> tuple:
+    """A row as the MySQL text protocol carries it: NULL as None, dates in
+    ISO form, integers and decimals as their text."""
+    return tuple(None if v is None else v.decode() if isinstance(v, bytes) else v.isoformat()
+                 if hasattr(v, "isoformat") else str(v) for v in row)
+
+
+def _store_child(seed: int, n: int, device: str) -> int:
+    """The remote phase's store process (``chip_smoke.py --store-child``):
+    ``lineitem_sf1(seed, n)`` loaded through ``tidb_tpu_torch.open(device=
+    device)`` as the SQL phase loads it (two regions), and the MPP phase's
+    four tables in database ``mpp`` (one region each, ANALYZEd), served by
+    a ``StoreServer`` that also answers ``smoke_counts`` (K1's launches in
+    this process, zeroed on request, and the card's peak memory). Prints
+    ``ready port=N ...`` once listening; on SIGTERM prints one JSON line
+    (K1 launches, peak memory) and exits 0."""
+    import signal
+    import threading
+
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.remote import StoreServer
+    from tidb_tpu_torch.kv.tablecodec import record_key
+    from tidb_tpu_torch.ops import grouped_sums as gs
+
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    on_card = device != "cpu"
+
+    def peak() -> int:
+        return torch.cuda.max_memory_allocated() if on_card and torch.cuda.is_initialized() else 0
+
+    class CountingStoreServer(StoreServer):
+        def _dispatch(self, h, blobs):
+            if h["cmd"] != "smoke_counts":
+                return super()._dispatch(h, blobs)
+            out = {"k1": gs.LAUNCHES, "peak_bytes": peak()}
+            if h.get("reset"):
+                gs.LAUNCHES = 0
+            return out, []
+
+    t0 = time.perf_counter()
+    cols = lineitem_sf1(seed, n)
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+    load_s = lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+    tables = mpp_tables(cols, lineitem_partkey(seed, n), seed)
+    mpp_load_s, analyze_s = mpp_sql(db, bulk_load, tables, db_name="mpp")
+    del cols, tables
+    srv = CountingStoreServer(db.store)
+    port = srv.start()
+    print(f"ready port={port} rows={n} lineitem_load_s={load_s:.3f} mpp_load_s={mpp_load_s:.3f} "
+          f"analyze_s={analyze_s:.3f} store_setup_s={time.perf_counter() - t0:.3f}", flush=True)
+    stop.wait()
+    print(json.dumps({"store": {"k1_launches": gs.LAUNCHES, "peak_bytes": peak()}}), flush=True)
+    srv.shutdown()
+    db.stop_background()
+    return 0
+
+
+def _store_counts(port: int, reset: bool = False) -> dict:
+    """The store child's ``smoke_counts`` over one framed connection."""
+    import socket
+
+    from tidb_tpu_torch.kv.remote import _recv_frame, _send_frame
+
+    with socket.create_connection(("127.0.0.1", port), timeout=60) as sock:
+        _send_frame(sock, {"cmd": "smoke_counts", "reset": int(reset)})
+        h, _blobs = _recv_frame(sock)
+    if "err" in h:
+        raise AssertionError(f"store child: {h}")
+    return h
+
+
+def _ready(proc, what: str, timeout: float = 900.0) -> dict:
+    """The ``ready key=value ...`` line a booted process prints first."""
+    import threading
+
+    got = []
+    t = threading.Thread(target=lambda: got.append(proc.stdout.readline()), daemon=True)
+    t.start()
+    t.join(timeout)
+    line = got[0] if got else ""
+    if not line.startswith("ready"):
+        proc.kill()
+        raise AssertionError(f"{what} did not report ready (rc {proc.poll()}): {line!r}")
+    return {k: (int(v) if v.isdigit() else float(v)) for k, v in (kv.split("=") for kv in line.split()[1:])}
+
+
+def _sigterm(proc, what: str) -> str:
+    """SIGTERM, wait, require rc 0 → what the process printed after."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        out, _ = proc.communicate(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"{what} did not exit within 60 s of SIGTERM")
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode} on SIGTERM")
+    return out or ""
+
+
+def _compute_apps() -> list:
+    """[(pid, used memory)] of the processes holding a CUDA context on the
+    card, as nvidia-smi lists them."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return [tuple(x.strip() for x in ln.split(",")) for ln in out.strip().splitlines() if ln.strip()]
+
+
+def _nvidia_files(pid: int) -> set:
+    """The NVIDIA device files process ``pid`` has open (none until it
+    first calls into the CUDA driver)."""
+    fd_dir = f"/proc/{pid}/fd"
+    out = set()
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if target.startswith("/dev/nvidia"):
+            out.add(target)
+    return out
+
+
+def _context_check(sql_pid: int, store_pid: int) -> str:
+    """The SQL-layer process never called into the CUDA driver (it has no
+    NVIDIA device file open) and the store process holds the card; in
+    nvidia-smi's compute-apps list the SQL layer's pid is absent and the
+    store's present, or, where nvidia-smi cannot see this sandbox's
+    process ids, the list holds exactly two processes: this one and the
+    store. → the line that says what was seen."""
+    apps = _compute_apps()
+    pids = {int(p) for p, _m in apps if p.isdigit()}
+    files = {"sql": sorted(_nvidia_files(sql_pid)), "store": sorted(_nvidia_files(store_pid))}
+    if files["sql"] or not any(re.fullmatch(r"/dev/nvidia\d+", f) for f in files["store"]):
+        raise AssertionError(f"NVIDIA device files open: {files} (the store must hold the card, the SQL layer nothing)")
+    if store_pid in pids:
+        if sql_pid in pids:
+            raise AssertionError(f"nvidia-smi compute apps {apps}: the SQL layer {sql_pid} holds a context")
+        how = "the SQL layer's pid absent, the store's present"
+    elif len(apps) != 2:
+        raise AssertionError(f"nvidia-smi compute apps {apps}: expected this process and the store only")
+    else:
+        how = "pids not this sandbox's; two contexts: this process and the store"
+    return (f"nvidia-smi compute apps {apps} ({how}); device files: SQL layer {sql_pid} {files['sql']}, "
+            f"store {store_pid} {files['store']}")
+
+
+def _remote_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda") -> int:
+    """bench.py's remote topology on the card: a store child process
+    (``_store_child``) owns the card and holds SF1 (lineitem as two regions
+    and the MPP tables in database ``mpp``); a SQL layer booted as ``python
+    -m tidb_tpu_torch --store remote`` answers a MySQL client, and a second
+    SQL layer in this process (``tidb_tpu_torch.open(remote=...)``) reports
+    cop-task walls, wire time and MPP details. ``SQL_QUERIES`` and the MPP
+    phase's ``q3`` and ``q17`` run through both, once cold and ``reps``
+    times warm. Every result must equal the numpy oracle (the wire's in
+    text), every cop task run on the store's ``gpu`` engine undegraded,
+    EXPLAIN show ``[gpu]`` readers and one ``PhysMPPGather`` for q3/q17,
+    the gather report no retry and log no fallback, K1 launch exactly 2
+    times per band statement in the store and never in this process, and
+    the SQL-layer process hold no CUDA context while the store holds one.
+    Prints per statement the warm medians over the wire and in process,
+    the longest cop task, the wire tax (in-process wall minus the longest
+    cop task) and the tasks' wire time. → K1's launches in the store."""
+    import statistics as st
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.server import Client
+    from tidb_tpu_torch.utils import eventlog
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    n = len(cols[0])
+    t_phase = time.perf_counter()
+    store = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--store-child", "--seed", str(seed),
+                              "--rows", str(n), "--device", device],
+                             stdout=subprocess.PIPE, text=True, cwd=here)
+    sql = None
+    db = None
+    try:
+        info = _ready(store, "the store child")
+        port = info["port"]
+        print(f"remote: store child pid {store.pid}: {info}")
+        dev_flag = [] if device == "cuda" else ["--device", device]
+        sql = subprocess.Popen([sys.executable, "-m", "tidb_tpu_torch", "--store", "remote", "--path",
+                                f"127.0.0.1:{port}", "--port", "0", "--no-status", *dev_flag],
+                               stdout=subprocess.PIPE, text=True, cwd=here)
+        wire_port = _ready(sql, "the SQL-layer process", timeout=300)["port"]
+        db = tidb_tpu_torch.open(remote=f"127.0.0.1:{port}", device=device)
+        for name in MPP_TABLES:  # the persisted statistics, read now (a SQL layer loads them lazily)
+            db.stats.load_sync(db.catalog.table("mpp", name).id)
+        wire = {"test": Client("127.0.0.1", wire_port), "mpp": Client("127.0.0.1", wire_port, db="mpp")}
+        want = {name: sql_oracle(name, cols) for name in SQL_QUERIES}
+        mtables = mpp_tables(cols, lineitem_partkey(seed, n), seed)
+        want.update({name: mpp_oracle(name, mtables) for name in REMOTE_MPP})
+        del mtables
+        k1_here = gs.LAUNCHES
+        _store_counts(port, reset=True)  # the remote path: the store's count from 0 just before it
+        since = time.time()
+        launches = {}
+        for name in (*SQL_QUERIES, *REMOTE_MPP):
+            is_mpp = name in REMOTE_MPP
+            text = MPP_QUERIES[name] if is_mpp else SQL_QUERIES[name]
+            s = db.session()
+            c = wire["mpp" if is_mpp else "test"]
+            if is_mpp:
+                s.execute("USE mpp")
+            plan = "\n".join(r[0] for r in s.query("EXPLAIN " + text))
+            for _ in range(40):  # the wire's SQL layer loads the statistics on its first plan, in the background
+                wplan = "\n".join(r[0] for r in c.query("EXPLAIN " + text))
+                if wplan == plan:
+                    break
+                time.sleep(0.5)
+            if wplan != plan or "[gpu]" not in plan or "[host]" in plan or plan.count("PhysMPPGather") != int(is_mpp):
+                raise AssertionError(f"remote {name}: plans over the wire and in process:\n{wplan}\n{plan}")
+            before = _store_counts(port)["k1"]
+
+            def run_here():
+                t = time.perf_counter()
+                rows = s.query(text)
+                wall = (time.perf_counter() - t) * 1e3
+                if is_mpp:
+                    det = s.mpp_details[-1] if s.mpp_details else None
+                    got = None if det is None else (det.n_fragments, det.stages, det.ndev, det.retries)
+                    if got != (*MPP_PLANS[name], 1, 0):
+                        raise AssertionError(f"remote {name}: gather (fragments, stages, ndev, retries) {got}")
+                    if not mpp_rows_match(name, rows, want[name], MPP_LIMITS[name]):
+                        raise AssertionError(f"remote {name}: rows disagree with the oracle: {rows[:3]}")
+                    return wall, rows, (det.wall_ms, None, None)
+                summ = s.exec_summary
+                if summ is None or summ.engines != {"gpu": 2} or summ.degraded:
+                    raise AssertionError(f"remote {name}: cop tasks {summ and summ.engines}, degraded {summ and summ.degraded}")
+                if sql_rows(name, rows) != want[name]:
+                    raise AssertionError(f"remote {name}: rows disagree with the numpy oracle")
+                return wall, rows, (max(summ.procs), summ.wire_ms, summ.device_ms)
+
+            def run_wire(rows_here):
+                t = time.perf_counter()
+                rows = c.query(text)
+                wall = (time.perf_counter() - t) * 1e3
+                if sorted(rows, key=repr) != sorted((wire_text(r) for r in rows_here), key=repr):
+                    raise AssertionError(f"remote {name}: the wire's rows disagree with the in-process layer's")
+                return wall
+
+            cold_here, rows_here, _ = run_here()
+            cold_wire = run_wire(rows_here)
+            here_runs = [run_here() for _ in range(reps)]
+            wire_walls = [run_wire(rows_here) for _ in range(reps)]
+            launches[name] = _store_counts(port)["k1"] - before
+            runs = 2 * (1 + reps)
+            per_band = 0 if device == "cpu" else 2  # the plain version (the CPU's) counts no launch
+            if launches[name] != (per_band * runs if name == "band" else 0):
+                raise AssertionError(f"remote {name}: K1 launched {launches[name]} times in the store over {runs} "
+                                     "statements (2 per band statement, 0 otherwise)")
+            walls = [w for w, _r, _t in here_runs]
+            longest = [t[0] for _w, _r, t in here_runs]
+            tax = [w - t for w, t in zip(walls, longest)]
+            extra = "" if is_mpp else (f"; cop tasks' wire_ms median {st.median(t[1] for _w, _r, t in here_runs):.3f}; "
+                                       f"device_ms median {st.median(t[2] for _w, _r, t in here_runs):.3f}")
+            print(f"remote {name}: cold_ms wire {cold_wire:.3f} in-process {cold_here:.3f}; warm median wire "
+                  f"{st.median(wire_walls):.3f} (min {min(wire_walls):.3f}) in-process {st.median(walls):.3f} "
+                  f"(min {min(walls):.3f}); {'gather wall_ms' if is_mpp else 'longest cop task ms'} median "
+                  f"{st.median(longest):.3f}; wire tax ms median {st.median(tax):.3f}{extra}; "
+                  f"K1 launches in the store {launches[name]}; rows {len(rows_here)}")
+        events = [ev[3] for ev in eventlog.get().search(since=since, component="mpp")]
+        if "host_join_fallback" in events:
+            raise AssertionError(f"remote: an MPP gather fell back to the host join: {events}")
+        if gs.LAUNCHES != k1_here:
+            raise AssertionError(f"remote: K1 launched {gs.LAUNCHES - k1_here} times in this SQL-layer process")
+        counts = _store_counts(port)
+        if device != "cpu":
+            print(f"remote: {_context_check(sql.pid, store.pid)}")
+        for c in wire.values():
+            c.close()
+        _sigterm(sql, "the SQL-layer process")
+        sql = None
+        tail = [json.loads(ln) for ln in _sigterm(store, "the store child").splitlines() if ln.startswith("{")]
+        store = None
+        print(f"remote: K1 launches in the store {counts['k1']} ({launches}); store peak memory "
+              f"{counts['peak_bytes'] / 2**30:.3f} GiB; at exit {tail}; K1 in this process 0; phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
+        return counts["k1"]
+    finally:
+        if db is not None:
+            db.stop_background()
+        for proc in (sql, store):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _boot_check(device: str = "cuda") -> None:
+    """``python -m tidb_tpu_torch --store-server`` and ``python -m
+    tidb_tpu_torch --store remote`` (with a status port) at a small size:
+    CREATE, INSERT, a grouped SELECT over the wire equal to the embedded
+    port's answer, ``/status``; SIGTERM gives rc 0 for both."""
+    import urllib.request
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.server import Client
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev_flag = [] if device == "cuda" else ["--device", device]
+    stmts = ["CREATE TABLE bootc (a BIGINT PRIMARY KEY, g BIGINT, v DECIMAL(10,2))",
+             "INSERT INTO bootc VALUES " + ", ".join(f"({i}, {i % 7}, {i}.{i % 100:02d})" for i in range(1, 2001))]
+    query = "SELECT g, COUNT(*), SUM(v) FROM bootc GROUP BY g ORDER BY g"
+    store = subprocess.Popen([sys.executable, "-m", "tidb_tpu_torch", "--store-server", "--port", "0", *dev_flag],
+                             stdout=subprocess.PIPE, text=True, cwd=here)
+    sql = None
+    try:
+        sport = _ready(store, "the --store-server process", timeout=300)["port"]
+        sql = subprocess.Popen([sys.executable, "-m", "tidb_tpu_torch", "--store", "remote", "--path",
+                                f"127.0.0.1:{sport}", "--port", "0", "--status-port", "0", *dev_flag],
+                               stdout=subprocess.PIPE, text=True, cwd=here)
+        ports = _ready(sql, "the SQL-layer process", timeout=300)
+        c = Client("127.0.0.1", ports["port"])
+        for stmt in stmts:
+            c.query(stmt)
+        got = c.query(query)
+        c.close()
+        with urllib.request.urlopen(f"http://127.0.0.1:{ports['status']}/status", timeout=30) as r:
+            status = r.read()
+        if b"tidb-tpu" not in status:
+            raise AssertionError(f"boot: /status answered {status[:200]!r}")
+        _sigterm(sql, "the SQL-layer process")
+        sql = None
+        _sigterm(store, "the --store-server process")
+        store = None
+    finally:
+        for proc in (sql, store):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    db = tidb_tpu_torch.open(device=device)
+    for stmt in stmts:
+        db.execute(stmt)
+    want = [wire_text(r) for r in db.query(query)]
+    db.stop_background()
+    if got != want:
+        raise AssertionError(f"boot: the grouped SELECT over the wire {got} disagrees with the embedded {want}")
+    print(f"boot: --store-server and --store remote answered {len(got)} groups equal to the embedded port; "
+          f"/status {status[:80]!r}; both exited 0 on SIGTERM")
 
 
 def _drive(regions, dags, gs):

@@ -497,3 +497,40 @@ def test_mpp_statements_on_card_match_cpu_and_oracle():
         mesh.FORCE_NDEV = None
         for db in dbs.values():
             db.stop_background()
+
+
+@pytest.mark.gpu
+def test_remote_band_on_card_matches_embedded_and_launches_k1_twice():
+    """A ``StoreServer`` over a ``device="cuda"`` store (200,000-row
+    lineitem, two regions) and a SQL layer ``open(remote=..., device=
+    "cpu")`` in this process: band over the wire equals band on the
+    embedded handle and the oracle, its two cop tasks run on the store's
+    gpu engine, K1 launches twice (one per region), and Q6 launches none."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.remote import StoreServer
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    cols = chip_smoke.lineitem_sf1(seed=8, n=200_000)
+    store = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    chip_smoke.lineitem_sql(store, bulk_load, record_key, cols, parts=2)
+    srv = StoreServer(store.store)
+    port = srv.start()
+    db = tidb_tpu_torch.open(remote=f"127.0.0.1:{port}", device="cpu")
+    try:
+        embedded = chip_smoke.sql_rows("band", store.query(chip_smoke.SQL_QUERIES["band"]))
+        s = db.session()
+        for name, k1 in (("band", 2), ("q6", 0)):
+            before = gs.LAUNCHES
+            got = chip_smoke.sql_rows(name, s.query(chip_smoke.SQL_QUERIES[name]))
+            torch.cuda.synchronize()
+            assert gs.LAUNCHES - before == k1
+            assert s.exec_summary.engines == {"gpu": 2} and not s.exec_summary.degraded
+            assert got == chip_smoke.sql_oracle(name, cols)
+            if name == "band":
+                assert got == embedded
+    finally:
+        srv.shutdown()
+        db.stop_background()
+        store.stop_background()

@@ -109,12 +109,33 @@ COPIES = (
     "parallel/gather.py",
     "parallel/probe.py",
     "parallel/mpptask.py",
+    # the process topology: the store server and its remote client, the
+    # MySQL wire server, the status server, the boot entry point
+    "utils/metricshist.py",
+    "utils/topsql.py",
+    "kv/fault_injection.py",
+    "kv/remote.py",
+    "kv/sharded.py",
+    "privilege/__init__.py",
+    "privilege/privileges.py",
+    "server/__init__.py",
+    "server/protocol.py",
+    "server/server.py",
+    "server/client.py",
+    "server/status.py",
+    "catalog/infoschema.py",
+    "planner/prepcache.py",  # the wire's binary prepared protocol
+    "__main__.py",
 )
 
 SEAMS: dict[str, frozenset] = {
     # the engine name: StoreType.GPU in place of TPU
     "kv/kv.py": frozenset({"StoreType"}),
-    "session/session.py": frozenset({"DEFAULT_SYSVARS", "Session._plan_select", "open_db"}),
+    # open_db: the remote-backed store carries the caller's device; the
+    # privilege bootstrap runs under one lock (concurrent first logins)
+    "session/session.py": frozenset(
+        {"DEFAULT_SYSVARS", "Session._plan_select", "open_db", "_PRIV_BOOTSTRAP_MU", "DB.ensure_priv_bootstrap"}
+    ),
     # window pushdown gated on StoreType.GPU
     "planner/optimizer.py": frozenset({"_demote_ci_order", "_pick_engine", "_try_push_window"}),
     # eval_expr hands a torch caller's bodies expression/arrays.py
@@ -147,9 +168,10 @@ SEAMS: dict[str, frozenset] = {
     # the root window runs on the store's card through the port's window
     # program
     "executor/executors.py": frozenset({"WindowExec._try_device"}),
-    # the engine name gpu in the device admission checks; the store's
-    # device for the HBM budget and the mesh; the fragment program's lanes
-    # are torch tensors on that device, copied off it once
+    # the engine name gpu in the device admission checks; planning's HBM
+    # budget read without touching a device, the store's device for the
+    # mesh; the fragment program's lanes are torch tensors on that device,
+    # copied off it once
     "parallel/gather.py": frozenset(
         {
             "_agg_mpp_ok", "_chain_cond_ok", "_reader_mpp_ok", "_stage_eligible", "try_mpp_rewrite",
@@ -160,6 +182,12 @@ SEAMS: dict[str, frozenset] = {
     "parallel/probe.py": frozenset({"probe_and_blacklist"}),
     # the row codec builds into the package's _build/
     "native/__init__.py": frozenset({"_OUT_DIR"}),
+    # no remote cop task degrades to the store's host engine: a failure on
+    # the store's card fails the statement, as in copr/client.py
+    "kv/remote.py": frozenset({"_RemoteCopClient.send"}),
+    # the --device flag, handed to open() in both roles and set on
+    # --raw-store's MemStore; the docstring names this package's module
+    "__main__.py": frozenset({"<doc>", "main"}),
 }
 
 _IMPORT_LINE = re.compile(r"^(\s*)(from|import)(\s+)tidb_tpu(?=[.\s])", re.M)

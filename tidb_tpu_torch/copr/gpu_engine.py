@@ -193,6 +193,17 @@ def _hbm_budget(device: torch.device) -> int:
     return _HOST_BUDGET
 
 
+def planning_budget(store) -> int:
+    """The device-cache budget the planner weighs the stores' reported
+    resident bytes against, read without touching a device: planning must
+    not open a CUDA context (over a remote store the card belongs to the
+    store process). A CUDA store's LRU holds ``_HBM_SHARE`` of an 80 GB
+    card, a CPU store's ``_HOST_BUDGET``."""
+    if torch.device(getattr(store, "device", "cuda")).type == "cpu":
+        return _HOST_BUDGET
+    return int((80 << 30) * _HBM_SHARE)
+
+
 def _device_lru(cache, device: torch.device) -> _DeviceLRU:
     with cache._mu:
         lru = cache.device_lrus.get(str(device))

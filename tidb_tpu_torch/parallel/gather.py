@@ -845,9 +845,9 @@ def try_mpp_rewrite(plan: PhysicalPlan, vars: dict, stats=None, store=None, heal
     hbm_frac = 0.0
     if health is not None:
         try:
-            from tidb_tpu_torch.copr.gpu_engine import _hbm_budget, store_device
+            from tidb_tpu_torch.copr.gpu_engine import planning_budget
 
-            budget = float(_hbm_budget(store_device(store)))
+            budget = float(planning_budget(store))
             for ent in health.reports().values():
                 rep = ent.get("report") or {}
                 b = float(rep.get("device_cache_bytes") or 0)

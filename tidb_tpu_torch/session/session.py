@@ -26,6 +26,8 @@ from tidb_tpu_torch.utils import eventlog as _ev
 from tidb_tpu_torch.utils import sysvar_int
 from tidb_tpu_torch.utils.chunk import Chunk
 
+_PRIV_BOOTSTRAP_MU = threading.RLock()
+
 DEFAULT_SYSVARS = {
     # engine isolation (ref: vardef tidb_isolation_read_engines :631);
     # preference order matters: first legal engine wins
@@ -2259,7 +2261,10 @@ class DB:
     def ensure_priv_bootstrap(self) -> None:
         from tidb_tpu_torch.privilege import bootstrap_priv_tables
 
-        bootstrap_priv_tables(self)
+        # one bootstrap at a time: a concurrent first login would otherwise
+        # see mysql.user created before its root row and deny root
+        with _PRIV_BOOTSTRAP_MU:
+            bootstrap_priv_tables(self)
 
     @property
     def priv_checker(self):
@@ -2540,7 +2545,10 @@ def open_db(region_split_keys: int = 500_000, remote: "str | None" = None, devic
     ``device`` is where the ``gpu`` engine runs its cop tasks ("cuda",
     "cuda:N" or "cpu"). The store carries it; the engine resolves it on
     the first device task, so with no card a default handle raises there
-    and never runs on the CPU."""
+    and never runs on the CPU. Over a remote store the store process owns
+    its card and runs the cop tasks and MPP fragments; ``device`` is then
+    where this process runs its own device work (the root window, a
+    fleet's hybrid gather)."""
     if remote is not None:
         from tidb_tpu_torch.kv.remote import RemoteStore
 
@@ -2550,10 +2558,13 @@ def open_db(region_split_keys: int = 500_000, remote: "str | None" = None, devic
             host, _, port = ep.rpartition(":")
             stores.append(RemoteStore(host or "127.0.0.1", int(port)))
         if len(stores) == 1:
-            return DB(store=stores[0])
-        from tidb_tpu_torch.kv.sharded import ShardedStore
+            db = DB(store=stores[0])
+        else:
+            from tidb_tpu_torch.kv.sharded import ShardedStore
 
-        return DB(store=ShardedStore(stores))
+            db = DB(store=ShardedStore(stores))
+        db.store.device = device
+        return db
     db = DB(region_split_keys=region_split_keys)
     db.store.device = device
     return db
