@@ -112,12 +112,30 @@
    boot check at a small size: ``python -m tidb_tpu_torch --store-server``
    and ``--store remote`` with a status port (CREATE, INSERT, a grouped
    SELECT equal to the embedded port's, ``/status``, rc 0 on SIGTERM).
-11. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+11. Partitioned tables: the phase-3 lineitem generated from the same seed,
+   created ``PARTITION BY RANGE (l_orderkey)`` with four partitions at the
+   quartiles of its order keys (about 1.5M rows each) and loaded through
+   ``bulk_load``. ``SQL_QUERIES`` run once cold and ten times warm, each
+   equal to the oracle with one ``gpu`` task per partition, none
+   degraded, K1 launching 4 times per band statement and never during
+   Q1; Q6 pruned by its order key plans one task and the band query over
+   ``PARTITION (p1, p2)`` two, each equal to the oracle over its rows. K1
+   equals its plain version on the band statements' inputs. Prints the
+   warm medians beside phase 5's, the task counts and cop-task walls.
+12. graftfuzz on the card: ``python -m tidb_tpu_torch.tools.fuzz --seed 42
+   --cases 300 --query-pool 6 --device cuda`` (the reference's tier-1
+   smoke lane) must come back clean with its device sessions on ``gpu``;
+   the reference corpus's five SPECs replay through the port's
+   ``run_repro``; under an injected +1 on the gpu engine's first int64
+   lane a 4-case campaign finds, shrinks and reproduces the bug.
+13. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
    ``launches_delta_path``, ``launches_builtins_path``,
-   ``launches_mpp_path`` and ``launches_remote_path`` the DAG, HTAP,
-   builtins, MPP and remote phases', the last counted in the store
-   process), then, last, the ``{"ok": true, "device": {...}}`` line.
+   ``launches_mpp_path``, ``launches_remote_path``,
+   ``launches_partition_path`` and ``launches_fuzz_campaign`` the DAG,
+   HTAP, builtins, MPP, remote, partition and fuzz phases', the remote
+   one counted in the store process and the fuzz one in the campaign's),
+   then, last, the ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -560,13 +578,14 @@ SQL_QUERIES = {
 SQL_ORDERED = ("q1", "q10")
 
 
-def lineitem_sql(db, bulk_load, record_key, cols: dict, parts: int = 2) -> float:
+def lineitem_sql(db, bulk_load, record_key, cols: dict, parts: int = 2, schema: str = SQL_SCHEMA) -> float:
     """Create the fourteen-column lineitem in ``db`` (a handle opened with no
-    automatic region split), bulk-load the generated ``cols`` (string codes
-    decoded to their bytes) and split it into ``parts`` regions at equal
-    handle counts (handles 1..n, ``make_regions``' cuts). ``bulk_load`` and
-    ``record_key`` are the handle's own package's. → load seconds."""
-    db.execute(SQL_SCHEMA)
+    automatic region split) from ``schema``, bulk-load the generated ``cols``
+    (string codes decoded to their bytes) and split it into ``parts``
+    regions at equal handle counts (handles 1..n, ``make_regions``' cuts).
+    ``bulk_load`` and ``record_key`` are the handle's own package's. → load
+    seconds."""
+    db.execute(schema)
     data = [cols[i] for i in range(len(cols))]
     for slot, values in ((4, RETURNFLAGS), (5, LINESTATUS), (7, SHIPMODES), (8, SHIPINSTRUCTS)):
         data[slot] = np.array(values)[cols[slot]]
@@ -1337,6 +1356,7 @@ def main() -> int:
     t0 = time.perf_counter()
     gs.LAUNCHES = 0  # the SQL path: counts from 0 just before it
     sql_launches, db, warm = _sql_phase(cols, gs)
+    sql_warm = dict(warm)
     print(f"SQL phase: {time.perf_counter() - t0:.1f} s; K1 launches on the SQL path {sql_launches}")
 
     # 6. HTAP: reads after writes on the same database, the delta pending
@@ -1382,6 +1402,22 @@ def main() -> int:
     t0 = time.perf_counter()
     _boot_check()
     print(f"boot check: {time.perf_counter() - t0:.1f} s")
+
+    # 11. partitioned tables: lineitem RANGE-partitioned on l_orderkey, one task per partition
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gs.LAUNCHES = 0  # the partition path: counts from 0 just before it
+    partition_launches, err, k1_partition = _partition_phase(cols, gs, sql_warm)
+    max_err = max(max_err, err)
+    print(f"partition phase: {time.perf_counter() - t0:.1f} s; K1 launches on the partition path {partition_launches}")
+
+    # 12. graftfuzz on the card: random SQL, the gpu sessions held against the host engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fuzz = _fuzz_phase()
+    print(f"fuzz phase: {time.perf_counter() - t0:.1f} s")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1395,8 +1431,11 @@ def main() -> int:
         "launches_builtins_path": builtin_launches,
         "launches_mpp_path": mpp_launches,
         "launches_remote_path": remote_launches,
+        "launches_partition_path": partition_launches,
+        "launches_fuzz_campaign": fuzz["k1_launches"],
         "max_abs_err": max_err,
         **k1,
+        "partition_input": k1_partition,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -1427,9 +1466,9 @@ def _sql_phase(cols: dict, gs, reps: int = 10, device: str = "cuda"):
     time and row codec, then per statement the cold wall, the warm SQL wall
     (median, min), the summed and longest cop-task walls from ExecDetails
     and the SQL-layer tax (wall minus summed task walls, and wall minus
-    the longest task: the tasks run concurrently). → (K1 launches over the
-    single (cold) drive of the statements, the open database, the warm
-    median per statement)."""
+    the longest task: the tasks run concurrently) and one profiled run's
+    device busy time. → (K1 launches over the single (cold) drive of the
+    statements, the open database, the warm median per statement)."""
     import tidb_tpu_torch
     from tidb_tpu_torch import native as row_native
     from tidb_tpu_torch.executor.load import bulk_load
@@ -1478,7 +1517,7 @@ def _sql_phase(cols: dict, gs, reps: int = 10, device: str = "cuda"):
               f"device_ms median {statistics.median(d for _w, _p, d in runs):.3f}; "
               f"tax_ms median {statistics.median(tax):.3f} (wall minus summed task walls; the tasks run "
               f"concurrently); tax_vs_longest_task_ms median {statistics.median(tax_crit):.3f}; "
-              f"rows {len(want[name])}")
+              f"{_busy(lambda: run(name), statistics.median(walls))}; rows {len(want[name])}")
     return launches, db, warm
 
 
@@ -2776,6 +2815,257 @@ def _boot_check(device: str = "cuda") -> None:
           f"/status {status[:80]!r}; both exited 0 on SIGTERM")
 
 
+PARTITIONS = 4
+
+
+def partition_bounds(orderkey: np.ndarray, parts: int = PARTITIONS) -> list[int]:
+    """RANGE bounds at the quantiles of the generated order keys: partition
+    ``i`` holds the keys below bound ``i`` (the last one: MAXVALUE), about
+    ``n / parts`` rows each."""
+    keys = np.sort(orderkey)
+    return [int(keys[len(keys) * i // parts]) for i in range(1, parts)]
+
+
+def partitioned_schema(bounds: list[int]) -> str:
+    """``SQL_SCHEMA`` RANGE-partitioned on ``l_orderkey`` at ``bounds``."""
+    defs = [f"PARTITION p{i} VALUES LESS THAN ({b})" for i, b in enumerate(bounds)]
+    defs.append(f"PARTITION p{len(bounds)} VALUES LESS THAN MAXVALUE")
+    return f"{SQL_SCHEMA}\nPARTITION BY RANGE (l_orderkey) ({', '.join(defs)})"
+
+
+def partition_statements(bounds: list[int]) -> dict:
+    """The statements that name partitions: Q6 pruned to p0 by its order
+    key, and the band query over ``PARTITION (p1, p2)``. → {name: (sql,
+    oracle statement, the rows' order-key interval, tasks)}."""
+    return {
+        "q6pruned": (f"{SQL_QUERIES['q6']} AND l_orderkey < {bounds[0]}", "q6", (None, bounds[0]), 1),
+        "bandp12": (SQL_QUERIES["band"].replace("FROM lineitem", "FROM lineitem PARTITION (p1, p2)"), "band",
+                    (bounds[0], bounds[2]), 2),
+    }
+
+
+def rows_between(cols: dict, lo, hi) -> dict:
+    """The lineitem rows whose order key lies in ``[lo, hi)`` (``None``: no
+    bound on that side)."""
+    keep = np.ones(len(cols[9]), bool)
+    if lo is not None:
+        keep &= cols[9] >= lo
+    if hi is not None:
+        keep &= cols[9] < hi
+    return cols if keep.all() else {k: v[keep] for k, v in cols.items()}
+
+
+def _partition_phase(cols: dict, gs, sql_warm: dict, reps: int = 10, device: str = "cuda") -> tuple:
+    """TiDB's RANGE partitioning of a fact table on an integer key: ``cols``
+    loaded through ``bulk_load`` (which routes each row to its partition's
+    physical table) into lineitem ``PARTITION BY RANGE (l_orderkey)``, four
+    partitions at the quartiles of the order keys, one cop task each.
+    ``SQL_QUERIES`` run once cold and ``reps`` times warm: each equal to the
+    numpy oracle with four ``gpu`` tasks and none degraded, K1 launching 4
+    times per band statement (one per partition task) and never during Q1.
+    Then ``partition_statements``: Q6 pruned to one partition (one task)
+    and the band query over two named partitions (two tasks, two K1
+    launches), each equal to the oracle over its rows. K1 is held against
+    its plain version on the inputs the band statement gave it. Prints the
+    load time, and per statement the cold wall, the warm median beside the
+    two-region SQL phase's (``sql_warm``), the task count, the summed and
+    longest cop-task walls and one profiled run's device busy time (a
+    twelfth run). → (K1 launches on the path, K1's largest error on its
+    inputs, K1's timings at one partition's input)."""
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+    from tidb_tpu_torch.ops import dag_kernel
+
+    bounds = partition_bounds(cols[9])
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+    load_s = lineitem_sql(db, bulk_load, record_key, cols, parts=1, schema=partitioned_schema(bounds))
+    sizes = np.bincount(np.searchsorted(np.array(bounds), cols[9], side="right"), minlength=PARTITIONS)
+    print(f"partition: bulk load {load_s:.3f} s, {len(cols[0])} rows into {PARTITIONS} RANGE partitions of "
+          f"l_orderkey below {bounds} / MAXVALUE, rows {sizes.tolist()}")
+    s = db.session()
+    stmts = {name: (sql, name, (None, None), PARTITIONS) for name, sql in SQL_QUERIES.items()}
+    stmts.update(partition_statements(bounds))
+    want = {name: sql_oracle(oname, rows_between(cols, *iv)) for name, (_sql, oname, iv, _t) in stmts.items()}
+    k1_want = {"band": PARTITIONS, "bandp12": 2, "q1": 0, "q6pruned": 0}  # one launch per band task
+
+    def run(name):
+        sql, oname, _iv, tasks = stmts[name]
+        before = gs.LAUNCHES
+        t0 = time.perf_counter()
+        rows = s.query(sql)
+        wall = (time.perf_counter() - t0) * 1e3
+        summ = s.exec_summary
+        if summ is None or summ.engines != {"gpu": tasks} or summ.degraded:
+            raise AssertionError(f"partition {name}: cop tasks {summ and summ.engines}, degraded "
+                                 f"{summ and summ.degraded}, want {{'gpu': {tasks}}}")
+        if sql_rows(oname, rows) != want[name]:
+            raise AssertionError(f"partition {name}: rows disagree with the numpy oracle")
+        if name in k1_want and gs.LAUNCHES - before != k1_want[name]:
+            raise AssertionError(f"partition {name}: K1 launched {gs.LAUNCHES - before} times, want {k1_want[name]}")
+        return wall, summ.procs
+
+    inputs = []
+    real_k1 = dag_kernel.grouped_sums
+
+    def recording_k1(seg, pairs, B, n_pad, bounds=None, device="cuda"):
+        inputs.append((seg, pairs, B, n_pad, bounds))
+        return real_k1(seg, pairs, B, n_pad, bounds, device=device)
+
+    cold = {}
+    dag_kernel.grouped_sums = recording_k1
+    try:
+        for name in stmts:
+            cold[name] = run(name)
+    finally:
+        dag_kernel.grouped_sums = real_k1
+    for name in stmts:
+        runs = [run(name) for _ in range(reps)]
+        walls = [w for w, _p in runs]
+        cop_sum = [sum(p) for _w, p in runs]
+        cop_max = [max(p) for _w, p in runs]
+        cw, cp = cold[name]
+        beside = f" (two-region SQL phase {sql_warm[name]:.3f})" if name in sql_warm else ""
+        print(f"partition {name}: tasks {stmts[name][3]}; cold_ms {cw:.3f} (cop tasks {[round(p, 3) for p in cp]}); "
+              f"warm sql_ms median {statistics.median(walls):.3f}{beside} min {min(walls):.3f}; "
+              f"cop_task_sum_ms median {statistics.median(cop_sum):.3f}; cop_task_max_ms median "
+              f"{statistics.median(cop_max):.3f}; {_busy(lambda: run(name), statistics.median(walls))}; "
+              f"rows {len(want[name])}")
+    launches = gs.LAUNCHES
+    err = max(_k1_err(*inp) for inp in inputs)
+    seg, pairs, B, n_pad, kb = inputs[0]
+    k1 = _k1_timings(seg, pairs, B, n_pad, kb)
+    print(f"partition: K1 equal to its plain version on the {len(inputs)} inputs of the cold drive; at p0's "
+          f"band input n_pad={n_pad} B={B} L={len(pairs)}: {json.dumps(k1)}")
+    db.stop_background()
+    return launches, err, k1
+
+
+FUZZ_SEED = 42
+FUZZ_CASES = 300  # the reference's tier-1 smoke lane (tests/test_fuzz_smoke.py)
+# the reference's seeded mutation (tests/test_fuzz_harness.py) on the port's
+# gpu engine: +1 on the first int64 output lane of every gpu cop task
+FUZZ_BUG = """
+import numpy as np
+from tidb_tpu_torch.copr import gpu_engine
+
+_orig = gpu_engine.execute_dag
+
+
+def _corrupted(store, dag, region, ranges, read_ts, warn=None):
+    ch = _orig(store, dag, region, ranges, read_ts, warn=warn)
+    for c in ch.columns:
+        if c.data.dtype == np.int64 and len(c.data):
+            c.data = c.data + 1
+            break
+    return ch
+
+
+gpu_engine.execute_dag = _corrupted
+"""
+
+
+def corpus_specs(root: str) -> dict:
+    """The reference's fuzz corpus (``tests/fuzz_corpus/repro_*.py``) read as
+    data: each file's top-level assignments run alone, with no builtins
+    (the files import the JAX package's runner, so they are not imported).
+    → {name: SPEC}."""
+    import ast
+    import glob
+
+    out = {}
+    for path in sorted(glob.glob(os.path.join(root, "tests", "fuzz_corpus", "repro_*.py"))):
+        with open(path, encoding="utf-8") as fh:
+            tree = ast.parse(fh.read())
+        # the module's assignments alone, in order (SPEC may name the
+        # constants assigned before it), with no builtins
+        names: dict = {"__builtins__": {}}
+        exec(compile(ast.Module([n for n in tree.body if isinstance(n, ast.Assign)], []), path, "exec"), names)
+        out[os.path.basename(path)[:-3]] = names["SPEC"]
+    return out
+
+
+def _python(body: str, here: str, timeout: float):
+    return subprocess.run([sys.executable, "-c", body], capture_output=True, text=True, cwd=here, timeout=timeout)
+
+
+def _fuzz_phase(device: str = "cuda", cases: int = FUZZ_CASES) -> dict:
+    """graftfuzz on the card: ``python -m tidb_tpu_torch.tools.fuzz --seed 42
+    --cases N --query-pool 6 --device D --quiet`` as a child process must
+    exit 0 with no finding, no harness error and N cases checked, its
+    device sessions' cop tasks mostly on ``gpu`` with none degraded and at
+    least one MPP gather. Then the reference corpus's SPECs replay through
+    the port's ``run_repro`` on ``device``, and under ``FUZZ_BUG`` a
+    ``--seed 5 --cases 4`` campaign must exit 1 with a finding shrunk to at
+    most 3 columns and 8 rows whose emitted repro fails under the bug and
+    passes without it. Prints cases/s, MPP cases and gathers, K1 launches
+    and the engine counts. → the campaign's device tally."""
+    import tempfile
+
+    from tidb_tpu_torch.tools.fuzz import runner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "tidb_tpu_torch.tools.fuzz", "--seed", str(FUZZ_SEED), "--cases", str(cases),
+           "--query-pool", "6", "--device", device, "--quiet"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=here, timeout=900)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"fuzz: the campaign exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    doc = json.loads(res.stdout)
+    if doc["campaign"] != {"cases": cases, "findings": 0, "harness_errors": 0, "seed": FUZZ_SEED} or doc["findings"]:
+        raise AssertionError(f"fuzz: the campaign is not clean: {doc}")
+    tally = next(json.loads(ln.split("graftfuzz: device ", 1)[1]) for ln in res.stderr.splitlines()
+                 if ln.startswith("graftfuzz: device "))
+    engines = tally["engines"]
+    if tally["degraded"] or engines.get("gpu", 0) * 2 <= sum(engines.values()) or tally["gathers"] < 1:
+        raise AssertionError(f"fuzz: the device sessions did not run on gpu: {tally}")
+    print(f"fuzz: seed {FUZZ_SEED}, {cases} cases clean in {tally['elapsed_s']:.3f} s "
+          f"({cases / tally['elapsed_s']:.2f} cases/s; child wall {wall:.3f} s); MPP cases {tally['mpp_cases']}, "
+          f"gathers {tally['gathers']}; K1 launches {tally['k1_launches']}; device sessions' cop tasks {engines}, "
+          f"degraded {tally['degraded']}")
+
+    specs = corpus_specs(here)
+    if len(specs) < 5:
+        raise AssertionError(f"fuzz: the reference corpus holds {len(specs)} SPECs")
+    t0 = time.perf_counter()
+    with runner.on_device(device):
+        for spec in specs.values():
+            runner.run_repro(spec)
+    print(f"fuzz: the corpus's {len(specs)} SPECs {sorted(specs)} replay clean in {time.perf_counter() - t0:.3f} s")
+
+    out = tempfile.mkdtemp(prefix="smoke_fuzz_")
+    try:
+        t0 = time.perf_counter()
+        res = _python(FUZZ_BUG + "import sys\nfrom tidb_tpu_torch.tools.fuzz.__main__ import main\n"
+                      f"sys.exit(main(['--seed', '5', '--cases', '4', '--query-pool', '6', '--out', {out!r}, "
+                      f"'--quiet', '--device', {device!r}]))\n", here, 600)
+        if res.returncode != 1:
+            raise AssertionError(f"fuzz: the campaign under the injected bug exited {res.returncode}:\n{res.stderr[-3000:]}")
+        with open(os.path.join(out, "findings.json"), encoding="utf-8") as fh:
+            finding = json.load(fh)["findings"][0]
+        if finding["shrunk"]["columns"] > 3 or finding["shrunk"]["rows"] > 8 or finding["repro_verified"] is not True:
+            raise AssertionError(f"fuzz: the injected bug's finding {finding}")
+        repro = os.path.join(out, finding["repro"])
+        with open(repro, encoding="utf-8") as fh:
+            if "from tidb_tpu_torch.tools.fuzz.runner import run_repro" not in fh.read():
+                raise AssertionError("fuzz: the emitted repro does not replay on the port")
+        replay = ("import runpy\nfrom tidb_tpu_torch.tools.fuzz import runner\n"
+                  f"with runner.on_device({device!r}):\n    runpy.run_path({repro!r}, run_name='__main__')\n")
+        bug = _python(FUZZ_BUG + replay, here, 300)
+        if bug.returncode == 0 or "AssertionError" not in bug.stderr:
+            raise AssertionError(f"fuzz: the repro must fail under the bug:\n{bug.stderr[-2000:]}")
+        ok = _python(replay, here, 300)
+        if ok.returncode != 0:
+            raise AssertionError(f"fuzz: the repro must pass without the bug:\n{ok.stderr[-2000:]}")
+        print(f"fuzz: the injected bug found at seed 5 case {finding['case']} ({finding['oracle']}/{finding['phase']}), "
+              f"shrunk to {finding['shrunk']}; its repro fails under the bug and passes without it "
+              f"({time.perf_counter() - t0:.3f} s)")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return tally
+
+
 def _drive(regions, dags, gs):
     """Every DAG over every region on the card, once. → (Chunks per DAG and
     region, K1 launches per DAG, the engine's stats per DAG of the first
@@ -2844,6 +3134,14 @@ def _task_timing(gpu_engine, region, dag, ranges, reps: int = 10) -> dict:
         "cat": sum(k[1] for k in kernels if "CatArray" in k[0]) if kernels else None,
         "top": kernels[:3],
     }
+
+
+def _busy(fn, wall_ms: float) -> str:
+    """One profiled call of ``fn``: the device's busy time (the sum of its
+    kernels) and the idle share against ``wall_ms``."""
+    kernels = _profile_device(fn)
+    busy = sum(k[1] for k in kernels) if kernels else None
+    return f"profiled device_busy_ms {_ms(busy)}" + ("" if busy is None else f" (idle share {max(0.0, 1 - busy / wall_ms):.3f})")
 
 
 def _profile_device(fn):

@@ -51,3 +51,20 @@ def test_units_split_methods_from_their_class():
     u = copies.units(src)
     assert set(u) == {"A", "A.f", "g"}
     assert "def f" not in u["A"] and "return 1" in u["A.f"]
+
+
+# partitioned tables, online DDL, TTL, the logical dump and graftfuzz
+SLICE_10 = (
+    "planner/partition.py", "statistics/globalstats.py", "tools/__init__.py", "tools/dumpling.py",
+    "catalog/ddl.py", "utils/timer.py", "ttl/__init__.py", "ttl/worker.py", "tools/fuzz/__init__.py",
+    "tools/fuzz/gen.py", "tools/fuzz/oracles.py", "tools/fuzz/shrink.py", "tools/fuzz/harness.py",
+    "tools/fuzz/runner.py", "tools/fuzz/__main__.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_10)
+def test_slice_module_is_a_registered_copy(rel):
+    assert rel in copies.COPIES
+    assert copies.drift(rel) == []
+    # only the fuzzer's runner and CLI are seams
+    assert (rel in copies.SEAMS) == (rel in ("tools/fuzz/runner.py", "tools/fuzz/__main__.py"))

@@ -534,3 +534,82 @@ def test_remote_band_on_card_matches_embedded_and_launches_k1_twice():
         srv.shutdown()
         db.stop_background()
         store.stop_background()
+
+
+def _partitioned_sessions(cols):
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    schema = chip_smoke.partitioned_schema(chip_smoke.partition_bounds(cols[9]))
+    out = {}
+    for device in ("cuda", "cpu"):
+        db = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+        chip_smoke.lineitem_sql(db, bulk_load, record_key, cols, parts=1, schema=schema)
+        out[device] = (db, db.session())
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,k1", [("band", 4), ("q1", 0), ("q6", 0)])
+def test_partitioned_statement_on_card_runs_one_task_per_partition(name, k1):
+    """lineitem RANGE-partitioned on l_orderkey at its quartiles (200,000
+    rows, four partitions): one gpu task per partition, K1 once per band
+    task and never during Q1 or Q6, rows equal to the CPU path and the
+    oracle."""
+    _need_card()
+    cols = chip_smoke.lineitem_sf1(seed=10, n=200_000)
+    sessions = _partitioned_sessions(cols)
+    try:
+        got = {}
+        for device, (_db, s) in sessions.items():
+            before = gs.LAUNCHES
+            got[device] = chip_smoke.sql_rows(name, s.query(chip_smoke.SQL_QUERIES[name]))
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert gs.LAUNCHES - before == k1
+            assert s.exec_summary.engines == {"gpu": 4} and not s.exec_summary.degraded
+        assert got["cuda"] == got["cpu"] == chip_smoke.sql_oracle(name, cols)
+    finally:
+        for db, _s in sessions.values():
+            db.stop_background()
+
+
+@pytest.mark.gpu
+def test_pruned_and_selected_partitions_on_card_plan_their_tasks():
+    """Q6 pruned to p0 by its order key plans one gpu task; the band query
+    over ``PARTITION (p1, p2)`` plans two and launches K1 twice; each
+    equals the oracle over its rows."""
+    _need_card()
+    cols = chip_smoke.lineitem_sf1(seed=11, n=200_000)
+    bounds = chip_smoke.partition_bounds(cols[9])
+    sessions = _partitioned_sessions(cols)
+    try:
+        _db, s = sessions["cuda"]
+        for name, (sql, oname, (lo, hi), tasks) in chip_smoke.partition_statements(bounds).items():
+            before = gs.LAUNCHES
+            rows = chip_smoke.sql_rows(oname, s.query(sql))
+            torch.cuda.synchronize()
+            assert s.exec_summary.engines == {"gpu": tasks} and not s.exec_summary.degraded, name
+            assert gs.LAUNCHES - before == (2 if oname == "band" else 0), name
+            assert rows == chip_smoke.sql_oracle(oname, chip_smoke.rows_between(cols, lo, hi)), name
+    finally:
+        for db, _s in sessions.values():
+            db.stop_background()
+
+
+@pytest.mark.gpu
+def test_fuzz_campaign_on_card_is_clean_and_runs_on_gpu():
+    """40 graftfuzz cases (seed 7) with every DB on the card: no finding, no
+    harness error, the device sessions' cop tasks mostly on gpu, none
+    degraded."""
+    _need_card()
+    from tidb_tpu_torch.tools.fuzz import runner
+    from tidb_tpu_torch.tools.fuzz.harness import run_campaign
+
+    runner.reset_tally()
+    with runner.on_device("cuda"):
+        res = run_campaign(seed=7, cases=40, pool_size=6)
+    assert res.errors == 0 and res.findings == [] and res.checked == 40
+    engines = runner.TALLY["engines"]
+    assert not runner.TALLY["degraded"] and engines.get("gpu", 0) * 2 > sum(engines.values()), runner.TALLY

@@ -44,6 +44,21 @@ import tidb_tpu_torch.catalog.infoschema
 import tidb_tpu_torch.planner.prepcache
 import tidb_tpu_torch.utils.metricshist
 import tidb_tpu_torch.utils.topsql
+import tidb_tpu_torch.planner.partition
+import tidb_tpu_torch.statistics.globalstats
+import tidb_tpu_torch.tools
+import tidb_tpu_torch.tools.dumpling
+import tidb_tpu_torch.catalog.ddl
+import tidb_tpu_torch.utils.timer
+import tidb_tpu_torch.ttl
+import tidb_tpu_torch.ttl.worker
+import tidb_tpu_torch.tools.fuzz
+import tidb_tpu_torch.tools.fuzz.gen
+import tidb_tpu_torch.tools.fuzz.oracles
+import tidb_tpu_torch.tools.fuzz.shrink
+import tidb_tpu_torch.tools.fuzz.harness
+import tidb_tpu_torch.tools.fuzz.runner
+import tidb_tpu_torch.tools.fuzz.__main__
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
 print(json.dumps(bad))

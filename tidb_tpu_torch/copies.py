@@ -126,6 +126,22 @@ COPIES = (
     "catalog/infoschema.py",
     "planner/prepcache.py",  # the wire's binary prepared protocol
     "__main__.py",
+    # partitioned tables, online DDL, TTL, the logical dump and graftfuzz
+    "planner/partition.py",
+    "statistics/globalstats.py",
+    "tools/__init__.py",
+    "tools/dumpling.py",
+    "catalog/ddl.py",
+    "utils/timer.py",
+    "ttl/__init__.py",
+    "ttl/worker.py",
+    "tools/fuzz/__init__.py",
+    "tools/fuzz/gen.py",
+    "tools/fuzz/oracles.py",
+    "tools/fuzz/shrink.py",
+    "tools/fuzz/harness.py",
+    "tools/fuzz/runner.py",
+    "tools/fuzz/__main__.py",
 )
 
 SEAMS: dict[str, frozenset] = {
@@ -188,6 +204,21 @@ SEAMS: dict[str, frozenset] = {
     # the --device flag, handed to open() in both roles and set on
     # --raw-store's MemStore; the docstring names this package's module
     "__main__.py": frozenset({"<doc>", "main"}),
+    # graftfuzz's device session is gpu (an unknown engine name plans on the
+    # host, so a tpu session would hold host against host); every DB opens
+    # on the device the caller names (the card unless cpu); the mesh width
+    # is the case's own over virtual shards; the device sessions' engines,
+    # degraded tasks and gathers are tallied; a repro's tpu session replays
+    # as gpu
+    "tools/fuzz/runner.py": frozenset(
+        {
+            "DEVICE", "TALLY", "_build_db", "_differential_round", "_forced_ndev", "_run_dev",
+            "_sessions", "_tlp_round", "check_case", "on_device", "reset_tally", "run_repro",
+            "spec_to_repro",
+        }
+    ),
+    # the --device flag; the device tally and K1's launches on stderr
+    "tools/fuzz/__main__.py": frozenset({"<doc>", "<imports>", "main"}),
 }
 
 _IMPORT_LINE = re.compile(r"^(\s*)(from|import)(\s+)tidb_tpu(?=[.\s])", re.M)
