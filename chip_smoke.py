@@ -128,14 +128,28 @@
    the reference corpus's five SPECs replay through the port's
    ``run_repro``; under an injected +1 on the gpu engine's first int64
    lane a 4-case campaign finds, shrinks and reproduces the bug.
-13. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+13. Getting data in and out (``_import_phase``), on ``tidb_tpu_torch.open()``
+   with the default region size: 698,000 generated lineitem rows written
+   as CSV and loaded with ``LOAD DATA INFILE``, the first 300,000 imported
+   with ``IMPORT INTO`` under ``tidb_enable_dist_task = 1`` (three
+   subtasks); ``SQL_QUERIES`` over both, cold and five times warm, equal
+   to the oracle on ``gpu`` with K1 in band and not in Q1; a 500-row
+   append with a new return flag read as the delta operand and a
+   200,000-row one that rebuilds the blocks; ``BACKUP`` and ``RESTORE``
+   into a second database; a point-in-time restore from the log backup
+   after ``htap_writes``; the band statement's plan replayer dump
+   explaining the same ``[gpu]`` readers in a fresh handle; the
+   hbm-pressure inspection row at the planner's budget and the diag
+   bundle. K1 is held against its plain version on the band inputs.
+14. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
    ``launches_delta_path``, ``launches_builtins_path``,
    ``launches_mpp_path``, ``launches_remote_path``,
-   ``launches_partition_path`` and ``launches_fuzz_campaign`` the DAG,
-   HTAP, builtins, MPP, remote, partition and fuzz phases', the remote
-   one counted in the store process and the fuzz one in the campaign's),
-   then, last, the ``{"ok": true, "device": {...}}`` line.
+   ``launches_partition_path``, ``launches_fuzz_campaign`` and
+   ``launches_import_path`` the DAG, HTAP, builtins, MPP, remote,
+   partition, fuzz and import phases', the remote one counted in the
+   store process and the fuzz one in the campaign's), then, last, the
+   ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -446,6 +460,8 @@ def _sass_atomics(lib_path) -> str:
 # -- TPC-H lineitem at SF1 -----------------------------------------------------
 
 RETURNFLAGS = [b"A", b"N", b"R"]
+NEW_RETURNFLAG = b"X"  # a return flag the generated table never holds (code 3)
+IMPORT_RETURNFLAGS = RETURNFLAGS + [NEW_RETURNFLAG]
 LINESTATUS = [b"F", b"O"]
 SHIPMODES = [b"REG AIR", b"AIR", b"RAIL", b"SHIP", b"TRUCK", b"MAIL", b"FOB"]
 SHIPINSTRUCTS = [b"DELIVER IN PERSON", b"COLLECT COD", b"NONE", b"TAKE BACK RETURN"]
@@ -978,9 +994,11 @@ def _decimal_text(cents: int) -> str:
     return f"{cents // 100}.{cents % 100:02d}"
 
 
-def htap_writes(cols: dict, seed: int, n_update: int = 1000, n_delete: int = 200, n_insert: int = 300):
-    """Three writes on the loaded lineitem (handles 1..n, two regions split
-    at the middle handle) and the columns they leave, in numpy. → (updates
+def htap_writes(cols: dict, seed: int, n_update: int = 1000, n_delete: int = 200, n_insert: int = 300,
+                table: str = "lineitem", handles=None):
+    """Three writes on the loaded lineitem (handles 1..n unless ``handles``
+    gives each row's, two regions split at the middle handle) and the
+    columns they leave, in numpy. → (updates
     {handle: {slot: new physical value}}, deleted handles, the INSERT
     statement, columns after the three, changed handles in the first
     region, in the second).
@@ -1006,7 +1024,8 @@ def htap_writes(cols: dict, seed: int, n_update: int = 1000, n_delete: int = 200
     c[1][upd] += 10_000
     c[1][i_big] = 2_500_000_000
     c[0][i_qty] = 7_500
-    updates = {int(i) + 1: {0: int(c[0][i]), 1: int(c[1][i])} for i in upd}
+    h = np.arange(1, n + 1) if handles is None else np.asarray(handles)
+    updates = {int(h[i]): {0: int(c[0][i]), 1: int(c[1][i])} for i in upd}
     new = lineitem_sf1(seed + 1, n_insert)
     new[9] = new[9] + (int(okey.max()) // 32 + 1) * 32  # new orders, the keys' sparse pattern kept
     values = []
@@ -1019,13 +1038,13 @@ def htap_writes(cols: dict, seed: int, n_update: int = 1000, n_delete: int = 200
             f"{new[9][i]}, {new[10][i]}, {new[11][i]}, DATE '{_date(new[12][i]).isoformat()}', "
             f"DATE '{_date(new[13][i]).isoformat()}')"
         )
-    insert = "INSERT INTO lineitem VALUES " + ", ".join(values)
+    insert = f"INSERT INTO {table} VALUES " + ", ".join(values)
     after = {k: np.concatenate([v[~gone], new[k].astype(v.dtype)]) for k, v in c.items()}
-    return updates, np.flatnonzero(gone) + 1, insert, after, len(upd), int(gone.sum()) + n_insert
+    return updates, h[gone], insert, after, len(upd), int(gone.sum()) + n_insert
 
 
-def commit_rows(db, updates: dict, deletes) -> None:
-    """One transaction on lineitem through the store's transactional API,
+def commit_rows(db, updates: dict, deletes, table: str = "lineitem") -> None:
+    """One transaction on ``table`` through the store's transactional API,
     the commit path SQL DML takes: rewrite the rows of ``updates``
     ({handle: {slot: physical value}}) and delete the rows of ``deletes``.
     (The SQL UPDATE and DELETE executors read the whole table to find their
@@ -1033,7 +1052,7 @@ def commit_rows(db, updates: dict, deletes) -> None:
     from tidb_tpu_torch.kv.rowcodec import RowSchema, decode_row, encode_row
     from tidb_tpu_torch.kv.tablecodec import record_key
 
-    t = db.catalog.table("test", "lineitem")
+    t = db.catalog.table("test", table)
     schema = RowSchema(t.storage_schema)
     txn = db.store.begin()
     keys = [record_key(t.id, h) for h in updates]
@@ -1104,9 +1123,16 @@ def _date(days: int) -> dt.date:
     return dt.date(1970, 1, 1) + dt.timedelta(days=int(days))
 
 
+def returnflags(rf: np.ndarray) -> list:
+    """The return-flag dictionary of a column of codes: the generator's
+    three, and ``NEW_RETURNFLAG`` (code 3) once an append has brought it."""
+    return IMPORT_RETURNFLAGS if len(rf) and int(rf.max()) >= len(RETURNFLAGS) else RETURNFLAGS
+
+
 def oracle(name: str, c: dict):
     """The query's answer from the generated arrays, in numpy."""
     qty, price, disc, tax, rf, ls, ship, mode, instr, okey, skey, line = (c[i] for i in range(12))
+    flags = returnflags(rf)
     if name == "count":
         return {(): (len(qty),)}
     if name == "q6":
@@ -1116,7 +1142,7 @@ def oracle(name: str, c: dict):
     if name == "q1":
         out = {}
         m0 = ship <= _days(dt.date(1998, 9, 2))
-        for fi, f in enumerate(RETURNFLAGS):
+        for fi, f in enumerate(flags):
             for si, s in enumerate(LINESTATUS):
                 m = m0 & (rf == fi) & (ls == si)
                 cnt = int(m.sum())
@@ -1133,15 +1159,15 @@ def oracle(name: str, c: dict):
         m = ship >= _days(dt.date(1994, 1, 1))
         idx = np.nonzero(m)[0]
         top = idx[np.argsort(-price[idx], kind="stable")[:20]]
-        return [(_dec(price[i], 2), RETURNFLAGS[rf[i]].decode(), _date(ship[i])) for i in top]
+        return [(_dec(price[i], 2), flags[rf[i]].decode(), _date(ship[i])) for i in top]
     if name == "band":
-        key = (mode.astype(np.int64) * len(SHIPINSTRUCTS) + instr) * len(RETURNFLAGS) + rf
+        key = (mode.astype(np.int64) * len(SHIPINSTRUCTS) + instr) * len(flags) + rf
         keys, (cnt, sq, sp) = _by_key(key, (np.ones_like(qty), np.add), (qty, np.add), (price, np.add))
         out = {}
         for b, n_, q_, p_ in zip(keys, cnt, sq, sp):
-            mi, rest = divmod(int(b), len(SHIPINSTRUCTS) * len(RETURNFLAGS))
-            ii, fi = divmod(rest, len(RETURNFLAGS))
-            out[(SHIPMODES[mi].decode(), SHIPINSTRUCTS[ii].decode(), RETURNFLAGS[fi].decode())] = (
+            mi, rest = divmod(int(b), len(SHIPINSTRUCTS) * len(flags))
+            ii, fi = divmod(rest, len(flags))
+            out[(SHIPMODES[mi].decode(), SHIPINSTRUCTS[ii].decode(), flags[fi].decode())] = (
                 int(n_), _dec(q_, 2), _dec(p_, 2),
             )
         return out
@@ -1150,10 +1176,10 @@ def oracle(name: str, c: dict):
         # (linestatus rolled up: NULL) and the grand total (both NULL)
         out = {}
         for key, m in [((None, None), np.ones(len(qty), bool))] + [
-            ((f.decode(), None), rf == fi) for fi, f in enumerate(RETURNFLAGS)
+            ((f.decode(), None), rf == fi) for fi, f in enumerate(flags)
         ] + [
             ((f.decode(), s.decode()), (rf == fi) & (ls == si))
-            for fi, f in enumerate(RETURNFLAGS) for si, s in enumerate(LINESTATUS)
+            for fi, f in enumerate(flags) for si, s in enumerate(LINESTATUS)
         ]:
             if m.any():
                 out[key] = (int(m.sum()), _dec(int(qty[m].sum()), 2), _dec(int(price[m].sum()), 2))
@@ -1418,6 +1444,13 @@ def main() -> int:
     t0 = time.perf_counter()
     fuzz = _fuzz_phase()
     print(f"fuzz phase: {time.perf_counter() - t0:.1f} s")
+
+    # 13. getting data in and out: LOAD DATA, IMPORT INTO, BACKUP/RESTORE, PITR, replayer, inspection
+    gc.collect()
+    torch.cuda.empty_cache()
+    import_launches, err, k1_import, import_s = _import_phase(args.seed, gs, card=card)
+    max_err = max(max_err, err)
+    print(f"import phase: {import_s:.1f} s; K1 launches on the import path {import_launches}")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1433,9 +1466,11 @@ def main() -> int:
         "launches_remote_path": remote_launches,
         "launches_partition_path": partition_launches,
         "launches_fuzz_campaign": fuzz["k1_launches"],
+        "launches_import_path": import_launches,
         "max_abs_err": max_err,
         **k1,
         "partition_input": k1_partition,
+        "import_input": k1_import,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0
@@ -3064,6 +3099,352 @@ def _fuzz_phase(device: str = "cuda", cases: int = FUZZ_CASES) -> dict:
     finally:
         shutil.rmtree(out, ignore_errors=True)
     return tally
+
+
+# -- getting data in and out: LOAD DATA, IMPORT INTO over disttask, BACKUP /
+# RESTORE, PITR, the plan replayer, inspection and the diag bundle -------------
+
+# LOAD DATA's cut of SF1's 6,001,215 rows: the CSV path converts each field
+# in Python (33 us a row on the H100's host), and the phase keeps inside
+# 150 s. LOAD DATA ingests 200,000-row batches and a region past the
+# default 500,000 keys splits at its median as a batch lands, so the table
+# ends as regions of 300,000 and 398,000 rows: the 500-row append stays
+# under the region size and reaches the delta operand instead of a split.
+LOAD_ROWS = 698_000
+DIST_ROWS = 300_000  # the dist-task import's cut: three 100,000-row subtasks
+SMALL_APPEND, BIG_APPEND = 500, 200_000
+APPEND_QUERIES = ("q1", "band", "q6")
+
+
+def table_queries(table: str) -> dict:
+    """``SQL_QUERIES`` over ``table`` (a name or ``db.name``) for lineitem."""
+    return {name: re.sub(r"\blineitem\b", table, sql) for name, sql in SQL_QUERIES.items()}
+
+
+def lineitem_csv(cols: dict, lo: int = 0, hi: int | None = None) -> str:
+    """Rows ``lo``..``hi`` of the generated columns as CSV lines in
+    ``SQL_SCHEMA``'s column order: decimals as text with two places, dates
+    ISO, strings as their text (return-flag code 3 is ``NEW_RETURNFLAG``)."""
+    hi = len(cols[0]) if hi is None else hi
+
+    def dec(k):
+        x = np.asarray(cols[k][lo:hi], dtype=np.int64)
+        return [f"{a}.{b:02d}" for a, b in zip((x // 100).tolist(), (x % 100).tolist())]
+
+    def date(k):
+        days, inv = np.unique(np.asarray(cols[k][lo:hi]), return_inverse=True)
+        return np.array([_date(d).isoformat() for d in days])[inv].tolist()
+
+    def text(k, values):
+        return np.array([v.decode() for v in values])[np.asarray(cols[k][lo:hi])].tolist()
+
+    def num(k):
+        return np.asarray(cols[k][lo:hi]).astype(str).tolist()
+
+    fields = [
+        dec(0), dec(1), dec(2), dec(3), text(4, IMPORT_RETURNFLAGS), text(5, LINESTATUS), date(6),
+        text(7, SHIPMODES), text(8, SHIPINSTRUCTS), num(9), num(10), num(11), date(12), date(13),
+    ]
+    return "".join(",".join(r) + "\n" for r in zip(*fields))
+
+
+def append_rows(seed: int, n: int, new_flag_every: int = 0) -> dict:
+    """``n`` more lineitem rows from ``seed``; every ``new_flag_every``-th
+    row (0: none) carries ``NEW_RETURNFLAG``, a value the table lacks."""
+    c = lineitem_sf1(seed, n)
+    if new_flag_every:
+        c[4] = c[4].copy()
+        c[4][::new_flag_every] = len(RETURNFLAGS)
+    return c
+
+
+def concat_rows(cols: dict, more: dict) -> dict:
+    return {k: np.concatenate([v, more[k].astype(v.dtype)]) for k, v in cols.items()}
+
+
+def _import_phase(seed: int, gs, reps: int = 5, device: str = "cuda", n_load: int = LOAD_ROWS,
+                  n_dist: int = DIST_ROWS, small: int = SMALL_APPEND, big: int = BIG_APPEND, card: str = "") -> tuple:
+    """Getting data in and out of a database on the card, through the entry
+    points a user calls, on ``tidb_tpu_torch.open(device=...)`` with the
+    default region size:
+
+    1. ``n_load`` generated lineitem rows written as CSV and loaded with
+       ``LOAD DATA INFILE`` into ``li_load``; the first ``n_dist`` of them
+       imported with ``IMPORT INTO`` under ``tidb_enable_dist_task = 1``
+       (100,000-row subtasks) into ``li_dist``.
+    2. ``SQL_QUERIES`` over both tables once cold and ``reps`` times warm,
+       each equal to the numpy oracle, every cop task on ``gpu``, none
+       degraded; K1 launches during band and not during Q1.
+    3. ``LOAD DATA`` of ``small`` rows, every third with a return flag the
+       table lacks: Q1, band and Q6 equal the oracle over the union, the
+       appended rows folded as the delta operand of the touched task; then
+       ``big`` rows, past the delta capacity: the blocks are rebuilt (no
+       delta) and the three equal the oracle again.
+    4. A log backup task started, ``BACKUP DATABASE test`` to a ``file://``
+       URL and ``RESTORE DATABASE r``: the seven statements over
+       ``r.li_load`` equal those over ``test.li_load`` and the oracle.
+    5. ``htap_writes`` on ``li_load`` through transactions, the log
+       flushed, the target ts taken, then a write past it flushed too;
+       ``restore_point`` to the target ts into database ``p``: the seven
+       statements over ``p.li_load`` equal the oracle over the written
+       columns (and not the write past the target).
+    6. The band statement's plan replayer dump loaded into a fresh handle
+       on the same device explains the same ``[gpu]`` readers.
+    7. ``information_schema.inspection_result``'s hbm-pressure row reports
+       ``gpu_engine.planning_budget(store)`` with resident bytes > 0, and
+       ``tools.diag.write_bundle`` writes its seven files.
+
+    Prints the seconds of each step, per statement the warm median and the
+    summed and longest cop-task walls on each table. → (K1 launches over
+    every statement of the phase, K1's largest error against its plain
+    version on the band inputs of step 2, K1's timings at one of them,
+    the phase's seconds)."""
+    import tempfile
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.copr import gpu_engine
+    from tidb_tpu_torch.ops import dag_kernel
+    from tidb_tpu_torch.tools import diag, importer, replayer
+    from tidb_tpu_torch.tools.pitr import LogBackupTask, restore_point
+
+    print(f"import: card {card}")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_import_")
+    tasks, k1_inputs, subtask_s = [], [], []
+    real_exec, real_k1 = gpu_engine.execute_region, dag_kernel.grouped_sums
+    real_subtask = importer._ImportExec.run_subtask
+
+    def spy(region, dag, ranges, warn=None, device="cuda", stats=None):
+        stats = {} if stats is None else stats
+        tasks.append(stats)
+        return real_exec(region, dag, ranges, warn, device, stats)
+
+    def recording_k1(seg, pairs, B, n_pad, bounds=None, device="cuda"):
+        k1_inputs.append((seg, pairs, B, n_pad, bounds))
+        return real_k1(seg, pairs, B, n_pad, bounds, device=device)
+
+    def timed_subtask(self, task, subtask, manager):
+        t0 = time.perf_counter()
+        out = real_subtask(self, task, subtask, manager)
+        subtask_s.append(time.perf_counter() - t0)
+        return out
+
+    def write(name, text):
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    gpu_engine.execute_region = spy
+    importer._ImportExec.run_subtask = timed_subtask
+    try:
+        cols = lineitem_sf1(seed, n_load)
+        t0 = time.perf_counter()
+        text = lineitem_csv(cols)
+        load_csv = write("li_load.csv", text)
+        cut = 0
+        for _ in range(n_dist):
+            cut = text.index("\n", cut) + 1
+        dist_csv = write("li_dist.csv", text[:cut])
+        csv_s = time.perf_counter() - t0
+        del text
+        db = tidb_tpu_torch.open(device=device)
+        s = db.session()
+        for table in ("li_load", "li_dist"):
+            s.execute(SQL_SCHEMA.replace("lineitem", table, 1))
+        # li_load's row handles in load order, as LOAD DATA's batches draw
+        # them (contiguous within a batch; a new autoid batch may skip ahead)
+        load_id, handles, real_alloc = db.catalog.table("test", "li_load").id, [], db.catalog.alloc_autoid
+
+        def alloc(table_id, n=1):
+            base = real_alloc(table_id, n)
+            if table_id == load_id:
+                handles.append(np.arange(base, base + n, dtype=np.int64))
+            return base
+
+        db.catalog.alloc_autoid = alloc
+        t0 = time.perf_counter()
+        got = s.execute(f"LOAD DATA INFILE '{load_csv}' INTO TABLE li_load FIELDS TERMINATED BY ','").affected
+        load_s = time.perf_counter() - t0
+        if got != n_load:
+            raise AssertionError(f"import: LOAD DATA loaded {got} rows, not {n_load}")
+        s.execute("SET tidb_enable_dist_task = 1")
+        t0 = time.perf_counter()
+        got = s.execute(f"IMPORT INTO li_dist FROM '{dist_csv}'").affected
+        dist_s = time.perf_counter() - t0
+        done = s.query("SELECT exec_id FROM mysql.tidb_background_subtask WHERE state = 'succeed'")
+        if got != n_dist or len(done) != -(-n_dist // importer._SUBTASK_ROWS):
+            raise AssertionError(f"import: IMPORT INTO loaded {got} rows in {len(done)} subtasks")
+        print(f"import: CSV of {n_load} rows written in {csv_s:.3f} s; LOAD DATA {load_s:.3f} s "
+              f"({load_s / n_load * 1e6:.1f} us a row); dist-task IMPORT INTO of {n_dist} rows {dist_s:.3f} s "
+              f"({dist_s / n_dist * 1e6:.1f} us a row) in {len(done)} subtasks of "
+              f"{[round(x, 3) for x in subtask_s]} s on executors {sorted({e for (e,) in done})}; "
+              f"{len(db.store.regions())} regions in the store")
+
+        def run(name, table, want, delta=None):
+            """One statement over ``table``: rows equal to ``want``, every task
+            on gpu, none degraded; ``delta`` = the rows the tasks must fold
+            as their delta operand. → (wall ms, cop-task walls)."""
+            tasks.clear()
+            t0 = time.perf_counter()
+            rows = s.query(table_queries(table)[name])
+            wall = (time.perf_counter() - t0) * 1e3
+            summ = s.exec_summary
+            if summ is None or set(summ.engines) != {"gpu"} or len(tasks) != sum(summ.engines.values()) \
+                    or summ.degraded:
+                raise AssertionError(f"import {name} on {table}: cop tasks {summ and summ.engines} "
+                                     f"({len(tasks)} on the gpu engine), degraded {summ and summ.degraded}")
+            if delta is not None and sum(st.get("delta_rows", 0) for st in tasks) != delta:
+                raise AssertionError(f"import {name} on {table}: the tasks folded "
+                                     f"{[st.get('delta_rows', 0) for st in tasks]} delta rows, not {delta}")
+            if sql_rows(name, rows) != want:
+                raise AssertionError(f"import {name} on {table}: rows disagree with the numpy oracle")
+            return wall, summ.procs, [(st.get("path"), st.get("delta_rows", 0)) for st in tasks]
+
+        def warm(label, table, want, names=tuple(SQL_QUERIES), delta=None):
+            for name in names:
+                runs = [run(name, table, want[name], delta) for _ in range(reps)]
+                walls = [w for w, _p, _t in runs]
+                print(f"import {label} {name}: tasks (path, delta_rows) {runs[0][2]}; warm sql_ms median "
+                      f"{statistics.median(walls):.3f} min {min(walls):.3f}; cop_task_sum_ms median "
+                      f"{statistics.median(sum(p) for _w, p, _t in runs):.3f}; cop_task_max_ms median "
+                      f"{statistics.median(max(p) for _w, p, _t in runs):.3f}")
+
+        gs.LAUNCHES = 0  # the import path: counts from 0 just before its first statement
+        tables = {"li_load": cols, "li_dist": {k: v[:n_dist] for k, v in cols.items()}}
+        for table, c in tables.items():
+            want = {name: sql_oracle(name, c) for name in SQL_QUERIES}
+            by_query, cold = {}, {}
+            for name in SQL_QUERIES:
+                before = gs.LAUNCHES
+                dag_kernel.grouped_sums = recording_k1 if name == "band" else real_k1
+                try:
+                    cold[name] = run(name, table, want[name])[0]
+                finally:
+                    dag_kernel.grouped_sums = real_k1
+                by_query[name] = gs.LAUNCHES - before
+            print(f"import {table}: cold sql_ms {json.dumps({k: round(v, 3) for k, v in cold.items()})}; "
+                  f"K1 launches by statement {by_query}")
+            if by_query["band"] < 1 or by_query["q1"] != 0:
+                raise AssertionError(f"import {table}: K1 must run for band and not for Q1: {by_query}")
+            warm(table, table, want)
+
+        # appends into the table the card already holds
+        more = append_rows(seed + 11, small, new_flag_every=3)
+        t0 = time.perf_counter()
+        got = s.execute(f"LOAD DATA INFILE '{write('small.csv', lineitem_csv(more))}' INTO TABLE li_load "
+                        "FIELDS TERMINATED BY ','").affected
+        small_s = time.perf_counter() - t0
+        cols = concat_rows(cols, more)
+        want = {name: sql_oracle(name, cols) for name in APPEND_QUERIES}
+        if got != small or not any(k[0] == NEW_RETURNFLAG.decode() for k in want["q1"]):
+            raise AssertionError(f"import: the small append loaded {got} rows; Q1 must show the new flag")
+        print(f"import: LOAD DATA of {small} rows ({len(more[0][::3])} with return flag "
+              f"{NEW_RETURNFLAG.decode()!r}) {small_s:.3f} s; {len(db.store.regions())} regions")
+        for name in APPEND_QUERIES:
+            print(f"import small append {name}: cold tasks (path, delta_rows) {run(name, 'li_load', want[name], small)[2]}")
+        warm("small append", "li_load", want, APPEND_QUERIES, small)
+        more = append_rows(seed + 12, big)
+        t0 = time.perf_counter()
+        got = s.execute(f"LOAD DATA INFILE '{write('big.csv', lineitem_csv(more))}' INTO TABLE li_load "
+                        "FIELDS TERMINATED BY ','").affected
+        big_s = time.perf_counter() - t0
+        cols = concat_rows(cols, more)
+        want = {name: sql_oracle(name, cols) for name in SQL_QUERIES}
+        print(f"import: LOAD DATA of {big} rows {big_s:.3f} s (past the delta capacity "
+              f"{gpu_engine._delta_cap()}); {len(db.store.regions())} regions")
+        for name in APPEND_QUERIES:
+            print(f"import big append {name}: cold tasks (path, delta_rows) {run(name, 'li_load', want[name], 0)[2]}")
+        warm("big append", "li_load", want, APPEND_QUERIES, 0)
+
+        # BACKUP / RESTORE, the log backup task running from before the backup
+        log_dir = os.path.join(tmp, "log")
+        log_task = LogBackupTask(db, log_dir)
+        url = f"file://{tmp}/backup"
+        t0 = time.perf_counter()
+        backed = s.execute(f"BACKUP DATABASE test TO '{url}'").rows
+        backup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = dict((r[0], r[1]) for r in s.execute(f"RESTORE DATABASE r FROM '{url}'").rows)
+        restore_s = time.perf_counter() - t0
+        if restored != {"li_load": len(cols[0]), "li_dist": n_dist}:
+            raise AssertionError(f"import: RESTORE gave {restored}")
+        print(f"import: BACKUP {backed} {backup_s:.3f} s; RESTORE {restored} {restore_s:.3f} s")
+        for name in SQL_QUERIES:
+            a = run(name, "test.li_load", want[name])
+            b = run(name, "r.li_load", want[name])
+            print(f"import restore {name}: cold sql_ms test {a[0]:.3f}, r {b[0]:.3f}; tasks {len(a[2])} and {len(b[2])}")
+        warm("r", "r.li_load", want)
+
+        # PITR: writes through transactions, the log flushed, a point restore
+        db.catalog.alloc_autoid = real_alloc
+        handles = np.concatenate(handles)
+        if len(handles) != len(cols[0]):
+            raise AssertionError(f"import: {len(handles)} handles drawn for {len(cols[0])} rows")
+        updates, deletes, insert, after, _d1, _d2 = htap_writes(cols, seed, table="li_load", handles=handles)
+        t0 = time.perf_counter()
+        commit_rows(db, updates, (), table="li_load")
+        commit_rows(db, {}, deletes, table="li_load")
+        s.execute(insert)
+        dml_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flushed = log_task.flush()
+        flush_s = time.perf_counter() - t0
+        target = db.store.current_ts()
+        commit_rows(db, {}, handles[1:4], table="li_load")  # past the target: not replayed
+        flushed2 = log_task.flush()
+        t0 = time.perf_counter()
+        pitr = restore_point(db, url, log_dir, target_ts=target, db_name="p")
+        pitr_s = time.perf_counter() - t0
+        log_task.stop()
+        print(f"import: PITR writes ({len(updates)} updated, {len(deletes)} deleted, 300 inserted) {dml_s:.3f} s; "
+              f"log flush {flushed} entries {flush_s:.3f} s (then {flushed2} past the target); restore_point "
+              f"{pitr_s:.3f} s, {pitr['replayed']} entries replayed over {pitr['tables']}")
+        want = {name: sql_oracle(name, after) for name in SQL_QUERIES}
+        for name in SQL_QUERIES:
+            print(f"import pitr {name}: cold sql_ms {run(name, 'p.li_load', want[name])[0]:.3f}")
+        warm("p", "p.li_load", want)
+        launches = gs.LAUNCHES  # every statement of the phase has run
+
+        # the plan replayer: the band statement's dump explains the same [gpu] readers
+        band = table_queries("li_load")["band"]
+        plan_src = [r[0] for r in s.query("EXPLAIN " + band)]
+        dump = replayer.dump(s, band, out_dir=tmp)
+        db2 = tidb_tpu_torch.open(device=device)
+        s2 = db2.session()
+        loaded = s2.execute(f"PLAN REPLAYER LOAD '{dump}'").rows[0][0]
+        plan_dst = [r[0] for r in s2.query("EXPLAIN " + band)]
+        readers = [ln.strip() for ln in plan_dst if "TableReader" in ln]
+        if loaded != band or not readers or not all("[gpu]" in ln for ln in readers) or \
+                readers != [ln.strip() for ln in plan_src if "TableReader" in ln]:
+            raise AssertionError(f"import: the replayed plan {plan_dst} is not the dump's {plan_src}")
+        db2.stop_background()
+        print(f"import: plan replayer dump {os.path.basename(dump)} loaded; EXPLAIN readers {readers}")
+
+        # inspection: the device cache judged against the planner's budget
+        budget = gpu_engine.planning_budget(db.store)
+        rows = s.query("SELECT * FROM information_schema.inspection_result WHERE RULE = 'hbm-pressure'")
+        seen = [re.match(r"(\d+) bytes resident of (\d+) budget", r[5]) for r in rows]
+        if not rows or not all(m and int(m.group(2)) == budget and int(m.group(1)) > 0 for m in seen):
+            raise AssertionError(f"import: hbm-pressure rows {rows}, want the budget {budget} and resident bytes")
+        files = sorted(os.path.basename(p) for p in diag.write_bundle(db, os.path.join(tmp, "diag")))
+        if len(files) != 7:
+            raise AssertionError(f"import: the diag bundle wrote {files}")
+        print(f"import: inspection hbm-pressure {rows}; diag bundle {files}")
+        db.stop_background()
+    finally:
+        gpu_engine.execute_region = real_exec
+        dag_kernel.grouped_sums = real_k1
+        importer._ImportExec.run_subtask = real_subtask
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    err = max(_k1_err(*inp) for inp in k1_inputs)
+    seg, pairs, B, n_pad, kb = k1_inputs[0]
+    k1 = _k1_timings(seg, pairs, B, n_pad, kb)
+    print(f"import: K1 launches on the import path {launches}; K1 equal to its plain version on the "
+          f"{len(k1_inputs)} band inputs of the cold drive; at li_load's first band input n_pad={n_pad} B={B} "
+          f"L={len(pairs)}: {json.dumps(k1)}")
+    return launches, err, k1, time.perf_counter() - t_phase
 
 
 def _drive(regions, dags, gs):

@@ -68,3 +68,26 @@ def test_slice_module_is_a_registered_copy(rel):
     assert copies.drift(rel) == []
     # only the fuzzer's runner and CLI are seams
     assert (rel in copies.SEAMS) == (rel in ("tools/fuzz/runner.py", "tools/fuzz/__main__.py"))
+
+
+# getting data in and out: LOAD DATA / IMPORT INTO over disttask, BACKUP /
+# RESTORE, PITR, the plan replayer, the inspection rules and the diag bundle
+SLICE_11 = (
+    "tools/storage.py", "disttask/framework.py", "disttask/__init__.py", "tools/importer.py", "tools/brie.py",
+    "tools/pitr.py", "tools/replayer.py", "utils/inspection.py", "tools/diag.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_11)
+def test_slice_11_module_is_a_registered_copy(rel):
+    assert rel in copies.COPIES
+    assert copies.drift(rel) == []
+    # only the inspection rules are a seam: the hbm-pressure rule's budget
+    assert (rel in copies.SEAMS) == (rel == "utils/inspection.py")
+
+
+def test_the_inspection_seam_is_the_budget_alone():
+    assert copies.seam_units("utils/inspection.py") == ["InspectionContext.from_db", "_hbm_pressure"]
+    port = copies.units(copies.port_text("utils/inspection.py"))
+    assert "planning_budget" in port["InspectionContext.from_db"]
+    assert "TIDB_TPU_HBM_GB" not in copies.port_text("utils/inspection.py")

@@ -613,3 +613,156 @@ def test_fuzz_campaign_on_card_is_clean_and_runs_on_gpu():
     assert res.errors == 0 and res.findings == [] and res.checked == 40
     engines = runner.TALLY["engines"]
     assert not runner.TALLY["degraded"] and engines.get("gpu", 0) * 2 > sum(engines.values()), runner.TALLY
+
+
+def _csv(tmp_path, name, cols):
+    path = tmp_path / name
+    path.write_text(chip_smoke.lineitem_csv(cols))
+    return str(path)
+
+
+@pytest.mark.gpu
+def test_load_data_then_band_on_card_launches_k1(tmp_path):
+    """``LOAD DATA INFILE`` of 200,000 lineitem rows into a table on a
+    default ``open()`` (the card): band runs on gpu, launches K1 once per
+    region task and equals the CPU handle's rows and the oracle; a 500-row
+    append with a new return flag is read as the delta operand."""
+    _need_card()
+    import tidb_tpu_torch
+
+    cols = chip_smoke.lineitem_sf1(seed=12, n=200_000)
+    more = chip_smoke.append_rows(13, 500, new_flag_every=3)
+    paths = (_csv(tmp_path, "a.csv", cols), _csv(tmp_path, "b.csv", more))
+    got = {}
+    for device in ("cuda", "cpu"):
+        db = tidb_tpu_torch.open(device=device)
+        try:
+            s = db.session()
+            s.execute(chip_smoke.SQL_SCHEMA)
+            rows = []
+            for path in paths:
+                s.execute(f"LOAD DATA INFILE '{path}' INTO TABLE lineitem FIELDS TERMINATED BY ','")
+                before = gs.LAUNCHES
+                rows.append(chip_smoke.sql_rows("band", s.query(chip_smoke.SQL_QUERIES["band"])))
+                summ = s.exec_summary
+                assert set(summ.engines) == {"gpu"} and not summ.degraded
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    assert gs.LAUNCHES - before == sum(summ.engines.values())
+            assert summ.delta_rows == 500
+            got[device] = rows
+        finally:
+            db.stop_background()
+    union = chip_smoke.concat_rows(cols, more)
+    assert got["cuda"] == got["cpu"] == [chip_smoke.sql_oracle("band", cols), chip_smoke.sql_oracle("band", union)]
+
+
+_STORE_NODE = r"""
+import sys, time
+sys.path.insert(0, {repo!r})
+import chip_smoke
+import tidb_tpu_torch
+from tidb_tpu_torch.disttask import DistTaskManager
+from tidb_tpu_torch.kv.remote import StoreServer
+from tidb_tpu_torch.tools.importer import register_import_task_type
+
+db = tidb_tpu_torch.open(device="cuda")
+db.execute(chip_smoke.SQL_SCHEMA)
+srv = StoreServer(db.store)
+port = srv.start()
+register_import_task_type()
+DistTaskManager(db, node_prefix="store").start_executor_node("store-node")
+print(f"PORT {{port}}", flush=True)
+while True:
+    time.sleep(1)
+"""
+
+
+@pytest.mark.gpu
+def test_dist_import_in_the_store_process_read_back_on_card(tmp_path):
+    """A store process on the card runs a disttask executor node; a SQL
+    layer here (``device="cpu"``) owns an ``IMPORT INTO`` of 200,000 rows
+    whose two subtasks all run in the store process, then reads the rows
+    back: every cop task runs on the store's gpu engine and band and Q1
+    equal the oracle."""
+    _need_card()
+    import subprocess
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.disttask import DistTaskManager
+    from tidb_tpu_torch.tools import importer
+
+    cols = chip_smoke.lineitem_sf1(seed=14, n=200_000)
+    path = _csv(tmp_path, "d.csv", cols)
+    proc = subprocess.Popen([sys.executable, "-c", _STORE_NODE.format(repo=REPO)], stdout=subprocess.PIPE, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("PORT "), line
+        db = tidb_tpu_torch.open(remote=f"127.0.0.1:{int(line.split()[1])}", device="cpu")
+        db._disttask_mgr = DistTaskManager(db, n_workers=0)  # the owner runs no subtask
+        assert importer.import_into_disttask(db, "test", "lineitem", path) == 200_000
+        s = db.session()
+        execs = s.query("SELECT DISTINCT exec_id FROM mysql.tidb_background_subtask WHERE state = 'succeed'")
+        assert execs == [("store-node",)]
+        for name in ("band", "q1"):
+            rows = chip_smoke.sql_rows(name, s.query(chip_smoke.SQL_QUERIES[name]))
+            assert set(s.exec_summary.engines) == {"gpu"} and not s.exec_summary.degraded
+            assert rows == chip_smoke.sql_oracle(name, cols), name
+        db.stop_background()
+    finally:
+        proc.kill()
+        proc.wait()
+
+
+@pytest.mark.gpu
+def test_restore_read_on_card_equals_the_source(tmp_path):
+    """``BACKUP DATABASE`` of a table read on the card, ``RESTORE`` into
+    another database: the seven statements over both equal the oracle on
+    gpu, and the restored table's band launches K1."""
+    _need_card()
+    import tidb_tpu_torch
+
+    cols = chip_smoke.lineitem_sf1(seed=15, n=200_000)
+    db = tidb_tpu_torch.open(device="cuda")
+    try:
+        s = db.session()
+        s.execute(chip_smoke.SQL_SCHEMA)
+        s.execute(f"LOAD DATA INFILE '{_csv(tmp_path, 'r.csv', cols)}' INTO TABLE lineitem FIELDS TERMINATED BY ','")
+        s.query(chip_smoke.SQL_QUERIES["band"])
+        s.execute(f"BACKUP DATABASE test TO 'file://{tmp_path}/bk'")
+        assert s.execute(f"RESTORE DATABASE r FROM 'file://{tmp_path}/bk'").rows == [("lineitem", 200_000)]
+        for table in ("lineitem", "r.lineitem"):
+            for name, sql in chip_smoke.table_queries(table).items():
+                before = gs.LAUNCHES
+                rows = chip_smoke.sql_rows(name, s.query(sql))
+                torch.cuda.synchronize()
+                assert set(s.exec_summary.engines) == {"gpu"} and not s.exec_summary.degraded
+                assert rows == chip_smoke.sql_oracle(name, cols), (table, name)
+                if name == "band":
+                    assert gs.LAUNCHES - before == sum(s.exec_summary.engines.values())
+    finally:
+        db.stop_background()
+
+
+@pytest.mark.gpu
+def test_hbm_pressure_on_a_cuda_store_reports_the_planning_budget():
+    """The hbm-pressure rule on a store on the card: the budget is
+    ``planning_budget(store)`` (half of an 80 GB card) and the column
+    cache's resident bytes are counted."""
+    _need_card()
+    import re
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    try:
+        chip_smoke.lineitem_sql(db, bulk_load, record_key, chip_smoke.lineitem_sf1(seed=16, n=100_000), parts=1)
+        db.query(chip_smoke.SQL_QUERIES["band"])
+        rows = db.query("SELECT DETAIL FROM information_schema.inspection_result WHERE RULE = 'hbm-pressure'")
+        m = re.match(r"(\d+) bytes resident of (\d+) budget", rows[0][0])
+        assert int(m.group(2)) == gpu_engine.planning_budget(db.store) == 40 << 30
+        assert int(m.group(1)) > 0
+    finally:
+        db.stop_background()

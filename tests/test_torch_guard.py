@@ -59,6 +59,15 @@ import tidb_tpu_torch.tools.fuzz.shrink
 import tidb_tpu_torch.tools.fuzz.harness
 import tidb_tpu_torch.tools.fuzz.runner
 import tidb_tpu_torch.tools.fuzz.__main__
+import tidb_tpu_torch.tools.storage
+import tidb_tpu_torch.disttask
+import tidb_tpu_torch.disttask.framework
+import tidb_tpu_torch.tools.importer
+import tidb_tpu_torch.tools.brie
+import tidb_tpu_torch.tools.pitr
+import tidb_tpu_torch.tools.replayer
+import tidb_tpu_torch.utils.inspection
+import tidb_tpu_torch.tools.diag
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
 print(json.dumps(bad))
@@ -141,6 +150,34 @@ def test_default_open_raises_on_its_first_query_without_a_card(monkeypatch):
     assert host_calls == []
     db.execute("SET tidb_isolation_read_engines='host'")
     assert db.query("SELECT COUNT(*) FROM t WHERE b < 3") == [(1,)]
+    db.stop_background()
+
+
+def test_default_open_loads_and_restores_then_raises_on_its_first_read_without_a_card(monkeypatch, tmp_path):
+    """LOAD DATA, IMPORT INTO, BACKUP and RESTORE on a default ``open()``
+    touch no device; the first read of the loaded or the restored table
+    raises at its first device task, and none runs on the host engine."""
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.copr import host_engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    host_calls = []
+    real = host_engine.execute_dag
+    monkeypatch.setattr(host_engine, "execute_dag", lambda *a, **k: host_calls.append(a) or real(*a, **k))
+    path = tmp_path / "t.csv"
+    path.write_text("".join(f"{i},{i}.50\n" for i in range(100)))
+    db = tidb_tpu_torch.open()
+    db.execute("CREATE TABLE t (a BIGINT, b DECIMAL(10,2))")
+    assert db.execute(f"LOAD DATA INFILE '{path}' INTO TABLE t FIELDS TERMINATED BY ','").affected == 100
+    assert db.execute(f"IMPORT INTO t FROM '{path}'").affected == 100
+    db.execute(f"BACKUP DATABASE test TO 'file://{tmp_path}/bk'")
+    assert db.execute(f"RESTORE DATABASE r FROM 'file://{tmp_path}/bk'").rows == [("t", 200)]
+    for sql in ("SELECT COUNT(*), SUM(b) FROM t", "SELECT COUNT(*), SUM(b) FROM r.t"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            db.query(sql)
+    assert host_calls == []
     db.stop_background()
 
 

@@ -142,6 +142,18 @@ COPIES = (
     "tools/fuzz/harness.py",
     "tools/fuzz/runner.py",
     "tools/fuzz/__main__.py",
+    # getting data in and out: external storage, the distributed task
+    # framework, LOAD DATA / IMPORT INTO, BACKUP / RESTORE, PITR, the plan
+    # replayer, the inspection rules and the diag bundle
+    "tools/storage.py",
+    "disttask/framework.py",
+    "disttask/__init__.py",
+    "tools/importer.py",
+    "tools/brie.py",
+    "tools/pitr.py",
+    "tools/replayer.py",
+    "utils/inspection.py",
+    "tools/diag.py",
 )
 
 SEAMS: dict[str, frozenset] = {
@@ -219,6 +231,10 @@ SEAMS: dict[str, frozenset] = {
     ),
     # the --device flag; the device tally and K1's launches on stderr
     "tools/fuzz/__main__.py": frozenset({"<doc>", "<imports>", "main"}),
+    # the hbm-pressure rule judges the device cache against the budget the
+    # planner weighs it against (gpu_engine.planning_budget), read without
+    # touching a device; the rule's comment names that budget
+    "utils/inspection.py": frozenset({"InspectionContext.from_db", "_hbm_pressure"}),
 }
 
 _IMPORT_LINE = re.compile(r"^(\s*)(from|import)(\s+)tidb_tpu(?=[.\s])", re.M)
