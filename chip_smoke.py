@@ -141,15 +141,35 @@
    explaining the same ``[gpu]`` readers in a fresh handle; the
    hbm-pressure inspection row at the planner's budget and the diag
    bundle. K1 is held against its plain version on the band inputs.
-14. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+14. The last reference modules. (a) ``python -m tidb_tpu_torch.tools.check
+   --json`` (graftcheck over the port, its own empty baseline) exits 0,
+   clean. (b) A child (``chip_smoke.py --lockcheck-child``,
+   ``TIDB_TPU_LOCKCHECK=1``) installs the port's lock-order detector
+   before it imports any other module of the package, checks that the
+   port's locks are checked ones, and runs phase 5 again (SF1, two
+   regions, the statements cold and five times warm, K1 in band and built
+   by nvcc in the child under ``native.cuda._MU``), ``htap_writes`` read
+   back, and bench.py's Q3 at 4 virtual shards; a lock-order cycle on any
+   thread fails it. Prints the checked locks, the edges recorded, K1's
+   launches and the warm medians beside phase 5's (the detector's cost).
+   (c) ``python -m tidb_tpu_torch.bench.benchdaily --device cuda`` over
+   28 of its 31 lanes, twice, the second run under ``--check`` against
+   the first; the three lanes with a 5 % overhead budget
+   (``BUDGET_LANES``) are left out: their gates breach on the reference
+   itself from run to run, so they run alone beside the smoke. Then
+   ``benchdb --device cuda --run BENCHDB_RUN`` must leave 9,000 rows.
+15. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
    ``launches_delta_path``, ``launches_builtins_path``,
    ``launches_mpp_path``, ``launches_remote_path``,
-   ``launches_partition_path``, ``launches_fuzz_campaign`` and
-   ``launches_import_path`` the DAG, HTAP, builtins, MPP, remote,
-   partition, fuzz and import phases', the remote one counted in the
-   store process and the fuzz one in the campaign's), then, last, the
-   ``{"ok": true, "device": {...}}`` line.
+   ``launches_partition_path``, ``launches_fuzz_campaign``,
+   ``launches_import_path``, ``launches_lockcheck_path`` and
+   ``launches_bench_path`` the DAG, HTAP, builtins, MPP, remote,
+   partition, fuzz, import, lockcheck and bench phases', the remote one
+   counted in the store process, the fuzz one in the campaign's, the
+   lockcheck one in its child and the bench one in benchdaily's processes
+   and benchdb's run), then, last, the ``{"ok": true, "device": {...}}``
+   line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -1213,6 +1233,8 @@ def main() -> int:
     ap.add_argument("--store-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--rows", type=int, default=SF1_ROWS, help=argparse.SUPPRESS)
     ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    # phase 14's SQL path under the port's lock-order detector
+    ap.add_argument("--lockcheck-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1220,6 +1242,9 @@ def main() -> int:
     if args.store_child:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return _store_child(args.seed, args.rows, args.device)
+    if args.lockcheck_child:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return _lockcheck_child(args.seed, args.rows, args.device)
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this script needs a CUDA card", file=sys.stderr)
@@ -1451,6 +1476,20 @@ def main() -> int:
     import_launches, err, k1_import, import_s = _import_phase(args.seed, gs, card=card)
     max_err = max(max_err, err)
     print(f"import phase: {import_s:.1f} s; K1 launches on the import path {import_launches}")
+
+    # 14. the last reference modules: graftcheck, the SQL path under the
+    # port's lock-order detector, benchdaily and benchdb
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    gcheck = _graftcheck_run(here)
+    print(f"graftcheck: {gcheck['summary']}; {gcheck['rules']} rules in {gcheck['seconds']:.3f} s, "
+          f"{gcheck['suppressed']} suppressed, nothing baselined")
+    lock = _lockcheck_phase(args.seed, sql_warm)
+    bench = _bench_phase(here, gs)
+    print(f"phase 14: {time.perf_counter() - t0:.1f} s; K1 launches on the lockcheck path {lock['k1_launches']}, "
+          f"on the bench path {bench['k1_launches']} (no lane groups 64 < B <= 512)")
     print(f"total {time.perf_counter() - t_start:.1f} s")
 
     print(json.dumps({"kernels": [{
@@ -1467,6 +1506,8 @@ def main() -> int:
         "launches_partition_path": partition_launches,
         "launches_fuzz_campaign": fuzz["k1_launches"],
         "launches_import_path": import_launches,
+        "launches_lockcheck_path": lock["k1_launches"],
+        "launches_bench_path": bench["k1_launches"],
         "max_abs_err": max_err,
         **k1,
         "partition_input": k1_partition,
@@ -3467,6 +3508,271 @@ def _drive(regions, dags, gs):
         torch.cuda.synchronize()
         launches[name] = gs.LAUNCHES - before
     return results, launches, info
+
+
+# -- the last reference modules on the card: graftcheck, the SQL path under
+# the port's lock-order detector, benchdaily and benchdb ---------------------
+
+# benchdaily's lanes with a 5 % overhead budget (instrumented against plain in
+# one process): the smoke leaves them out, because their budget gates breach
+# on the reference itself run to run (run alone they pass and breach by turns
+# on a CPU), so a breach says nothing of the port; they are run alone, one
+# process each, beside the smoke and their outcomes recorded
+BUDGET_LANES = ("graftcheck_runtime_overhead_ms", "log_overhead_ms", "metering_overhead_ms")
+BENCHDB_RUN = "create,insert:10000,update-random:1000,select:100,query:20,analyze,delete:1000,gc"
+# the lockcheck child's MPP statement runs over the first rows of the SQL
+# phase's lineitem (ANALYZE of SF1's 6,001,215 rows alone takes ~40 s)
+LOCKCHECK_MPP_ROWS = 600_000
+
+
+def _graftcheck_run(here: str) -> dict:
+    """14a: ``python -m tidb_tpu_torch.tools.check --json <tmp>`` in a
+    subprocess must exit 0 with ``"ok": true``, no finding and nothing
+    baselined. → {seconds, rules, suppressed}."""
+    import tempfile
+
+    from tidb_tpu_torch.tools.check import load_rules
+
+    out = os.path.join(tempfile.mkdtemp(prefix="smoke_graftcheck_"), "report.json")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "tidb_tpu_torch.tools.check", "--json", out],
+                         capture_output=True, text=True, cwd=here, timeout=300)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"graftcheck: exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-2000:]}")
+    with open(out, encoding="utf-8") as fh:
+        rep = json.load(fh)
+    shutil.rmtree(os.path.dirname(out), ignore_errors=True)
+    if rep["ok"] is not True or rep["findings"] or rep["baselined"]:
+        raise AssertionError(f"graftcheck: the report is not clean: {rep}")
+    return {"seconds": secs, "rules": len(load_rules()), "suppressed": rep["suppressed"],
+            "summary": res.stdout.strip().splitlines()[-1]}
+
+
+def _lockcheck_child(seed: int, n: int, device: str, reps: int = 5) -> int:
+    """14b's child (``chip_smoke.py --lockcheck-child``): installs
+    ``tidb_tpu_torch.utils.lockcheck`` before it imports any other module of
+    the package, shows that locks the port creates afterwards are checked
+    ones, then on ``open(device=...)``: ``_sql_phase`` over ``n`` rows of
+    ``lineitem_sf1(seed)`` in two regions (the statements cold and ``reps``
+    times warm, equal to ``sql_oracle``, K1 in band and not in Q1, its
+    first-use nvcc build inside this process: the kernels build into a
+    fresh directory), ``htap_writes`` committed and the statements read
+    again through the delta operand, and bench.py's Q3 at 4 virtual shards
+    over the first ``LOCKCHECK_MPP_ROWS`` rows. A ``LockOrderError`` raised
+    on any thread fails it. Prints a last line of JSON."""
+    os.environ["TIDB_TPU_LOCKCHECK"] = "1"
+    from tidb_tpu_torch.utils import lockcheck
+
+    if not lockcheck.install():
+        raise AssertionError("lockcheck: install() did not install")
+    order_errors = []
+    real_init = lockcheck.LockOrderError.__init__
+
+    def recording_init(self, msg, cycle):  # an error swallowed on a worker thread still counts
+        order_errors.append(msg)
+        real_init(self, msg, cycle)
+
+    lockcheck.LockOrderError.__init__ = recording_init
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.copr import colcache, gpu_engine
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.native import cuda as native
+    from tidb_tpu_torch.ops import grouped_sums as gs
+    from tidb_tpu_torch.parallel import gather, mesh
+
+    t_start = time.perf_counter()
+    for name, lk in (("parallel.gather._MPP_CACHE_MU", gather._MPP_CACHE_MU), ("native.cuda._MU", native._MU)):
+        if not isinstance(lk, lockcheck._CheckedLock):
+            raise AssertionError(f"lockcheck: {name} is not a checked lock: {lk!r}")
+    build_dir = None
+    if torch.device(device).type == "cuda":
+        # K1's first use compiles it here, under native._MU, from a cop worker
+        build_dir = native.BUILD_DIR = Path(tempfile.mkdtemp(prefix="smoke_lockcheck_build_"))
+    k1_lib = native.library_path("grouped_sums")
+    cols = lineitem_sf1(seed, n)
+    gs.LAUNCHES = 0
+    _launches, db, warm = _sql_phase(cols, gs, reps=reps, device=device)
+    lru = gpu_engine._device_lru(colcache.cache_for(db.store), gpu_engine.store_device(db.store))
+    if not isinstance(lru._mu, lockcheck._CheckedLock):
+        raise AssertionError(f"lockcheck: the gpu engine's LRU lock is not a checked lock: {lru._mu!r}")
+    built = build_dir is not None and k1_lib.exists()
+    if build_dir is not None and not built:
+        raise AssertionError("lockcheck: K1 was not built inside the child")
+
+    updates, deletes, insert, after, _d1, _d2 = htap_writes(cols, seed)
+    commit_rows(db, updates, ())
+    commit_rows(db, {}, deletes)
+    db.execute(insert)
+    s = db.session()
+    delta_k1 = {}
+    for name, sql in SQL_QUERIES.items():
+        before = gs.LAUNCHES
+        rows = s.query(sql)
+        delta_k1[name] = gs.LAUNCHES - before
+        summ = s.exec_summary
+        if summ is None or summ.engines != {"gpu": 2} or summ.degraded:
+            raise AssertionError(f"lockcheck htap {name}: cop tasks {summ and summ.engines}")
+        if sql_rows(name, rows) != sql_oracle(name, after):
+            raise AssertionError(f"lockcheck htap {name}: rows disagree with the oracle after the writes")
+    if delta_k1["band"] != 2 or delta_k1["q1"] != 0:
+        raise AssertionError(f"lockcheck htap: K1 launches by statement {delta_k1}")
+    db.stop_background()
+    db = None
+
+    m = min(n, LOCKCHECK_MPP_ROWS)
+    tables = mpp_tables({k: v[:m] for k, v in cols.items()}, lineitem_partkey(seed, m), seed, n_part=20_000,
+                        n_cust=15_000)
+    mdb = tidb_tpu_torch.open(region_split_keys=1 << 62, device=device)
+    mpp_sql(mdb, bulk_load, tables)
+    mesh.FORCE_NDEV = 4
+    try:
+        ms = mdb.session()
+        t0 = time.perf_counter()
+        rows = ms.query(MPP_QUERIES["q3"])
+        mpp_ms = (time.perf_counter() - t0) * 1e3
+        det = ms.mpp_details[-1] if ms.mpp_details else None
+        got = None if det is None else (det.n_fragments, det.stages, det.ndev, det.retries)
+        if got != (*MPP_PLANS["q3"], 4, 0):
+            raise AssertionError(f"lockcheck mpp q3: gather (fragments, stages, ndev, retries) {got}")
+        if not mpp_rows_match("q3", rows, mpp_oracle("q3", tables), MPP_LIMITS["q3"]):
+            raise AssertionError("lockcheck mpp q3: rows disagree with the oracle")
+    finally:
+        mesh.FORCE_NDEV = None
+    mdb.stop_background()
+    if order_errors:
+        raise AssertionError(f"lockcheck: {len(order_errors)} lock-order cycle(s): {order_errors[0]}")
+    if build_dir is not None:
+        shutil.rmtree(build_dir, ignore_errors=True)
+    print(json.dumps({"sites": len(lockcheck._sites), "edges": len(lockcheck._edges), "k1_launches": gs.LAUNCHES,
+                      "k1_built_here": built, "warm": warm, "htap_k1": delta_k1, "mpp_q3_ms": mpp_ms,
+                      "seconds": time.perf_counter() - t_start}))
+    return 0
+
+
+def _lockcheck_phase(seed: int, sql_warm: dict, device: str = "cuda", n: int = SF1_ROWS) -> dict:
+    """14b: runs ``_lockcheck_child`` (``chip_smoke.py --lockcheck-child``,
+    ``TIDB_TPU_LOCKCHECK=1``) and prints its lines, then the checked locks,
+    the edges recorded, K1's launches and the warm medians under the
+    detector beside phase 5's (``sql_warm``). → the child's summary."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, os.path.abspath(__file__), "--lockcheck-child", "--seed", str(seed), "--rows", str(n),
+           "--device", device]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, cwd=here, timeout=900,
+                         env=dict(os.environ, TIDB_TPU_LOCKCHECK="1"))
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f"lockcheck: the child exited {res.returncode}:\n{res.stdout[-3000:]}\n{res.stderr[-4000:]}")
+    lines = res.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(f"lockcheck child: {ln}")
+    doc = json.loads(lines[-1])
+    print(f"lockcheck: child wall {wall:.1f} s (its own {doc['seconds']:.1f} s); checked locks live "
+          f"{doc['sites']}, lock-order edges {doc['edges']}, no cycle; K1 launches {doc['k1_launches']} "
+          f"(built in the child: {doc['k1_built_here']}; after the writes {doc['htap_k1']}); bench.py's Q3 at 4 "
+          f"virtual shards {doc['mpp_q3_ms']:.3f} ms cold")
+    for name, ms in doc["warm"].items():
+        base = sql_warm.get(name)
+        print(f"lockcheck sql {name}: warm median {ms:.3f} ms under the detector, phase 5 {_ms(base)}"
+              + ("" if not base else f" ({ms / base:.3f}x)"))
+    return doc
+
+
+def _bench_phase(here: str, gs, device: str = "cuda") -> dict:
+    """14c: ``python -m tidb_tpu_torch.bench.benchdaily --device D --out
+    <tmp>/daily.json --only <lanes>`` with every registered lane but
+    ``BUDGET_LANES`` (28 of 31); every lane must return a number. Then the
+    same command with ``--check <tmp>/daily.json``, against itself (the
+    run writes ``--out`` before it reads ``--check``), must exit 0 with the
+    guard's verdict, every lane returning a number again. The drift of the
+    second run against the first (``check_regression`` at the guard's
+    tolerance) is printed, not gated: run to run on one host it passes 25 %
+    on some lanes (a CPU rehearsal: 6 of 28), so it says nothing of the
+    port. Then ``benchdb.main(["--device", D, "--run", BENCHDB_RUN,
+    "--json"])`` in this process must leave 9,000 rows in ``bench_db``, its
+    aggregation's cop tasks on ``gpu``. Prints every lane's value. →
+    {"lanes", "lanes_check": records by lane, "benchdb": its records,
+    "k1_launches": K1's launches over the three}."""
+    import contextlib
+    import io
+    import tempfile
+
+    import tidb_tpu_torch
+    from tidb_tpu_torch.bench import benchdaily, benchdb
+
+    lanes = [n for n in benchdaily._BENCHES if n not in BUDGET_LANES]
+    tmp = tempfile.mkdtemp(prefix="smoke_bench_")
+    daily = os.path.join(tmp, "daily.json")
+    body = ("import sys\nfrom tidb_tpu_torch.bench import benchdaily\nfrom tidb_tpu_torch.ops import grouped_sums as gs\n"
+            "try:\n    benchdaily.main(sys.argv[1:])\nfinally:\n    print(f'k1_launches {gs.LAUNCHES}', file=sys.stderr)\n")
+    k1 = 0
+    runs, recs = [], []
+    try:
+        for extra in (["--out", daily], ["--out", daily, "--check", daily]):
+            cmd = [sys.executable, "-c", body, "--device", device, *extra, "--only", *lanes]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True, cwd=here, timeout=900)
+            runs.append(time.perf_counter() - t0)
+            if res.returncode != 0:
+                raise AssertionError(f"benchdaily {' '.join(extra)}: exited {res.returncode}:\n{res.stdout[-3000:]}\n"
+                                     f"{res.stderr[-4000:]}")
+            k1 += next(int(ln.split()[1]) for ln in res.stderr.splitlines() if ln.startswith("k1_launches "))
+            with open(daily, encoding="utf-8") as fh:
+                recs.append(json.load(fh))
+        if "regression guard: ok" not in res.stdout:
+            raise AssertionError(f"benchdaily --check: no guard verdict:\n{res.stdout[-2000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    first, second = ({r["name"]: r for r in run} for run in recs)
+    for run in (first, second):
+        if sorted(run) != sorted(lanes) or any(("ms" in r) == ("ops_per_sec" in r) for r in run.values()):
+            raise AssertionError(f"benchdaily: not every lane returned one number: {sorted(run)}")
+    drift = benchdaily.check_regression(recs[1], recs[0])
+    print(f"benchdaily: {len(lanes)} lanes on {device}, twice ({runs[0]:.1f} s, {runs[1]:.1f} s); the second run's "
+          f"guard against itself: ok; left out: {', '.join(BUDGET_LANES)}; the second run against the first at the "
+          f"guard's tolerance (not gated): {len(drift)} past it{': ' + '; '.join(drift) if drift else ''}")
+    for name in lanes:
+        a, b = first[name], second[name]
+        unit = "ms" if "ms" in a else "ops_per_sec"
+        print(f"benchdaily {name}: {a[unit]} / {b[unit]} {unit}")
+
+    opened = []
+    real_open = tidb_tpu_torch.open
+
+    def capturing_open(*a, **k):
+        opened.append(real_open(*a, **k))
+        return opened[-1]
+
+    before = gs.LAUNCHES
+    out = io.StringIO()
+    tidb_tpu_torch.open = capturing_open
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            benchdb.main(["--device", device, "--run", BENCHDB_RUN, "--json"])
+    finally:
+        tidb_tpu_torch.open = real_open
+    secs = time.perf_counter() - t0
+    k1 += gs.LAUNCHES - before
+    (db,) = opened
+    left = db.query("SELECT COUNT(*) FROM bench_db")
+    engines = db.session()
+    engines.query("SELECT COUNT(*), SUM(v) FROM bench_db")
+    on = engines.exec_summary.engines if engines.exec_summary else None
+    db.stop_background()
+    recs = json.loads(out.getvalue())
+    if left != [(9000,)] or [r["job"] for r in recs] != BENCHDB_RUN.split(","):
+        raise AssertionError(f"benchdb: {left} rows left, jobs {[r['job'] for r in recs]}")
+    if not on or set(on) != {"gpu"}:
+        raise AssertionError(f"benchdb: the aggregation's cop tasks ran on {on}")
+    print(f"benchdb: {BENCHDB_RUN} on {device} in {secs:.1f} s, {left[0][0]} rows left, cop tasks {on}: {json.dumps(recs)}")
+    return {"lanes": first, "lanes_check": second, "benchdb": recs, "k1_launches": k1}
 
 
 def _same_chunk(a, b) -> bool:

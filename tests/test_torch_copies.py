@@ -91,3 +91,50 @@ def test_the_inspection_seam_is_the_budget_alone():
     port = copies.units(copies.port_text("utils/inspection.py"))
     assert "planning_budget" in port["InspectionContext.from_db"]
     assert "TIDB_TPU_HBM_GB" not in copies.port_text("utils/inspection.py")
+
+
+# the last reference modules: the runtime lock-order detector, graftcheck and
+# the bench harnesses
+SLICE_12 = (
+    "utils/lockcheck.py", "tools/check/__init__.py", "tools/check/core.py", "tools/check/rules_compile.py",
+    "tools/check/rules_dead.py", "tools/check/rules_hygiene.py", "tools/check/rules_locks.py",
+    "tools/check/rules_pyopt.py", "tools/check/rules_robust.py", "tools/check/rules_wire.py",
+    "tools/check/__main__.py", "bench/__init__.py", "bench/qps.py", "bench/benchdb.py", "bench/benchdaily.py",
+)
+SLICE_12_PLAIN = (
+    "tools/check/rules_dead.py", "tools/check/rules_locks.py", "tools/check/rules_pyopt.py",
+    "tools/check/rules_robust.py", "tools/check/rules_wire.py", "bench/__init__.py", "bench/qps.py",
+)
+
+
+@pytest.mark.parametrize("rel", SLICE_12)
+def test_slice_12_module_is_a_registered_copy(rel):
+    assert rel in copies.COPIES
+    assert copies.drift(rel) == []
+    assert (rel in copies.SEAMS) == (rel not in SLICE_12_PLAIN)
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every ``.py`` of the reference has one in the port, but the device
+    engine and the Pallas kernel, whose counterparts are the port's own
+    (``copr/gpu_engine.py``, ``ops/grouped_sums.py`` and ``csrc/``)."""
+
+    def py_files(root):
+        return {str(p.relative_to(root)) for p in root.rglob("*.py") if "__pycache__" not in p.parts}
+
+    missing = py_files(copies.REF_ROOT) - py_files(copies.PORT_ROOT)
+    assert missing == {"copr/tpu_engine.py", "ops/pallas_groupby.py"}
+
+
+def test_the_lockcheck_seam_binds_raw_locks_and_restores_what_it_replaced():
+    port = copies.units(copies.port_text("utils/lockcheck.py"))
+    assert "_thread.allocate_lock" in port["_ORIG_LOCK"] and "_thread.RLock" in port["_ORIG_RLOCK"]
+    assert "_REPLACED" in port["install"] and "_REPLACED" in port["uninstall"]
+    assert "_ORIG_LOCK" not in port["uninstall"]
+
+
+def test_the_benchdaily_seam_reaches_no_reference_name():
+    text = copies.port_text("bench/benchdaily.py")
+    for name in ("tidb_tpu.open(", "tpu_engine", "'tpu'", "jax"):
+        assert name not in text
+    assert text.count("device=DEVICE") == 16

@@ -766,3 +766,73 @@ def test_hbm_pressure_on_a_cuda_store_reports_the_planning_budget():
         assert int(m.group(1)) > 0
     finally:
         db.stop_background()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lane", ["q3_join_mpp_ms", "freshness_lag_ms"])
+def test_benchdaily_lane_on_card(lane, monkeypatch):
+    _need_card()
+    from tidb_tpu_torch.bench import benchdaily
+
+    monkeypatch.setattr(benchdaily, "DEVICE", "cuda")
+    assert benchdaily._BENCHES[lane]() > 0
+
+
+_K1_FIRST_USE = r"""
+import json, os, sys, tempfile, threading
+from pathlib import Path
+sys.path.insert(0, {repo!r})
+os.environ["TIDB_TPU_LOCKCHECK"] = "1"
+from tidb_tpu_torch.utils import lockcheck
+assert lockcheck.install()
+errors = []
+real_init = lockcheck.LockOrderError.__init__
+def recording(self, msg, cycle):
+    errors.append(msg)
+    real_init(self, msg, cycle)
+lockcheck.LockOrderError.__init__ = recording
+import torch
+import chip_smoke
+from tidb_tpu_torch.native import cuda as native
+from tidb_tpu_torch.ops import grouped_sums as gs
+assert isinstance(native._MU, lockcheck._CheckedLock)
+native.BUILD_DIR = Path(tempfile.mkdtemp())
+lib = native.library_path("grouped_sums")
+assert not lib.exists()
+inputs = [chip_smoke._k1_synthetic(1 << 20, 160, 3, seed) for seed in (1, 2)]
+go = threading.Barrier(2)
+out = [None, None]
+def cop(i):
+    seg, pairs = inputs[i]
+    go.wait()
+    out[i] = gs.grouped_sums(seg, pairs, 160, 1 << 20, device="cuda")
+threads = [threading.Thread(target=cop, args=(i,), name=f"cop-k1-{{i}}") for i in (0, 1)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+ok = []
+for (seg, pairs), (c, s) in zip(inputs, out):
+    pc, ps = gs.grouped_sums_plain(seg, pairs, 160, 1 << 20)
+    ok.append(bool(torch.equal(c, pc) and torch.equal(s, ps)))
+print(json.dumps({{"built": lib.exists(), "libs": len(list(native.BUILD_DIR.glob("*.so"))), "ok": ok,
+                  "errors": errors, "edges": len(lockcheck._edges)}}))
+"""
+
+
+@pytest.mark.gpu
+def test_k1_first_use_build_from_two_threads_under_the_ports_lockcheck(tmp_path):
+    """The port's lock-order detector installed before the package is
+    imported; two threads launch K1 at once while its library is not built,
+    so one nvcc build runs under ``native.cuda._MU`` while the other waits:
+    one library, both results equal to the plain version, no cycle."""
+    _need_card()
+    import subprocess
+
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    p = subprocess.run([sys.executable, "-c", _K1_FIRST_USE.format(repo=REPO)], capture_output=True, text=True,
+                       cwd=str(tmp_path), env=env, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    doc = json.loads(p.stdout.strip().splitlines()[-1])
+    assert doc["built"] and doc["libs"] == 1 and doc["ok"] == [True, True] and doc["errors"] == []

@@ -68,6 +68,20 @@ import tidb_tpu_torch.tools.pitr
 import tidb_tpu_torch.tools.replayer
 import tidb_tpu_torch.utils.inspection
 import tidb_tpu_torch.tools.diag
+import tidb_tpu_torch.utils.lockcheck
+import tidb_tpu_torch.tools.check
+import tidb_tpu_torch.tools.check.__main__
+import tidb_tpu_torch.tools.check.rules_compile
+import tidb_tpu_torch.tools.check.rules_dead
+import tidb_tpu_torch.tools.check.rules_hygiene
+import tidb_tpu_torch.tools.check.rules_locks
+import tidb_tpu_torch.tools.check.rules_pyopt
+import tidb_tpu_torch.tools.check.rules_robust
+import tidb_tpu_torch.tools.check.rules_wire
+import tidb_tpu_torch.bench
+import tidb_tpu_torch.bench.benchdb
+import tidb_tpu_torch.bench.benchdaily
+import tidb_tpu_torch.bench.qps
 import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "tidb_tpu" or m.startswith("tidb_tpu."))
 print(json.dumps(bad))
@@ -205,6 +219,31 @@ def test_default_open_raises_on_its_first_mpp_fragment_without_a_card(monkeypatc
         db.query(sql)
     assert attempts == []
     db.stop_background()
+
+
+def test_benchdaily_raises_at_the_device_without_a_card(monkeypatch, tmp_path):
+    """``benchdaily`` with no ``--device`` asks for the card: with none, a
+    lane raises at its first device task (``device.resolve``), and no cop
+    task runs on the host engine instead."""
+    import torch
+
+    from tidb_tpu_torch.bench import benchdaily
+    from tidb_tpu_torch.copr import client, host_engine
+    from tidb_tpu_torch.kv.kv import StoreType
+    from tidb_tpu_torch.tools.fuzz import runner
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    # main() sets both from --device: restored after the test
+    monkeypatch.setattr(benchdaily, "DEVICE", benchdaily.DEVICE)
+    monkeypatch.setattr(runner, "DEVICE", runner.DEVICE)
+    host_calls = []
+    real = host_engine.execute_dag
+    monkeypatch.setitem(client._engines(), StoreType.HOST, lambda *a, **k: host_calls.append(a) or real(*a, **k))
+    out = tmp_path / "daily.json"
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        benchdaily.main(["--only", "fixed_overhead_ms", "--out", str(out)])
+    assert benchdaily.DEVICE == "cuda" and runner.DEVICE == "cuda"
+    assert host_calls == [] and not out.exists()
 
 
 def test_open_remote_raises_until_the_remote_store_is_copied():
