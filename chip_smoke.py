@@ -89,7 +89,9 @@
    market segments) and part (200,000, 25 brands, 40 containers), one
    region each, ANALYZEd; the four ``MPP_QUERIES`` (bench.py's Q3, TPC-H
    Q3 with JOIN ... ON, TPC-H Q17, a TopN over lineitem ⋈ orders) at 1
-   and 4 virtual shards, each once cold and five times warm. Each must
+   and 4 virtual shards on the store's card (``parallel.mesh.
+   FORCE_DEVICES`` its one handle, on any machine), each once cold and
+   five times warm. Each must
    equal the numpy oracle and the port with ``tidb_allow_mpp = 0``, plan
    one ``PhysMPPGather`` with ``MPP_PLANS``' fragments and stages, report
    no retry and no fallback event; K1 must not launch. Prints per
@@ -158,18 +160,31 @@
    (``BUDGET_LANES``) are left out: their gates breach on the reference
    itself from run to run, so they run alone beside the smoke. Then
    ``benchdb --device cuda --run BENCHDB_RUN`` must leave 9,000 rows.
-15. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
+15. MPP over every card (``_mpp_devices_phase``; it runs right after
+   phase 9, on phase 9's database, which it then closes): the four
+   statements with phase 9's checks at width 4 over a mesh of several
+   workers, four logical devices on the store's card (four threads,
+   four streams, the exchanges carried between them) and, on a machine
+   with two cards or more, one shard per card (peer copies). Prints the
+   card count and each card's line, peer access between each pair of
+   cards, each layout's workers, per statement the cold wall, the warm
+   median of five beside phase 9's 4-virtual-shard median, and per
+   worker its shards' rows, its stream's event-timed wall, the bytes it
+   handed to the other workers in one run, and each card's peak memory.
+   K1 must not launch. ``chip_smoke.py --mpp-only`` runs phases 9 and 15
+   alone (SF1 generated, no kernel built).
+16. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
    ``launches_delta_path``, ``launches_builtins_path``,
-   ``launches_mpp_path``, ``launches_remote_path``,
-   ``launches_partition_path``, ``launches_fuzz_campaign``,
-   ``launches_import_path``, ``launches_lockcheck_path`` and
-   ``launches_bench_path`` the DAG, HTAP, builtins, MPP, remote,
-   partition, fuzz, import, lockcheck and bench phases', the remote one
-   counted in the store process, the fuzz one in the campaign's, the
-   lockcheck one in its child and the bench one in benchdaily's processes
-   and benchdb's run), then, last, the ``{"ok": true, "device": {...}}``
-   line.
+   ``launches_mpp_path``, ``launches_mpp_devices_path``,
+   ``launches_remote_path``, ``launches_partition_path``,
+   ``launches_fuzz_campaign``, ``launches_import_path``,
+   ``launches_lockcheck_path`` and ``launches_bench_path`` the DAG, HTAP,
+   builtins, MPP, multi-worker MPP, remote, partition, fuzz, import,
+   lockcheck and bench phases', the remote one counted in the store
+   process, the fuzz one in the campaign's, the lockcheck one in its
+   child and the bench one in benchdaily's processes and benchdb's run),
+   then, last, the ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -1235,6 +1250,8 @@ def main() -> int:
     ap.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     # phase 14's SQL path under the port's lock-order detector
     ap.add_argument("--lockcheck-child", action="store_true", help=argparse.SUPPRESS)
+    # phases 9 and 15 alone (a machine with several cards)
+    ap.add_argument("--mpp-only", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -1265,6 +1282,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(card)  # name, power limit: nvidia-smi's own line
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
+    if args.mpp_only:
+        return _mpp_only(args.seed, gs)
     extra = [("grouped_sums", STRESS_DEFINES)]
     build_s, reports = native.build_all(extra)
     print(f"kernel build: {build_s:.3f} s ({len(reports)} libraries)")
@@ -1440,9 +1459,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     gs.LAUNCHES = 0  # the MPP path: counts from 0 just before it
-    _mpp_phase(cols, args.seed, gs)
-    mpp_launches = gs.LAUNCHES
+    mpp_launches, mdb, mtables, mhost, virtual = _mpp_phase(cols, args.seed, gs)
     print(f"MPP phase: {time.perf_counter() - t0:.1f} s; K1 launches on the MPP path {mpp_launches}")
+
+    # 15. MPP over every card: phase 9's database and checks over several
+    # workers (run here, while its database is loaded)
+    t0 = time.perf_counter()
+    gs.LAUNCHES = 0  # the multi-worker MPP path: counts from 0 just before it
+    try:
+        mpp15_launches = _mpp_devices_phase(mdb, mtables, mhost, virtual, gs)
+    finally:
+        mdb.stop_background()
+    mdb = mtables = mhost = None
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s; K1 launches on the multi-worker MPP path {mpp15_launches}")
 
     # 10. the process topology: a store process owns the card, SQL layers over it
     gc.collect()
@@ -1502,6 +1531,7 @@ def main() -> int:
         "launches_delta_path": delta_launches,
         "launches_builtins_path": builtin_launches,
         "launches_mpp_path": mpp_launches,
+        "launches_mpp_devices_path": mpp15_launches,
         "launches_remote_path": remote_launches,
         "launches_partition_path": partition_launches,
         "launches_fuzz_campaign": fuzz["k1_launches"],
@@ -2449,26 +2479,15 @@ def mpp_rows_match(name: str, got: list, want: list, limit: int) -> bool:
 MPP_LIMITS = {"q3": 10, "q3full": 10, "q17": 1, "topn": 20}
 
 
-def _mpp_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda") -> int:
-    """``MPP_QUERIES`` through ``tidb_tpu_torch.open`` over the tables of
+def _mpp_db(cols: dict, seed: int, device: str = "cuda"):
+    """The MPP phases' database: ``tidb_tpu_torch.open`` over the tables of
     ``mpp_tables`` (SF1: lineitem 6,001,215 rows, orders ~1.5M, customer
-    150,000, part 200,000; one region each, ANALYZEd), at
-    ``parallel.mesh.FORCE_NDEV`` 1 and 4, each once cold and ``reps``
-    times warm. Every run must equal the numpy oracle (decimals exact) and
-    the port with ``tidb_allow_mpp = 0`` (what the parent ran these
-    statements on), plan one ``PhysMPPGather`` with ``MPP_PLANS``'
-    fragments and stages, report the width and no retry, and emit no MPP
-    fallback event; K1 must not launch. Prints per statement the plan's
-    exchanges, the ``tidb_allow_mpp = 0`` wall, and per width the cold wall,
-    the warm median, the gather's wall, per-shard rows and exchanged
-    bytes, ``stage_bytes``, and one profiled run's device busy time and
-    top ops. → K1's launches over the phase."""
-    import torch
-
+    150,000, part 200,000; one region each, ANALYZEd), and each of
+    ``MPP_QUERIES`` once with ``tidb_allow_mpp = 0`` (what the parent ran
+    these statements on), which must equal the numpy oracle. → (db,
+    tables, {name: (rows, ms)})."""
     import tidb_tpu_torch
     from tidb_tpu_torch.executor.load import bulk_load
-    from tidb_tpu_torch.parallel import mesh
-    from tidb_tpu_torch.utils import eventlog
 
     t0 = time.perf_counter()
     tables = mpp_tables(cols, lineitem_partkey(seed, len(cols[0])), seed)
@@ -2477,63 +2496,187 @@ def _mpp_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda") -
     load_s, analyze_s = mpp_sql(db, bulk_load, tables)
     sizes = {name: len(tables[name][0]) for name in MPP_TABLES}
     print(f"mpp: tables {sizes} generated in {gen_s:.3f} s; bulk load {load_s:.3f} s; ANALYZE {analyze_s:.3f} s")
-    host = db.session()
-    host.execute("SET tidb_allow_mpp = 0")
-    k1_before = gs.LAUNCHES
+    s = db.session()
+    s.execute("SET tidb_allow_mpp = 0")
+    host = {}
+    for name, sql in MPP_QUERIES.items():
+        t0 = time.perf_counter()
+        rows = s.query(sql)
+        host[name] = (rows, (time.perf_counter() - t0) * 1e3)
+        if not mpp_rows_match(name, rows, mpp_oracle(name, tables), MPP_LIMITS[name]):
+            raise AssertionError(f"mpp {name}: tidb_allow_mpp = 0 disagrees with the oracle: {rows[:3]}")
+    return db, tables, host
+
+
+def _mpp_layout(db, tables: dict, host: dict, label: str, devices, ndev, reps: int = 5,
+                profile: bool = True, workers: bool = False) -> dict:
+    """``MPP_QUERIES`` on ``db`` over one mesh layout (``parallel.mesh``'s
+    ``FORCE_DEVICES = devices``, ``FORCE_NDEV = ndev``), each once cold and
+    ``reps`` times warm. Every run must equal the numpy oracle (decimals
+    exact) and the ``tidb_allow_mpp = 0`` rows, plan one ``PhysMPPGather``
+    with ``MPP_PLANS``' fragments and stages at the layout's width with no
+    retry, and emit no MPP fallback event. Prints per statement the plan's
+    exchanges, the cold wall, the warm median, the gather's wall, per-shard
+    rows and exchanged bytes, ``stage_bytes`` and, with ``profile``, one
+    profiled run's device busy time and top ops; with ``workers``, per
+    worker its shards' rows and stream wall, the bytes it handed to the
+    other workers in one run and each card's peak memory. → {name: warm
+    median ms}."""
+    import torch
+
+    from tidb_tpu_torch.copr.gpu_engine import store_device
+    from tidb_tpu_torch.parallel import mesh
+    from tidb_tpu_torch.utils import eventlog
+
+    on_card = store_device(db.store).type == "cuda"
+    mesh.FORCE_DEVICES, mesh.FORCE_NDEV = devices, ndev
+    med_by = {}
     try:
+        m = mesh.make_mesh(devices=mesh.available_devices(db.store.device))
+        width = int(m.devices.size)
+        cards = sorted({h.device.index for h, _f, _k in m.workers}) if on_card else []
+        print(f"mpp layout {label}: {width} shards, workers (device, first shard, shards) "
+              f"{[(h.name, f, k) for h, f, k in m.workers]}")
         for name, sql in MPP_QUERIES.items():
             want = mpp_oracle(name, tables)
-            t0 = time.perf_counter()
-            host_rows = host.query(sql)
-            host_ms = (time.perf_counter() - t0) * 1e3
-            if not mpp_rows_match(name, host_rows, want, MPP_LIMITS[name]):
-                raise AssertionError(f"mpp {name}: tidb_allow_mpp = 0 disagrees with the oracle: {host_rows[:3]}")
-            for nd in (1, 4):
-                mesh.FORCE_NDEV = nd
-                s = db.session()
-                plan = "\n".join(r[0] for r in s.query("EXPLAIN " + sql))
-                head = next((ln.strip() for ln in plan.splitlines() if "PhysMPPGather" in ln), None)
-                if head is None:
-                    raise AssertionError(f"mpp {name}: no PhysMPPGather at ndev {nd}:\n{plan}")
-                since = time.time()
+            host_rows, host_ms = host[name]
+            s = db.session()
+            plan = "\n".join(r[0] for r in s.query("EXPLAIN " + sql))
+            head = next((ln.strip() for ln in plan.splitlines() if "PhysMPPGather" in ln), None)
+            if head is None:
+                raise AssertionError(f"mpp {name} {label}: no PhysMPPGather:\n{plan}")
+            since = time.time()
 
-                def run():
-                    t = time.perf_counter()
-                    rows = s.query(sql)
-                    wall = (time.perf_counter() - t) * 1e3
-                    det = s.mpp_details[-1] if s.mpp_details else None
-                    got = None if det is None else (det.n_fragments, det.stages, det.ndev, det.retries)
-                    if got != (*MPP_PLANS[name], nd, 0):
-                        raise AssertionError(f"mpp {name} ndev {nd}: gather (fragments, stages, ndev, retries) {got}")
-                    if not mpp_rows_match(name, rows, want, MPP_LIMITS[name]) or rows != host_rows:
-                        raise AssertionError(f"mpp {name} ndev {nd}: rows disagree with the oracle or the "
-                                             f"tidb_allow_mpp = 0 path: {rows[:3]} against {host_rows[:3]}")
-                    return wall, det
+            def run():
+                t = time.perf_counter()
+                rows = s.query(sql)
+                wall = (time.perf_counter() - t) * 1e3
+                det = s.mpp_details[-1] if s.mpp_details else None
+                got = None if det is None else (det.n_fragments, det.stages, det.ndev, det.retries)
+                if got != (*MPP_PLANS[name], width, 0):
+                    raise AssertionError(f"mpp {name} {label}: gather (fragments, stages, ndev, retries) {got}")
+                if not mpp_rows_match(name, rows, want, MPP_LIMITS[name]) or rows != host_rows:
+                    raise AssertionError(f"mpp {name} {label}: rows disagree with the oracle or the "
+                                         f"tidb_allow_mpp = 0 path: {rows[:3]} against {host_rows[:3]}")
+                return wall, det
 
-                cold, cold_det = run()
-                runs = [run() for _ in range(reps)]
-                walls = [w for w, _d in runs]
-                det = runs[-1][1]
-                kernels = _profile_device(run)
-                busy = sum(k[1] for k in kernels) if kernels else None
-                events = [ev[3] for ev in eventlog.get().search(since=since, component="mpp")]
-                if "host_join_fallback" in events:
-                    raise AssertionError(f"mpp {name} ndev {nd}: the gather fell back to the host join: {events}")
-                med = statistics.median(walls)
-                print(f"mpp {name} ndev {nd}: {head}; cold_ms {cold:.3f}; warm sql_ms median {med:.3f} "
-                      f"min {min(walls):.3f}; gather wall_ms {det.wall_ms:.3f}; tidb_allow_mpp=0 ms {host_ms:.3f} "
-                      f"({host_ms / med:.2f}x); shards [id, ms, rows, exchanged bytes] {det.shards}; "
-                      f"stage_bytes {det.stage_bytes}; programs built cold {cold_det.compiles} warm {det.compiles}; profiled device_busy_ms {_ms(busy)}"
-                      + ("" if busy is None else f" (idle share {max(0.0, 1 - busy / med):.3f})") + f"; rows {len(want)}")
-                for k, ms, calls in kernels[:4]:
-                    print(f"    top op {ms:.3f} ms x{calls}: {k[:110]}")
-            torch.cuda.synchronize()
+            cold, cold_det = run()
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            runs = [run() for _ in range(reps)]
+            walls = [w for w, _d in runs]
+            det = runs[-1][1]
+            kernels = _profile_device(run) if profile else []
+            busy = sum(k[1] for k in kernels) if kernels else None
+            events = [ev[3] for ev in eventlog.get().search(since=since, component="mpp")]
+            if "host_join_fallback" in events:
+                raise AssertionError(f"mpp {name} {label}: the gather fell back to the host join: {events}")
+            med = med_by[name] = statistics.median(walls)
+            print(f"mpp {name} {label}: {head}; cold_ms {cold:.3f}; warm sql_ms median {med:.3f} "
+                  f"min {min(walls):.3f}; gather wall_ms {det.wall_ms:.3f}; tidb_allow_mpp=0 ms {host_ms:.3f} "
+                  f"({host_ms / med:.2f}x); shards [id, ms, rows, exchanged bytes] {det.shards}; "
+                  f"stage_bytes {det.stage_bytes}; programs built cold {cold_det.compiles} warm {det.compiles}"
+                  + (f"; profiled device_busy_ms {_ms(busy)}" if profile else "")
+                  + ("" if busy is None else f" (idle share {max(0.0, 1 - busy / med):.3f})") + f"; rows {len(want)}")
+            for k, ms, calls in kernels[:4]:
+                print(f"    top op {ms:.3f} ms x{calls}: {k[:110]}")
+            if workers:
+                moved = list(m.moved)
+                run()
+                sent = [a - b for a, b in zip(m.moved, moved)]
+                by_shard = {sh[0]: sh for sh in det.shards}
+                per = [{"device": h.name, "shards": k, "rows": sum(by_shard[i][2] for i in range(f, f + k)),
+                        "wall_ms": by_shard[f][1], "sent_bytes": sent[w]}
+                       for w, (h, f, k) in enumerate(m.workers)]
+                peak = {f"cuda:{c}": round(torch.cuda.max_memory_allocated(c) / 2**30, 3) for c in cards}
+                print(f"    workers {json.dumps(per)}; peak GiB per card {peak}")
+            if on_card:
+                torch.cuda.synchronize()
     finally:
-        mesh.FORCE_NDEV = None
+        mesh.FORCE_DEVICES = mesh.FORCE_NDEV = None
+    return med_by
+
+
+def _mpp_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda"):
+    """Phase 9: ``MPP_QUERIES`` over ``_mpp_db`` at 1 and 4 virtual shards
+    on the store's card (``FORCE_DEVICES`` its one handle, whatever the
+    machine holds), ``_mpp_layout``'s checks and prints. K1 must not
+    launch. → (K1's launches, the database, the tables, the host rows,
+    the 4-shard warm medians)."""
+    from tidb_tpu_torch.copr.gpu_engine import store_device
+    from tidb_tpu_torch.parallel import mesh
+
+    db, tables, host = _mpp_db(cols, seed, device)
+    k1_before = gs.LAUNCHES
+    one = [mesh.handle(store_device(db.store))]
+    try:
+        _mpp_layout(db, tables, host, "ndev 1", one, 1, reps)
+        virtual = _mpp_layout(db, tables, host, "ndev 4", one, 4, reps)
+    except BaseException:
         db.stop_background()
+        raise
     launches = gs.LAUNCHES - k1_before
     if launches:
         raise AssertionError(f"mpp: K1 launched {launches} times on the MPP path")
+    return launches, db, tables, host, virtual
+
+
+def _mpp_only(seed: int, gs) -> int:
+    """``chip_smoke.py --mpp-only``: phase 9 and phase 15 alone, over the
+    same SF1 tables (what a machine with several cards is asked for)."""
+    t0 = time.perf_counter()
+    cols = lineitem_sf1(seed)
+    gs.LAUNCHES = 0
+    _launches, db, tables, host, virtual = _mpp_phase(cols, seed, gs)
+    print(f"MPP phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    try:
+        _mpp_devices_phase(db, tables, host, virtual, gs)
+    finally:
+        db.stop_background()
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s; mpp-only: every check passed")
+    return 0
+
+
+def _mpp_devices_phase(db, tables: dict, host: dict, virtual: dict, gs, reps: int = 5) -> int:
+    """Phase 15, MPP over every card: phase 9's statements and checks on
+    its database over a mesh of several workers — four logical devices on
+    the store's card (four workers with their own streams, the exchanges
+    between them carried by the rendezvous) and, with two cards or more,
+    one shard per card (peer copies). Prints the card count, peer access
+    between each pair of cards, the layouts, per statement the cold wall
+    and warm median of ``reps`` beside phase 9's 4-virtual-shard median,
+    and per worker its rows, stream wall, bytes handed to the others and
+    each card's peak memory. K1 must not launch. → K1's launches."""
+    import torch
+
+    from tidb_tpu_torch.copr.gpu_engine import store_device
+    from tidb_tpu_torch.parallel import mesh
+
+    dev = store_device(db.store)
+    n_cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    print(f"mpp15: {n_cards} cards")
+    if n_cards:
+        for line in subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines():
+            print(f"mpp15: card {line}")
+    peers = {f"{i}->{j}": torch.cuda.can_device_access_peer(i, j)
+             for i in range(n_cards) for j in range(n_cards) if i != j}
+    print(f"mpp15: peer access {peers}")
+    layouts = [("4 logical", mesh.logical_devices(dev, 4), None)]
+    if n_cards >= 2:
+        layouts.append((f"{n_cards} cards", None, None))  # the store's default: one shard per card
+    k1_before = gs.LAUNCHES
+    for label, devices, ndev in layouts:
+        med = _mpp_layout(db, tables, host, label, devices, ndev, reps, profile=False, workers=True)
+        print(f"mpp15 {label}: warm medians against phase 9's 4 virtual shards "
+              + json.dumps({name: [round(med[name], 3), round(virtual[name], 3), round(med[name] / virtual[name], 3)]
+                            for name in med}))
+    launches = gs.LAUNCHES - k1_before
+    if launches:
+        raise AssertionError(f"mpp15: K1 launched {launches} times on the MPP path")
     return launches
 
 
@@ -3519,7 +3662,10 @@ def _drive(regions, dags, gs):
 # on a CPU), so a breach says nothing of the port; they are run alone, one
 # process each, beside the smoke and their outcomes recorded
 BUDGET_LANES = ("graftcheck_runtime_overhead_ms", "log_overhead_ms", "metering_overhead_ms")
-BENCHDB_RUN = "create,insert:10000,update-random:1000,select:100,query:20,analyze,delete:1000,gc"
+# TiDB's cmd/benchdb job list with 100 random updates in place of 1,000:
+# each UPDATE scans the table in Python (~81 ms a statement on an H100
+# machine's host), so 1,000 of them held 81 s of the smoke's time limit
+BENCHDB_RUN = "create,insert:10000,update-random:100,select:100,query:20,analyze,delete:1000,gc"
 # the lockcheck child's MPP statement runs over the first rows of the SQL
 # phase's lineitem (ANALYZE of SF1's 6,001,215 rows alone takes ~40 s)
 LOCKCHECK_MPP_ROWS = 600_000

@@ -836,3 +836,83 @@ def test_k1_first_use_build_from_two_threads_under_the_ports_lockcheck(tmp_path)
     assert p.returncode == 0, p.stderr[-3000:]
     doc = json.loads(p.stdout.strip().splitlines()[-1])
     assert doc["built"] and doc["libs"] == 1 and doc["ok"] == [True, True] and doc["errors"] == []
+
+
+def _card_layouts():
+    """Four-shard layouts on the cards: one handle four times (the virtual
+    slab), four logical devices on card 0, two workers of two shards, and
+    with two cards or more the shards spread over the cards."""
+    from tidb_tpu_torch.parallel import mesh
+
+    c0 = mesh.handle(torch.device("cuda", 0))
+    lg = mesh.logical_devices(torch.device("cuda", 0), 4)
+    out = {"virtual": [c0] * 4, "logical": lg, "2x2": [lg[0], lg[0], lg[1], lg[1]]}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        cards = [mesh.handle(torch.device("cuda", i)) for i in range(min(n, 4))]
+        out["cards"] = [cards[i * len(cards) // 4] for i in range(4)]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op", ["all_to_all", "all_gather", "psum"])
+def test_mesh_collectives_on_card_equal_the_virtual_slab(op):
+    """1,048,576-slot lanes (int64, float64, bool) through each collective
+    at every layout the machine has: each worker's result, concatenated in
+    shard order, equals the virtual slab's on the CPU bit for bit."""
+    _need_card()
+    from tidb_tpu_torch.parallel import mesh
+
+    rng = np.random.default_rng(17)
+    n = 4 * (1 << 18)
+    lanes = [torch.from_numpy(rng.integers(-(1 << 60), 1 << 60, (4, n))),
+             torch.from_numpy(rng.normal(0.0, 1e6, (4, n))), torch.from_numpy(rng.random((4, n)) > 0.5)]
+
+    def body(sl, *xs):
+        xs = list(xs)
+        return getattr(sl, op)(xs[:2] if op == "psum" else xs)
+
+    want = mesh.make_mesh(devices=[torch.device("cpu")] * 4).run(body, [x.reshape(-1) for x in lanes])[0]
+    for name, entries in _card_layouts().items():
+        m = mesh.make_mesh(devices=entries)
+        per = m.run(body, [x.reshape(-1) for x in lanes])
+        torch.cuda.synchronize()
+        for i, w in enumerate(want):
+            got = torch.cat([p[i].cpu() for p in per])
+            assert torch.equal(got, w), (name, op, i)
+
+
+@pytest.mark.gpu
+def test_mpp_statements_over_workers_on_card_match_the_oracle():
+    """chip_smoke.MPP_QUERIES over 200,000 lineitem rows on the card at
+    every layout of ``_card_layouts`` but the virtual one: rows equal the
+    one-shard run's and the oracle's, each gather at width 4 with no retry."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.parallel import mesh
+
+    n = 200_000
+    cols = chip_smoke.lineitem_sf1(seed=8, n=n)
+    tables = chip_smoke.mpp_tables(cols, chip_smoke.lineitem_partkey(8, n) % 20_000 + 1, 8, n_part=20_000, n_cust=15_000)
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    chip_smoke.mpp_sql(db, bulk_load, tables)
+    try:
+        mesh.FORCE_NDEV = 1
+        one = {name: db.session().query(sql) for name, sql in chip_smoke.MPP_QUERIES.items()}
+        mesh.FORCE_NDEV = None
+        for layout, entries in _card_layouts().items():
+            if layout == "virtual":
+                continue
+            mesh.FORCE_DEVICES = entries
+            for name, sql in chip_smoke.MPP_QUERIES.items():
+                s = db.session()
+                rows = s.query(sql)
+                det = s.mpp_details[-1]
+                assert (det.n_fragments, det.stages, det.ndev, det.retries) == (*chip_smoke.MPP_PLANS[name], 4, 0)
+                assert rows == one[name], (layout, name)
+                want = chip_smoke.mpp_oracle(name, tables)
+                assert chip_smoke.mpp_rows_match(name, rows, want, chip_smoke.MPP_LIMITS[name]), (layout, name)
+    finally:
+        mesh.FORCE_NDEV = mesh.FORCE_DEVICES = None
+        db.stop_background()

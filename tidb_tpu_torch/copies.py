@@ -215,16 +215,19 @@ SEAMS: dict[str, frozenset] = {
     # program
     "executor/executors.py": frozenset({"WindowExec._try_device"}),
     # the engine name gpu in the device admission checks; planning's HBM
-    # budget read without touching a device, the store's device for the
-    # mesh; the fragment program's lanes are torch tensors on that device,
-    # copied off it once
+    # budget read without touching a device; the mesh over every live
+    # device the store owns (every card for ``cuda``); the fragment
+    # program's lanes are torch tensors placed per worker, the input pool
+    # keyed on that placement, the expression callbacks on each worker's
+    # device, the outputs copied off once per worker; a shard's probe time
+    # is its worker's event-timed wall (no callback inside the program)
     "parallel/gather.py": frozenset(
         {
             "_agg_mpp_ok", "_chain_cond_ok", "_reader_mpp_ok", "_stage_eligible", "try_mpp_rewrite",
-            "MPPGatherExec.execute", "MPPGatherExec._execute_attempt",
+            "MPPGatherExec.execute", "MPPGatherExec._execute_attempt", "_shard_probe",
         }
     ),
-    # a tiny op and a synchronize on each device
+    # a tiny op and a synchronize on each handle's physical device
     "parallel/probe.py": frozenset({"probe_and_blacklist"}),
     # the row codec builds into the package's _build/
     "native/__init__.py": frozenset({"_OUT_DIR"}),

@@ -82,23 +82,25 @@ _SHARD_OBS: dict = {"t0": 0.0, "sink": None}
 PROBES_ENABLED = True
 
 
-def _shard_probe(idx, rows, xbytes):
-    """Host callback fired once per mesh shard inside the jitted fragment
-    program: records [shard_id, completion ms since program launch, rows
-    produced, exchanged bytes]. Completion time is the straggler signal — a
-    shard that computed (or slept) longer reports later. The
-    ``mpp_shard_slow`` failpoint lets chaos tests make one shard observably
-    slow without touching the program itself."""
+def _shard_probe(idx, rows, xbytes, wall_ms):
+    """Called once per mesh shard after the fragment program: records
+    [shard_id, completion ms, rows produced, exchanged bytes]. Completion
+    is the shard's worker's stream time over the program (``wall_ms``, CUDA
+    events; the host clock on the CPU) — the straggler signal: a worker
+    that computed longer reports later. The ``mpp_shard_slow`` failpoint
+    lets chaos tests make one shard observably slow without touching the
+    program itself (its delay is added)."""
     import time as _t
 
     from tidb_tpu_torch.utils import failpoint as _fp
 
     i = int(idx)
+    t0 = _t.perf_counter()
     _fp.inject("mpp_shard_slow", i)
     sink = _SHARD_OBS.get("sink")
     if sink is not None:
         sink.append(
-            [i, round((_t.perf_counter() - _SHARD_OBS["t0"]) * 1000.0, 3), int(rows), int(xbytes)]
+            [i, round(wall_ms + (_t.perf_counter() - t0) * 1000.0, 3), int(rows), int(xbytes)]
         )
 
 
@@ -1466,10 +1468,13 @@ class MPPGatherExec:
         no_progress = 0
         self._compiles = 0
         while True:
-            # every virtual shard lives on the store's device; the mesh is
-            # FORCE_NDEV shards wide (ndev-parity tests, chip_smoke.py),
-            # else one shard per device
-            devices = GLOBAL_PROBER.alive(_mesh_mod.available_devices(store_device(store)))
+            # one shard per live device the store owns: every visible card
+            # for a store on ``cuda``, ``cuda:N`` alone, or the CPU (with no
+            # card store_device raises: never the CPU). FORCE_NDEV cuts the
+            # list as the reference's does; over one device it is that many
+            # virtual shards (ndev-parity tests, chip_smoke.py)
+            store_device(store)
+            devices = GLOBAL_PROBER.alive(_mesh_mod.available_devices(getattr(store, "device", "cuda")))
             if not devices:
                 raise MPPRetryExhausted("no alive devices for MPP")
             mesh = make_mesh(devices=devices)
@@ -1669,11 +1674,9 @@ class MPPGatherExec:
 
         p = self.plan
         ndev = mesh.devices.size
-        dev = mesh.device
-
-        def up(a):
-            # one padded host lane onto the mesh's device
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        # one padded host lane onto the mesh: each worker's shards on its
+        # device
+        up = mesh.place
         self._stage_bytes = []  # per-device-stage exchanged bytes (psum)
         self._n_stages = 1 + sum(
             1 for r in p.readers if isinstance(r, SubplanReader) and r.staged
@@ -1775,7 +1778,7 @@ class MPPGatherExec:
                         base.table.id,
                         reader.fingerprint(),
                         vers,
-                        ndev,
+                        mesh.placement,
                         _cache.epoch,
                     )
                 elif reader.pushed_agg is not None:
@@ -1793,7 +1796,7 @@ class MPPGatherExec:
                         reader.table.id,
                         tuple(reader.scan_slots),
                         vers,
-                        ndev,
+                        mesh.placement,
                         agg_fp,
                         _cache.epoch,  # dictionary merges/compactions remap codes
                     )
@@ -1802,7 +1805,7 @@ class MPPGatherExec:
                         self.session.store.nonce,
                         base.table.id,
                         vers,
-                        ndev,
+                        mesh.placement,
                         _cache.epoch,
                     )
             if key is not None:
@@ -1913,7 +1916,7 @@ class MPPGatherExec:
             def fn(*cols):
                 pairs = [(cols[2 * i], cols[2 * i + 1]) for i in range(nc)]
                 live = cols[2 * nc]
-                n = live.shape[0]
+                n, dev = live.shape[0], live.device
                 batch = EvalBatch(pairs, [None] * nc, n, warn=warn_sink)
                 m = live
                 for cond in cond_list:
@@ -1944,7 +1947,7 @@ class MPPGatherExec:
                     (acc[lmap[i]], acc[lmap[i] + 1]) if lmap[i] + 1 < nav else None
                     for i in range(ncol)
                 ]
-                n = acc[0].shape[0]
+                n, dev = acc[0].shape[0], acc[0].device
                 batch = EvalBatch(pairs, [None] * len(pairs), n, warn=warn_sink)
                 m = torch.ones(n, dtype=torch.bool, device=dev)
                 for cond in cond_list:
@@ -1976,7 +1979,7 @@ class MPPGatherExec:
                     for i in range(nleft)
                 ]
                 pairs += [(out_r[2 * j], out_r[2 * j + 1]) for j in range(nb)]
-                n = pairs[-1][0].shape[0]
+                n, dev = pairs[-1][0].shape[0], pairs[-1][0].device
                 batch = EvalBatch(pairs, [None] * len(pairs), n, warn=warn_sink)
                 m = torch.ones(n, dtype=torch.bool, device=dev)
                 for cond in cond_list:
@@ -1997,7 +2000,7 @@ class MPPGatherExec:
             pairs = [
                 (joined[lane_of[i]], joined[lane_of[i] + 1]) for i in range(total_cols)
             ]
-            n = pairs[0][0].shape[0]
+            n, dev = pairs[0][0].shape[0], pairs[0][0].device
             batch = EvalBatch(pairs, [None] * len(pairs), n, warn=warn_sink)
             out = []
             if not agg.group_by:
@@ -2066,7 +2069,7 @@ class MPPGatherExec:
                 pairs = [
                     (joined[s_lane_of[i]], joined[s_lane_of[i] + 1]) for i in range(s_total)
                 ]
-                n = pairs[0][0].shape[0]
+                n, dev = pairs[0][0].shape[0], pairs[0][0].device
                 batch = EvalBatch(pairs, [None] * len(pairs), n, warn=warn_sink)
                 out = []
                 for g in s_gb:
@@ -2109,7 +2112,7 @@ class MPPGatherExec:
             having, proj, n_gk = sub.having, sub.proj, len(s_gb)
 
             def fn(mkeys, msums, bcnt):
-                n = bcnt.shape[0]
+                n, dev = bcnt.shape[0], bcnt.device
                 slot_live = bcnt > 0
                 pairs = []
                 vi = 0
@@ -2340,23 +2343,25 @@ class MPPGatherExec:
                 _met.MPP_PROGRAM_CACHE.inc(result="hit")
                 fn, warn_sink = cached
             with self.session.span(f"mpp-pipeline[{ndev}dev]"), _MESH_EXEC_LOCK:
-                import time as _t
-
                 shard_obs: list = []
-                _SHARD_OBS["t0"] = _t.perf_counter()
-                outs = fn(*all_lanes)
-                # ONE device→host copy for every output lane (one buffer,
-                # counted as D2H bytes) — and blocking inside the lock keeps
-                # the program's device work drained before the next one
+                walls: list = []
+                outs = fn(*all_lanes, walls=walls)
+                # ONE device→host copy per worker for every output lane (one
+                # buffer, counted as D2H bytes) — and blocking inside the
+                # lock keeps the program's device work drained before the
+                # next one
                 arrs = to_host(outs, copy=_d2h)
                 if PROBES_ENABLED:
                     # the per-shard probe on the host, after the program,
-                    # from each shard's live rows and exchanged bytes
+                    # from each shard's live rows and exchanged bytes and its
+                    # worker's stream time
                     rows, xbytes = arrs.pop()
                     _SHARD_OBS["sink"] = shard_obs
                     try:
-                        for i in range(ndev):
-                            _shard_probe(i, rows[i], xbytes[i])
+                        for first, k, timer in walls:
+                            wall_ms = timer.ms
+                            for i in range(first, first + k):
+                                _shard_probe(i, rows[i], xbytes[i], wall_ms)
                     finally:
                         _SHARD_OBS["sink"] = None
                 # grow-and-retry attempts overwrite: the SUCCESSFUL run wins

@@ -1,4 +1,4 @@
-"""MPP fragments as one torch program over virtual shards: the distributed
+"""MPP fragments as one torch program per mesh worker: the distributed
 query step.
 
 The canonical two-fragment MPP plan (ref: fragment.go + mpp_exec.go):
@@ -10,17 +10,22 @@ The canonical two-fragment MPP plan (ref: fragment.go + mpp_exec.go):
   root: finalize
 
 The reference runs this as one jitted ``shard_map`` over mesh axis ``dp``.
-Here every fragment tensor carries a leading shard axis ``[ndev, rows]``
-(``mesh.py``), each shard's work is written once over that axis (``sort``,
-``searchsorted``, ``cumsum`` and ``gather`` along the last dimension), and
-the fragment boundaries are the mesh module's ``all_to_all``,
-``all_gather`` and ``psum``. Per-shard counters (dropped rows, overflow,
-exchanged bytes) are ``[ndev]`` vectors until the tail sums them.
+Here the program body runs once per mesh worker (``mesh.py``) over its
+slab: every fragment tensor carries a leading axis of the worker's ``k``
+shards, ``[k, rows]``, each shard's work is written once over that axis
+(``sort``, ``searchsorted``, ``cumsum`` and ``gather`` along the last
+dimension), and the fragment boundaries are the slab's ``all_to_all``,
+``all_gather`` and ``psum``, which span the workers. Two widths are told
+apart throughout: ``sl.ndev``, the mesh's (owner hashes, bucket counts,
+exchange buffers), and ``k``, the slab's (the leading axis). Per-shard
+counters (dropped rows, overflow, exchanged bytes) are ``[k]`` vectors
+until the tail sums them; the outputs are concatenated in shard order or
+summed over the workers.
 
 Expressions (selections, agg inputs, post-join filters, a stage's
 finalize) are the caller's callbacks over one lane per column; they see
-every shard's rows as one flat lane, which is what row-wise expressions
-need, and their results are viewed back as ``[ndev, rows]``.
+the slab's rows as one flat lane, on the worker's device, which is what
+row-wise expressions need, and their results are viewed back as ``[k, rows]``.
 
 Where the reference avoids ``searchsorted`` and scatters because of how a
 TPU lowers them, this module takes torch's direct op (noted at each site):
@@ -35,7 +40,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from tidb_tpu_torch.parallel.mesh import all_gather, all_to_all, psum
+from tidb_tpu_torch.parallel.mesh import Slab
 
 _I64 = torch.int64
 
@@ -106,7 +111,7 @@ def _cumsum(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rows(x: torch.Tensor, n: int) -> torch.Tensor:
-    """Positions 0..n-1 as ``[ndev, n]``, one row per shard of ``x``."""
+    """Positions 0..n-1 as ``[k, n]``, one row per shard of ``x``."""
     return torch.arange(n, device=x.device).expand(x.shape[0], n).contiguous()
 
 
@@ -115,17 +120,17 @@ def _search(sorted_: torch.Tensor, q: torch.Tensor, right: bool = False) -> torc
 
 
 def _flat(fn, *lane_lists):
-    """Call an expression callback over flat lanes (every shard's rows, in
-    shard order) and view its one-mask result back as ``[ndev, rows]``."""
-    ndev = lane_lists[0][0].shape[0]
+    """Call an expression callback over flat lanes (the slab's rows, in
+    shard order) and view its one-mask result back as ``[k, rows]``."""
+    k = lane_lists[0][0].shape[0]
     out = fn(*[[x.reshape(-1) for x in lanes] for lanes in lane_lists])
-    return out.reshape(ndev, -1)
+    return out.reshape(k, -1)
 
 
-def _flat_cols(fn, lanes, ndev: int):
+def _flat_cols(fn, lanes, k: int):
     """Call a lane-list callback (``agg_inputs``) over flat lanes; view
-    each returned lane as ``[ndev, rows]``."""
-    return [o.reshape(ndev, -1) for o in fn([x.reshape(-1) for x in lanes])]
+    each returned lane as ``[k, rows]``."""
+    return [o.reshape(k, -1) for o in fn([x.reshape(-1) for x in lanes])]
 
 
 def _pack_keys(keys, bounds):
@@ -160,15 +165,15 @@ def _seg_sorted(lane: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
     row of the result."""
     from tidb_tpu_torch.ops.window_core import seg_value_sorted
 
-    ndev, n = lane.shape
-    off = (torch.arange(ndev, device=lane.device) * n)[:, None]
-    return seg_value_sorted(lane.reshape(-1), (seg + off).reshape(-1)).view(ndev, n)
+    k, n = lane.shape
+    off = (torch.arange(k, device=lane.device) * n)[:, None]
+    return seg_value_sorted(lane.reshape(-1), (seg + off).reshape(-1)).view(k, n)
 
 
 def _segment_partial(keys, vals, mask, cap, bounds=(), val_kinds=()):
     """Sort-based grouped partial agg on every shard (same algorithm as
     ops/dag_kernel.py — key-exact, no hash collisions). Returns (keys,
-    sums, counts, overflow): ``overflow`` ([ndev]) counts distinct groups
+    sums, counts, overflow): ``overflow`` ([k]) counts distinct groups
     beyond ``cap`` — results are invalid unless it is zero, so callers
     surface it and retry with a bigger cap."""
     n = keys[0].shape[-1]
@@ -233,11 +238,35 @@ def _segment_partial(keys, vals, mask, cap, bounds=(), val_kinds=()):
     return out_keys, out_sums, cnt, overflow  # slot i valid iff cnt[i] > 0
 
 
+class Sharded:
+    """A run's outputs over several workers: ``parts[w]`` is worker ``w``'s
+    list, in shard order; ``kinds[i]`` says how output ``i`` combines:
+    ``"cat"`` (concatenated in shard order along its last axis) or
+    ``"sum"`` (an integer counter, summed over the workers)."""
+
+    def __init__(self, parts: list, kinds: list):
+        self.parts = parts
+        self.kinds = kinds
+
+
 def to_host(outs, copy=None) -> list:
-    """The program's outputs as numpy arrays through ONE copy off the
+    """The program's outputs as numpy arrays through ONE copy off each
     device: every output flattened into one int64 buffer (a float lane's
     bits reinterpreted), copied by ``copy`` (default ``.cpu().numpy()``),
-    split and restored to its shape and dtype."""
+    split and restored to its shape and dtype. A :class:`Sharded` run is
+    copied once per worker and combined by its kinds."""
+    if isinstance(outs, Sharded):
+        per = [to_host(p, copy) for p in outs.parts]
+        res = []
+        for i, kind in enumerate(outs.kinds):
+            if kind == "cat":
+                res.append(np.concatenate([q[i] for q in per], axis=-1))
+            else:
+                acc = per[0][i]
+                for q in per[1:]:
+                    acc = acc + q[i]
+                res.append(acc)
+        return res
     outs = list(outs)
     if not outs:
         return []
@@ -367,9 +396,10 @@ def _exact_pair_lanes(lcomps, rcomps):
     return accl, accr, span
 
 
-def _route_rows(arrays, valid, owner, ndev, cap):
+def _route_rows(arrays, valid, owner, sl, cap):
     """Hash-exchange rows to owner shards (all_to_all with static per-dest
-    capacity). Returns (received arrays, received valid, per-shard locally
+    capacity) over ``sl`` (a :class:`Slab`, or a width for one virtual
+    slab). Returns (received arrays, received valid, per-shard locally
     dropped).
 
     Rows sort by destination, then every send-buffer slot gathers its row
@@ -377,6 +407,8 @@ def _route_rows(arrays, valid, owner, ndev, cap):
     clamped into the shard before the gather and the slot is kept only
     when its row really is the r-th row for d, so rows beyond ``cap`` for
     one destination are counted as dropped and never indexed."""
+    sl = Slab.of(sl)
+    ndev, k = sl.ndev, valid.shape[0]
     if ndev == 1:
         # single-shard mesh: every row is already home — the exchange is the
         # identity and padding to ``cap`` would only add work
@@ -391,13 +423,13 @@ def _route_rows(arrays, valid, owner, ndev, cap):
     rank = torch.arange(n, device=valid.device) - starts.gather(-1, so.clamp(0, ndev))
     dropped = (sv & (rank >= cap)).sum(-1)
     j = torch.arange(ndev * cap, device=valid.device)
-    dest = (j // cap).expand(ndev, -1)
+    dest = (j // cap).expand(k, -1)
     src = starts.gather(-1, dest) + j % cap
     src_c = src.clamp(0, n - 1)
     ok = (src < n) & (so.gather(-1, src_c) == dest) & sv.gather(-1, src_c)
     gidx = order.gather(-1, src_c)  # slot → original row, one composed index
-    out_arrays = [all_to_all(_kept(ok, x.gather(-1, gidx)), ndev) for x in arrays]
-    out_valid = all_to_all(ok, ndev)
+    # every lane and the validity cross the mesh in one exchange
+    *out_arrays, out_valid = sl.all_to_all([_kept(ok, x.gather(-1, gidx)) for x in arrays] + [ok])
     return out_arrays, out_valid, dropped
 
 
@@ -590,15 +622,18 @@ def _key_valid(lanes, valid_lanes, like):
     return ok
 
 
-def _fold_join(join, ndev, acc, mask, rcols, rvalid, pf):
+def _fold_join(join, sl, acc, mask, rcols, rvalid, pf):
     """Fold ONE build side into the accumulated probe layout — the per-join
     body of the fragment pipeline, shared by the outer chain and the join
-    chains INSIDE device stages. Returns (acc, mask, dropped, overflow,
-    xbytes) deltas ([ndev] each) accumulated into the caller's counters."""
+    chains INSIDE device stages, over ``sl`` (a :class:`Slab`, or a width).
+    Returns (acc, mask, dropped, overflow, xbytes) deltas ([k] each)
+    accumulated into the caller's counters."""
+    sl = Slab.of(sl)
+    ndev, k = sl.ndev, mask.shape[0]
     dev = mask.device
-    dropped = torch.zeros(ndev, dtype=_I64, device=dev)
-    overflow = torch.zeros(ndev, dtype=_I64, device=dev)
-    xbytes = torch.zeros(ndev, dtype=_I64, device=dev)
+    dropped = torch.zeros(k, dtype=_I64, device=dev)
+    overflow = torch.zeros(k, dtype=_I64, device=dev)
+    xbytes = torch.zeros(k, dtype=_I64, device=dev)
     kb = tuple(join.key_bounds) if join.key_bounds else None
 
     def join_lane(comps, _kb=kb):
@@ -625,8 +660,8 @@ def _fold_join(join, ndev, acc, mask, rcols, rvalid, pf):
         lcap = join.left_row_cap or join.row_cap
         rcap = join.right_row_cap or join.row_cap
         xbytes = xbytes + mask.sum(-1) * (8 * len(acc)) + rvalid.sum(-1) * (8 * len(rcols))
-        acc, mask, d1 = _route_rows(acc, mask, lowner, ndev, lcap)
-        rcols, rvalid, d2 = _route_rows(rcols, rvalid, rowner, ndev, rcap)
+        acc, mask, d1 = _route_rows(acc, mask, lowner, sl, lcap)
+        rcols, rvalid, d2 = _route_rows(rcols, rvalid, rowner, sl, rcap)
         dropped = dropped + d1 + d2
         lkeys = [acc[i] for i in join.left_keys]
         rkeys = [rcols[i] for i in join.right_keys]
@@ -635,8 +670,7 @@ def _fold_join(join, ndev, acc, mask, rcols, rvalid, pf):
         rkey, _ = join_lane(rkeys)
     else:  # broadcast: replicate the build side on every shard
         xbytes = xbytes + rvalid.sum(-1) * (8 * len(rcols) * max(ndev - 1, 0))
-        rcols = [all_gather(c) for c in rcols]
-        rvalid = all_gather(rvalid)
+        *rcols, rvalid = sl.all_gather(rcols + [rvalid])
         rkeys = [rcols[i] for i in join.right_keys]
         rkey, _ = join_lane(rkeys)
     rlive = rvalid  # post-selection build rows (right joins preserve
@@ -687,15 +721,16 @@ def _fold_join(join, ndev, acc, mask, rcols, rvalid, pf):
             rkey, rkeys, rvalid, lkey, lkeys, probe_live, dead_b, dead_p
         )
         if join.exchange == "broadcast":
-            cnt_b = psum(cnt_b)
-            emit = (torch.arange(ndev, device=dev) == 0)[:, None]
+            cnt_b = sl.psum(cnt_b)
+            # shard 0 of the mesh (the first shard of the first worker)
+            emit = (torch.arange(sl.first, sl.first + k, device=dev) == 0)[:, None]
             unmatched = rlive & (cnt_b == 0) & emit
         else:
             unmatched = rlive & (cnt_b == 0)
         n_probe_lanes = len(acc)
         rn = rlive.shape[-1]
         acc = [
-            torch.cat([a, torch.zeros((ndev, rn), dtype=a.dtype, device=dev)], dim=-1)
+            torch.cat([a, torch.zeros((k, rn), dtype=a.dtype, device=dev)], dim=-1)
             for a in macc[:n_probe_lanes]
         ] + [
             torch.cat([a.to(dt), rc.to(dt)], dim=-1)
@@ -744,17 +779,20 @@ def _fold_join(join, ndev, acc, mask, rcols, rvalid, pf):
     return acc, mask, dropped, overflow, xbytes
 
 
-def _exchange_group_slots(ndev, cap, pkeys, psums, pcnt, route_keys=None):
+def _exchange_group_slots(sl, cap, pkeys, psums, pcnt, route_keys=None):
     """Hash-exchange per-shard group SLOTS to their key owners — the
     fragment-boundary ``all_to_all`` between a partial agg and its merge
-    (shared by the final agg tail and inter-stage repartitions). Routes by
-    ``route_keys`` (default: every key lane); returns (rxkeys, rxsums,
-    rxcnt, slot_overflow).
+    (shared by the final agg tail and inter-stage repartitions), over
+    ``sl`` (a :class:`Slab`, or a width). Routes by ``route_keys``
+    (default: every key lane); returns (rxkeys, rxsums, rxcnt,
+    slot_overflow).
 
     Each slot lands at ``owner * cap + rank`` of its shard's send buffer by
     one scatter (the reference's ``.at[].set``); a slot whose rank reaches
     ``cap`` is counted as overflow and written to one spare cell past the
     buffer, which is dropped, so no index leaves the buffer."""
+    sl = Slab.of(sl)
+    ndev, k = sl.ndev, pcnt.shape[0]
     h = _combine_keys(route_keys if route_keys is not None else pkeys)
     owner = torch.where(pcnt > 0, h.abs() % ndev, ndev - 1)
     order = _argsort(owner)
@@ -766,16 +804,16 @@ def _exchange_group_slots(ndev, cap, pkeys, psums, pcnt, route_keys=None):
     idx = torch.where(fits, so * cap + rank, ndev * cap)
 
     def bucketize(x):
-        buf = torch.zeros((ndev, ndev * cap + 1), dtype=x.dtype, device=x.device)
+        buf = torch.zeros((k, ndev * cap + 1), dtype=x.dtype, device=x.device)
         return buf.scatter_(-1, idx, x.gather(-1, order))[:, : ndev * cap]
 
-    rxkeys = [all_to_all(bucketize(k), ndev) for k in pkeys]
-    rxsums = [all_to_all(bucketize(s), ndev) for s in psums]
-    rxcnt = all_to_all(bucketize(pcnt), ndev)
-    return rxkeys, rxsums, rxcnt, of_slots
+    # keys, sums and counts cross the mesh in one exchange
+    rx = sl.all_to_all([bucketize(x) for x in [*pkeys, *psums, pcnt]])
+    nk, ns = len(pkeys), len(psums)
+    return rx[:nk], rx[nk : nk + ns], rx[-1], of_slots
 
 
-def _run_stage(stage: StageRuntime, block, ndev):
+def _run_stage(stage: StageRuntime, block, sl):
     """Execute one DEVICE stage over its readers' input lane block: fold the
     stage's join chain, run the two-phase grouped agg (partial →
     group-owner all_to_all → merge), finalize to build lanes. The returned
@@ -783,6 +821,7 @@ def _run_stage(stage: StageRuntime, block, ndev):
     join's exchange re-partitions them on the new key without any host
     round-trip. Returns (out_lanes, out_valid, dropped, overflow, xbytes)."""
     spec = stage.spec
+    k = block[0].shape[0]
 
     def _chain(pos, acc, mask):
         for fpos, fn in stage.chain_filters:
@@ -797,9 +836,9 @@ def _run_stage(stage: StageRuntime, block, ndev):
     if stage.selections[0] is not None:
         mask = _flat(lambda cols: stage.selections[0](*cols), acc)
     mask = _chain(0, acc, mask)
-    dropped = torch.zeros(ndev, dtype=_I64, device=dev)
-    overflow = torch.zeros(ndev, dtype=_I64, device=dev)
-    xbytes = torch.zeros(ndev, dtype=_I64, device=dev)
+    dropped = torch.zeros(k, dtype=_I64, device=dev)
+    overflow = torch.zeros(k, dtype=_I64, device=dev)
+    xbytes = torch.zeros(k, dtype=_I64, device=dev)
     for ji, join in enumerate(spec.joins):
         rcols = list(block[soffs[ji + 1] : soffs[ji + 2]])
         rvalid = torch.ones(rcols[0].shape, dtype=torch.bool, device=dev)
@@ -807,10 +846,10 @@ def _run_stage(stage: StageRuntime, block, ndev):
         if sel is not None:
             rvalid = _flat(lambda cols, _s=sel: _s(*cols), rcols)
         pf = stage.pair_filters[ji] if stage.pair_filters is not None else None
-        acc, mask, d, of, xb = _fold_join(join, ndev, acc, mask, rcols, rvalid, pf)
+        acc, mask, d, of, xb = _fold_join(join, sl, acc, mask, rcols, rvalid, pf)
         dropped, overflow, xbytes = dropped + d, overflow + of, xbytes + xb
         mask = _chain(ji + 1, acc, mask)
-    acols = _flat_cols(stage.agg_inputs, acc, ndev)
+    acols = _flat_cols(stage.agg_inputs, acc, k)
     keys = list(acols[: spec.n_keys])
     vals = [acols[i] for i in spec.sums]
     pkeys, psums, pcnt, of1 = _segment_partial(
@@ -820,7 +859,7 @@ def _run_stage(stage: StageRuntime, block, ndev):
     # 8 B per lane per slot (keys + sums + count)
     xbytes = xbytes + (pcnt > 0).sum(-1) * (8 * (len(pkeys) + len(psums) + 1))
     rxkeys, rxsums, rxcnt, of_slots = _exchange_group_slots(
-        ndev, spec.group_cap, pkeys, psums, pcnt
+        sl, spec.group_cap, pkeys, psums, pcnt
     )
     mkeys, msums_cnt, _, of3 = _segment_partial(
         rxkeys,
@@ -832,8 +871,8 @@ def _run_stage(stage: StageRuntime, block, ndev):
     )
     flat = lambda lanes: [x.reshape(-1) for x in lanes]  # noqa: E731
     lanes, live = stage.finalize(flat(mkeys), flat(msums_cnt[:-1]), msums_cnt[-1].reshape(-1))
-    out_lanes = [x.reshape(ndev, -1) for x in lanes]
-    out_valid = live.reshape(ndev, -1)
+    out_lanes = [x.reshape(k, -1) for x in lanes]
+    out_valid = live.reshape(k, -1)
     # trailing live lane keeps the block layout identical to a plain
     # reader's (2*ncols data/valid pairs + live), so the accumulated lane
     # offsets downstream stay uniform
@@ -871,21 +910,25 @@ def build_dist_pipeline(
     chain_filters: Sequence[tuple] = (),
     stages: "Sequence[StageRuntime | None] | None" = None,
 ):
-    """The generalized MPP pipeline as ONE program over the mesh's virtual
-    shards (ref: §3.3 — fragments: scan→sel→[exchange→join]*→(partial
-    agg→hash exchange→merge | topN/limit)→gather; fragment boundaries are
-    the mesh module's collectives).
+    """The generalized MPP pipeline as ONE program over the mesh, its body
+    run once per worker over the worker's slab (ref: §3.3 — fragments:
+    scan→sel→[exchange→join]*→(partial agg→hash exchange→merge |
+    topN/limit)→gather; fragment boundaries are the slab's collectives).
 
     Inputs: reader 0's ``n_lanes[0]`` sharded lanes, then reader 1's, ...
-    (each of global length ndev * rows_per_shard, shard k holding rows
-    [k * rows, (k + 1) * rows)). A left-deep join chain folds each build
-    reader into the accumulated probe lane layout (probe lanes + gathered
-    build lanes per join). The tail is either the two-phase agg (``agg`` +
-    ``agg_inputs``) or a per-shard TopN/limit head (``topn``).
+    (each of global length ndev * rows_per_shard, shard s holding rows
+    [s * rows, (s + 1) * rows)), each a whole tensor or as
+    ``mesh.place`` put it, one part per worker. A left-deep join chain
+    folds each build reader into the accumulated probe lane layout (probe
+    lanes + gathered build lanes per join). The tail is either the
+    two-phase agg (``agg`` + ``agg_inputs``) or a per-shard TopN/limit
+    head (``topn``).
 
     Agg returns (keys..., sums..., count, total, dropped, overflow); TopN
-    returns (out lanes..., live, count, total, dropped, overflow) — lanes
-    gathered over every shard, counters summed.
+    returns (out lanes..., live, count, dropped, overflow) — lanes
+    gathered over every shard, counters summed. On a one-worker mesh that
+    is a tuple of tensors; over several workers a :class:`Sharded`, which
+    :func:`to_host` copies once per worker and combines.
 
     ``stages``: per-reader StageRuntime or None — reader k with a stage runs
     its input block through :func:`_run_stage` and the STAGE OUTPUT slots
@@ -896,8 +939,8 @@ def build_dist_pipeline(
     the start of every run; the program emits its counts' sum.
     ``shard_stats``: emit last a ``[2, ndev]`` tensor of each shard's live
     rows after the tail's shard-local reduction and its exchanged-byte
-    estimate, for the caller's per-shard probe."""
-    ndev = mesh.devices.size
+    estimate, for the caller's per-shard probe. ``run(*lanes, walls=[])``
+    fills ``walls`` with each worker's (first shard, k, timer)."""
     cap = agg.group_cap if agg is not None else 0
     n_readers = len(n_lanes)
     offs = [sum(n_lanes[:i]) for i in range(n_readers + 1)]
@@ -912,17 +955,20 @@ def build_dist_pipeline(
                 mask = mask & _flat(fn, acc)
         return mask
 
-    def step(*cols):
+    def step(sl, *cols):
+        """One worker's program over its ``[k, rows]`` lanes → ([(output,
+        "cat" | "sum")], its ``[2, k]`` shard stats)."""
         acc = list(cols[offs[0] : offs[1]])
+        k = acc[0].shape[0]
         dev = acc[0].device
         mask = torch.ones(acc[0].shape, dtype=torch.bool, device=dev)
         if selections[0] is not None:
             mask = _flat(lambda c: selections[0](*c), acc)
         mask = _apply_chain(0, acc, mask)
-        dropped = torch.zeros(ndev, dtype=_I64, device=dev)
-        overflow = torch.zeros(ndev, dtype=_I64, device=dev)
+        dropped = torch.zeros(k, dtype=_I64, device=dev)
+        overflow = torch.zeros(k, dtype=_I64, device=dev)
         # per-shard exchanged-byte estimate (8 B per lane per routed row)
-        xbytes = torch.zeros(ndev, dtype=_I64, device=dev)
+        xbytes = torch.zeros(k, dtype=_I64, device=dev)
         # per-stage exchanged bytes (reader order), an output when any
         # stage exists — the dryrun/EXPLAIN per-stage breakdown
         stage_xb: list = []
@@ -930,7 +976,7 @@ def build_dist_pipeline(
             block = list(cols[offs[ji + 1] : offs[ji + 2]])
             stage = stages[ji + 1] if stages is not None else None
             if stage is not None:
-                rcols, rvalid, d_s, of_s, xb_s = _run_stage(stage, block, ndev)
+                rcols, rvalid, d_s, of_s, xb_s = _run_stage(stage, block, sl)
                 dropped = dropped + d_s
                 overflow = overflow + of_s
                 xbytes = xbytes + xb_s
@@ -942,30 +988,19 @@ def build_dist_pipeline(
                 if sel is not None:
                     rvalid = _flat(lambda c, _s=sel: _s(*c), rcols)
             pf = pair_filters[ji] if pair_filters is not None else None
-            acc, mask, d, of, xb = _fold_join(join, ndev, acc, mask, rcols, rvalid, pf)
+            acc, mask, d, of, xb = _fold_join(join, sl, acc, mask, rcols, rvalid, pf)
             dropped, overflow, xbytes = dropped + d, overflow + of, xbytes + xb
             mask = _apply_chain(ji + 1, acc, mask)
         outs, local_rows = (
-            _agg_tail(acc, mask, dropped, overflow)
+            _agg_tail(sl, acc, mask, dropped, overflow)
             if agg is not None
             else _topn_tail(acc, mask, dropped, overflow)
         )
         if stage_xb:
             # per-stage exchange bytes, summed across shards (staged-reader
             # order)
-            outs = (*outs, torch.stack(stage_xb).sum(-1))
-        if warn_sink is not None:
-            # device warnings born inside the fragment (division by 0 in a
-            # selection/agg argument) ride ONE count output, converted back
-            # to session warnings by the gather (the per-SelectResponse
-            # warning carriage); the callbacks saw every shard's rows
-            wtotal = torch.zeros((), dtype=_I64, device=dev)
-            for _code, _msg, c in warn_sink.items:
-                wtotal = wtotal + torch.as_tensor(c, dtype=_I64).to(dev)
-            outs = (*outs, wtotal)
-        if shard_stats:
-            outs = (*outs, torch.stack([local_rows.to(_I64), xbytes]))
-        return outs
+            outs.append((torch.stack(stage_xb).sum(-1), "sum"))
+        return outs, torch.stack([local_rows.to(_I64), xbytes])
 
     def _topn_tail(joined, mask, dropped, overflow):
         n = mask.shape[-1]
@@ -990,14 +1025,16 @@ def build_dist_pipeline(
             overflow = overflow + (cnt - out_n).clamp(min=0)
         outs = []
         for di, vi in topn.out_lanes:
-            outs.append(joined[di].gather(-1, head).reshape(-1))
+            outs.append((joined[di].gather(-1, head).reshape(-1), "cat"))
             v = joined[vi].gather(-1, head) if vi is not None else torch.ones(head.shape, dtype=_I64, device=head.device)
-            outs.append(v.reshape(-1))
+            outs.append((v.reshape(-1), "cat"))
         glive = mask.gather(-1, head).reshape(-1)
-        return (*outs, glive, cnt.sum(), dropped.sum(), overflow.sum()), cnt
+        outs += [(glive, "cat"), (cnt.sum(), "sum"), (dropped.sum(), "sum"), (overflow.sum(), "sum")]
+        return outs, cnt
 
-    def _agg_tail(joined, mask, dropped, overflow):
-        acols = _flat_cols(agg_inputs, joined, ndev) if agg_inputs is not None else joined
+    def _agg_tail(sl, joined, mask, dropped, overflow):
+        k = mask.shape[0]
+        acols = _flat_cols(agg_inputs, joined, k) if agg_inputs is not None else joined
         G, D = agg.n_keys, agg.n_dkeys
         # distinct lanes join the stage-1 segment keys: grouping by (g, x)
         # IS the dedup (ref: TiFlash two-phase distinct aggregation)
@@ -1007,7 +1044,7 @@ def build_dist_pipeline(
         # route by GROUP keys only: every (g, *) slot lands on g's owner
         # shard, where x dedups globally
         rxkeys, rxsums, rxcnt, of_slots = _exchange_group_slots(
-            ndev, cap, pkeys, psums, pcnt, route_keys=pkeys[:G]
+            sl, cap, pkeys, psums, pcnt, route_keys=pkeys[:G]
         )
         mkeys, msums_cnt, _, of3 = _segment_partial(
             rxkeys, rxsums + [rxcnt], rxcnt > 0, cap, agg.key_bounds, tuple(agg.val_kinds) + ("sum",)
@@ -1038,20 +1075,41 @@ def build_dist_pipeline(
             out_keys, gcnt_local = fkeys, fsums[-1]
         else:
             out_keys, out_sums, gcnt_local = mkeys, list(msums_cnt[:-1]), msums_cnt[-1]
-        gkeys = [k.reshape(-1) for k in out_keys]
-        gsums = [s.reshape(-1) for s in out_sums]
-        gcnt = gcnt_local.reshape(-1)
+        lanes = [x.reshape(-1) for x in [*out_keys, *out_sums, gcnt_local]]
         total = mask.sum()
         goverflow = (overflow + of1 + of_slots + of3).sum()
         # shard-local live groups after the merge stage — the shard probe's
         # "rows produced"
         local_rows = (gcnt_local > 0).sum(-1)
-        return (*gkeys, *gsums, gcnt, total, dropped.sum(), goverflow), local_rows
+        outs = [(x, "cat") for x in lanes] + [(total, "sum"), (dropped.sum(), "sum"), (goverflow, "sum")]
+        return outs, local_rows
 
-    def run(*cols):
+    def run(*cols, walls=None):
         if warn_sink is not None:
             warn_sink.items.clear()  # this run's counts only
-        return step(*[c.reshape(ndev, -1) for c in cols])
+        per = mesh.run(step, cols, walls)
+        kinds = [kind for _x, kind in per[0][0]]
+        parts = [[x for x, _kind in outs] for outs, _stats in per]
+        if warn_sink is not None:
+            # device warnings born inside the fragment (division by 0 in a
+            # selection/agg argument) ride ONE count output, converted back
+            # to session warnings by the gather (the per-SelectResponse
+            # warning carriage); every worker's callbacks report into the
+            # one sink, so the count is taken once, after the workers, and
+            # rides the first worker's outputs
+            wtotal = torch.zeros((), dtype=_I64, device=mesh.device)
+            for _code, _msg, c in warn_sink.items:
+                wtotal = wtotal + torch.as_tensor(c, dtype=_I64).to(mesh.device)
+            for w, p in enumerate(parts):
+                p.append(wtotal if w == 0 else torch.zeros((), dtype=_I64, device=p[0].device))
+            kinds.append("sum")
+        if shard_stats:
+            for p, (_outs, stats) in zip(parts, per):
+                p.append(stats)
+            kinds.append("cat")
+        if len(parts) == 1:
+            return tuple(parts[0])
+        return Sharded(parts, kinds)
 
     return run
 

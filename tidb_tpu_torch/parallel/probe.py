@@ -74,10 +74,12 @@ def probe_and_blacklist(devices, prober: DeviceProber = GLOBAL_PROBER) -> int:
 
     n = 0
     for d in devices:
+        # a mesh entry is a handle around its physical device
+        dev = getattr(d, "device", d)
         try:
-            (torch.zeros(8, dtype=torch.int32, device=d) + 1).cpu()
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+            (torch.zeros(8, dtype=torch.int32, device=dev) + 1).cpu()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
             prober.report_ok(d)
         except Exception:
             prober.report_failure(d)
