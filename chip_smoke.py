@@ -172,19 +172,40 @@
    worker its shards' rows, its stream's event-timed wall, the bytes it
    handed to the other workers in one run, and each card's peak memory.
    K1 must not launch. ``chip_smoke.py --mpp-only`` runs phases 9 and 15
-   alone (SF1 generated, no kernel built).
+   alone (SF1 generated, no kernel built), then benchdaily's three scaling
+   lanes in this process (``_scaling_lanes``): on several cards one shard
+   per card up to the card count under the per-chip gate, on one card
+   virtual shards under the total gate; it prints each curve and exits
+   non-zero if a gate breached.
 16. Prints the ``{"kernels": [...]}`` line (``launches``: the SQL path's
    count over its single drive; ``launches_dag_path``,
    ``launches_delta_path``, ``launches_builtins_path``,
    ``launches_mpp_path``, ``launches_mpp_devices_path``,
    ``launches_remote_path``, ``launches_partition_path``,
    ``launches_fuzz_campaign``, ``launches_import_path``,
-   ``launches_lockcheck_path`` and ``launches_bench_path`` the DAG, HTAP,
-   builtins, MPP, multi-worker MPP, remote, partition, fuzz, import,
-   lockcheck and bench phases', the remote one counted in the store
-   process, the fuzz one in the campaign's, the lockcheck one in its
-   child and the bench one in benchdaily's processes and benchdb's run),
-   then, last, the ``{"ok": true, "device": {...}}`` line.
+   ``launches_lockcheck_path``, ``launches_bench_path`` and
+   ``launches_probe_path`` the DAG, HTAP, builtins, MPP, multi-worker MPP,
+   remote, partition, fuzz, import, lockcheck, bench and probe phases', the
+   remote one counted in the store process, the fuzz one in the campaign's,
+   the lockcheck one in its child and the bench one in benchdaily's
+   processes and benchdb's run), then, last, the ``{"ok": true, "device":
+   {...}}`` line.
+17. The engine's chip probe and cold builds (``_probe_phase``; it runs
+   right after phase 5, on its database, before phase 6 writes to it).
+   For COUNT(*), Q6, Q1, Q10 and band one cop task is captured through
+   the SQL layer as bench.py's ``chip_time`` does, and
+   ``gpu_engine.device_probe_fn`` built over it: the last of 32
+   ``run_once`` calls (then one sync) must decode to the task's chunk bit
+   for bit, K1 must launch once per ``run_once`` in band and never in the
+   others; a descending scan, nine ranges, a window, a LIMIT-last task
+   over several blocks and an agg-cap overflow must be refused with
+   ValueError. Then each statement with a predicate no row fails (a
+   program new to the process) runs under EXPLAIN ANALYZE, which must
+   show ``compile:``, its cop tasks charging ``compile_ms`` > 0 and
+   ``COP_COMPILE_SECONDS`` growing by the programs built, and again warm,
+   charging nothing, with the oracle's rows. Prints per statement the
+   amortized ms, the host syncs per ``run_once``, the cold ``compile_ms``
+   and, for band, whether K1's build fell inside it.
 
 Any failed check raises, so the script exits non-zero and prints no result
 line. It imports torch and the port only.
@@ -1429,6 +1450,13 @@ def main() -> int:
     sql_warm = dict(warm)
     print(f"SQL phase: {time.perf_counter() - t0:.1f} s; K1 launches on the SQL path {sql_launches}")
 
+    # 17. the engine's chip probe and cold builds, on phase 5's database before its writes
+    t0 = time.perf_counter()
+    gs.LAUNCHES = 0  # the probe path: counts from 0 just before it
+    _probe_phase(db, cols, gs)
+    probe_launches = gs.LAUNCHES
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s; K1 launches on the probe path {probe_launches}")
+
     # 6. HTAP: reads after writes on the same database, the delta pending
     t0 = time.perf_counter()
     delta_launches, err, after = _htap_phase(db, cols, gs, warm, args.seed)
@@ -1538,6 +1566,7 @@ def main() -> int:
         "launches_import_path": import_launches,
         "launches_lockcheck_path": lock["k1_launches"],
         "launches_bench_path": bench["k1_launches"],
+        "launches_probe_path": probe_launches,
         "max_abs_err": max_err,
         **k1,
         "partition_input": k1_partition,
@@ -1625,6 +1654,188 @@ def _sql_phase(cols: dict, gs, reps: int = 10, device: str = "cuda"):
               f"concurrently); tax_vs_longest_task_ms median {statistics.median(tax_crit):.3f}; "
               f"{_busy(lambda: run(name), statistics.median(walls))}; rows {len(want[name])}")
     return launches, db, warm
+
+
+PROBE_QUERIES = ("count", "q6", "q1", "q10", "band")
+PROBE_K = 32  # run_once dispatches per timing, then one sync (bench.py's chip_time)
+PROBE_LIMIT = "SELECT l_extendedprice, l_shipmode FROM lineitem WHERE l_discount >= 0.01 LIMIT 5"
+PROBE_LIMIT_BLOCK = 1 << 20  # the rejection's block size: an SF1 region of two is 3 blocks
+# the probe statements with a predicate no lineitem row fails, over a column
+# none of them reads: the oracle's rows, a DAG shape new to the process
+COLD_QUERIES = {
+    "count": "SELECT COUNT(*) FROM lineitem WHERE l_linenumber > 0",
+    "q6": SQL_QUERIES["q6"] + " AND l_linenumber > 0",
+    "q1": SQL_QUERIES["q1"].replace("GROUP BY", "AND l_linenumber > 0 GROUP BY", 1),
+    "q10": SQL_QUERIES["q10"].replace("ORDER BY", "AND l_linenumber > 0 ORDER BY", 1),
+    "band": SQL_QUERIES["band"].replace("GROUP BY", "WHERE l_linenumber > 0 GROUP BY", 1),
+}
+
+
+def _capture_task(db, sql: str):
+    """Run ``sql`` once through the SQL layer and capture its first
+    region's cop task as ``gpu_engine._execute_dag_device`` received it
+    (bench.py's ``chip_time``). → ((dag, region, ranges, read_ts), the
+    task's chunk, its ``execute_region`` stats)."""
+    from tidb_tpu_torch.copr import gpu_engine
+
+    got, stats = [], {}
+    real_dev, real_region = gpu_engine._execute_dag_device, gpu_engine.execute_region
+
+    def cap(store, dag, region, ranges, read_ts, warn=None):
+        chunk = real_dev(store, dag, region, ranges, read_ts, warn)
+        got.append(((dag, region, ranges, read_ts), chunk))
+        return chunk
+
+    def with_stats(view, *a, **kw):
+        kw["stats"] = stats[view.region_id] = {}
+        return real_region(view, *a, **kw)
+
+    gpu_engine._execute_dag_device, gpu_engine.execute_region = cap, with_stats
+    try:
+        db.session().query(sql)
+    finally:
+        gpu_engine._execute_dag_device, gpu_engine.execute_region = real_dev, real_region
+    args, chunk = min(got, key=lambda t: t[0][1].region_id)
+    return args, chunk, stats[args[1].region_id]
+
+
+def _host_syncs(fn) -> int:
+    """The host↔device synchronizations one call of ``fn`` makes, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in seen)
+
+
+def _refused(what: str, fn) -> str:
+    try:
+        fn()
+    except ValueError as e:
+        return f"{what}: {e}"
+    raise AssertionError(f"probe: {what} was not refused")
+
+
+def _probe_rejections(db) -> list:
+    """The five task shapes the reference's probe refuses, each of which
+    must raise ValueError here. → one line per shape."""
+    from tidb_tpu_torch.copr import gpu_engine
+    from tidb_tpu_torch.ops.dag_kernel import MAX_RANGES
+
+    probe = gpu_engine.device_probe_fn
+    (dag, region, ranges, ts), _c, _s = _capture_task(db, SQL_QUERIES["q10"])
+    pb = dag.to_pb()
+    desc = type(dag).from_pb({**pb, "executors": [{**pb["executors"][0], "desc": True}] + pb["executors"][1:]})
+    window = type(dag).from_pb({"output_offsets": [], "executors": pb["executors"][:1] + [{
+        "tp": "window", "partition_by": [], "order_by": [],
+        "win_funcs": [{"name": "row_number", "args": [], "ft": [8, 20, 0, 1, "binary", 0]}]}]})
+    out = [
+        _refused("a descending scan", lambda: probe(db.store, desc, region, ranges, ts)),
+        _refused(f"{MAX_RANGES + 1} ranges", lambda: probe(db.store, dag, region, list(ranges) * (MAX_RANGES + 1), ts)),
+        _refused("a window", lambda: probe(db.store, window, region, ranges, ts)),
+    ]
+    (ldag, lregion, lranges, lts), _c, _s = _capture_task(db, PROBE_LIMIT)
+    block = gpu_engine._BLOCK
+    gpu_engine._BLOCK = PROBE_LIMIT_BLOCK
+    try:
+        out.append(_refused(f"LIMIT-last over {PROBE_LIMIT_BLOCK:,}-row blocks",
+                            lambda: probe(db.store, ldag, lregion, lranges, lts)))
+    finally:
+        gpu_engine._BLOCK = block
+    (odag, oregion, oranges, ots), _c, ostats = _capture_task(db, SQL_QUERIES["q15rev"])
+    if not ostats["regrows"]:
+        raise AssertionError(f"probe: q15rev's task did not overflow the default agg cap: {ostats}")
+    out.append(_refused(f"an agg-cap overflow (q15rev; production regrew {ostats['regrows']} times)",
+                        lambda: probe(db.store, odag, oregion, oranges, ots)))
+    return out
+
+
+def _probe_phase(db, cols: dict, gs, device: str = "cuda", k: int = PROBE_K) -> None:
+    """Phase 17, the engine's chip probe and cold builds, on phase 5's
+    database (two regions, before any write).
+
+    Probe: for each of ``PROBE_QUERIES`` one cop task is captured through
+    the SQL layer (bench.py's ``chip_time``) and its
+    ``gpu_engine.device_probe_fn`` built; the decoded outputs of the last
+    of ``k`` ``run_once`` calls (dispatched back to back, then one sync)
+    must equal the task's chunk bit for bit, and K1 must launch exactly once
+    per ``run_once`` during band and never during the others. Prints per
+    statement the engine path, programs per run, the amortized ms and the
+    host syncs one ``run_once`` makes. The five refused shapes
+    (``_probe_rejections``) must raise ValueError.
+
+    Cold builds: each of ``COLD_QUERIES`` (a DAG shape new to the process)
+    runs under EXPLAIN ANALYZE, which must show ``compile:``, with the cop
+    tasks' ``compile_ms`` > 0 and ``COP_COMPILE_SECONDS`` grown by the
+    programs built (the two concurrent tasks share one program: one
+    claimant); then plainly, warm: the oracle's rows, ``compile_ms`` 0 and
+    the histogram flat. Prints each cold ``compile_ms`` and, for band,
+    whether K1's build and load fell inside it."""
+    import torch
+
+    from tidb_tpu_torch.copr import gpu_engine
+    from tidb_tpu_torch.native import cuda as native
+    from tidb_tpu_torch.ops import dag_kernel
+    from tidb_tpu_torch.utils import metrics
+
+    for name in PROBE_QUERIES:
+        (dag, region, ranges, ts), chunk, stats = _capture_task(db, SQL_QUERIES[name])
+        run_once, sync = gpu_engine.device_probe_fn(db.store, dag, region, ranges, ts)
+        sync(run_once())  # warm
+        syncs = _host_syncs(run_once) if device != "cpu" else None
+        if device != "cpu":
+            torch.cuda.synchronize()
+        before = gs.LAUNCHES
+        t0 = time.perf_counter()
+        outs = [run_once() for _ in range(k)]
+        sync(outs[-1])
+        ms = (time.perf_counter() - t0) * 1e3 / k
+        per_run = (gs.LAUNCHES - before) / k
+        if not _same_chunk(run_once.chunk(outs[-1]), chunk):
+            raise AssertionError(f"probe {name}: the last run_once's outputs disagree with the task's chunk")
+        if per_run != (1 if name == "band" else 0):
+            raise AssertionError(f"probe {name}: K1 launched {per_run} times per run_once")
+        print(f"probe {name}: path {stats['path']}; programs per run_once {len(outs[-1])}; amortized_ms {ms:.4f} "
+              f"(K={k}, one sync); host syncs per run_once {'not measured' if syncs is None else syncs}; "
+              f"K1 launches per run_once {per_run:g}; equal to the task's chunk ({len(chunk)} rows)")
+    for line in _probe_rejections(db):
+        print(f"probe refuses {line}")
+
+    s = db.session()
+    every_region = {"gpu": len(db.store.regions())}
+    for name, sql in COLD_QUERIES.items():
+        k1_loaded = ("grouped_sums", ()) in native._LIBS
+        built, n0 = len(dag_kernel._COMPILE_CACHE), metrics.COP_COMPILE_SECONDS.count
+        t0 = time.perf_counter()
+        text = "\n".join(" ".join(str(v) for v in r) for r in s.query("EXPLAIN ANALYZE " + sql))
+        wall = (time.perf_counter() - t0) * 1e3
+        summ = s.exec_summary
+        misses = len(dag_kernel._COMPILE_CACHE) - built
+        grew = metrics.COP_COMPILE_SECONDS.count - n0
+        if not misses or grew != misses or summ is None or not summ.compile_ms > 0 or "compile:" not in text:
+            raise AssertionError(f"cold {name}: {misses} programs built, the histogram grew {grew}, compile_ms "
+                                 f"{summ and summ.compile_ms}, EXPLAIN ANALYZE shows compile: {'compile:' in text}")
+        cold_ms = summ.compile_ms
+        rows = s.query(sql)
+        summ = s.exec_summary
+        if sql_rows(name, rows) != sql_oracle(name, cols):
+            raise AssertionError(f"cold {name}: rows disagree with the numpy oracle")
+        if summ.compile_ms != 0 or metrics.COP_COMPILE_SECONDS.count != n0 + grew or summ.engines != every_region:
+            raise AssertionError(f"cold {name}: the warm rerun charged compile_ms {summ.compile_ms} on {summ.engines}")
+        note = ""
+        if name == "band":
+            note = ("; K1's build and load: " + ("before this phase (not inside it)" if k1_loaded else
+                    "inside it" if ("grouped_sums", ()) in native._LIBS else "not reached"))
+        print(f"cold {name}: programs built {misses}; histogram +{grew}; compile_ms {cold_ms:.3f} "
+              f"(EXPLAIN ANALYZE wall {wall:.3f} ms); warm rerun compile_ms 0, rows equal to the oracle{note}")
 
 
 def _htap_phase(db, cols: dict, gs, before: dict, seed: int, reps: int = 10):
@@ -2623,7 +2834,8 @@ def _mpp_phase(cols: dict, seed: int, gs, reps: int = 5, device: str = "cuda"):
 
 def _mpp_only(seed: int, gs) -> int:
     """``chip_smoke.py --mpp-only``: phase 9 and phase 15 alone, over the
-    same SF1 tables (what a machine with several cards is asked for)."""
+    same SF1 tables, then the scaling lanes (what a machine with several
+    cards is asked for)."""
     t0 = time.perf_counter()
     cols = lineitem_sf1(seed)
     gs.LAUNCHES = 0
@@ -2634,8 +2846,43 @@ def _mpp_only(seed: int, gs) -> int:
         _mpp_devices_phase(db, tables, host, virtual, gs)
     finally:
         db.stop_background()
-    print(f"phase 15: {time.perf_counter() - t0:.1f} s; mpp-only: every check passed")
+    print(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    breached = _scaling_lanes()
+    if breached:
+        print(f"mpp-only: phases 9 and 15 passed; the scaling gate breached in {', '.join(breached)}")
+        return 1
+    print("mpp-only: every check passed")
     return 0
+
+
+SCALING_LANES = ("scaling_q1_rows_per_s_per_chip", "scaling_q3_rows_per_s_per_chip", "scaling_q17_rows_per_s_per_chip")
+
+
+def _scaling_lanes(device: str = "cuda") -> list:
+    """benchdaily's three scaling lanes in this process on ``device``: with
+    several cards one shard per card up to the card count under the
+    per-chip gate (rows/s/chip ≥ 0.5 × one card's), with one card virtual
+    shards under the total gate. Prints each lane's rows/s and rows/s/chip
+    per width and its gate's verdict. → the lanes whose gate breached."""
+    from tidb_tpu_torch.bench import benchdaily
+
+    old, benchdaily.DEVICE = benchdaily.DEVICE, device
+    breached = []
+    try:
+        for name in SCALING_LANES:
+            t0 = time.perf_counter()
+            try:
+                verdict = f"gate held, {benchdaily._BENCHES[name]():,.0f} rows/s/chip at the widest"
+            except RuntimeError as e:
+                verdict = f"gate breached: {e}"
+                breached.append(name)
+            curve = benchdaily.SCALING_CURVES.get(name.replace("_rows_per_s_per_chip", ""), {})
+            per_width = {d: [round(r), round(r / d)] for d, r in curve.get("rows_per_s", {}).items()}
+            print(f"scaling {name}: {curve.get('cards')} cards, {curve.get('gate')} gate; rows/s and rows/s/chip "
+                  f"by width {json.dumps(per_width)}; {verdict} ({time.perf_counter() - t0:.1f} s)")
+    finally:
+        benchdaily.DEVICE = old
+    return breached
 
 
 def _mpp_devices_phase(db, tables: dict, host: dict, virtual: dict, gs, reps: int = 5) -> int:

@@ -916,3 +916,65 @@ def test_mpp_statements_over_workers_on_card_match_the_oracle():
     finally:
         mesh.FORCE_NDEV = mesh.FORCE_DEVICES = None
         db.stop_background()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [None, 65_536], ids=["single", "blocks"])
+def test_probe_on_card_matches_the_task_and_counts_k1(monkeypatch, block):
+    """``gpu_engine.device_probe_fn`` over each probe statement's captured
+    task (200,000 lineitem rows, two regions; one program per region, or
+    two-block regions fused and per block): the last of eight ``run_once``
+    calls decodes to the task's chunk, and K1 launches once per program
+    that runs band and never for the others."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+
+    if block is not None:
+        monkeypatch.setattr(gpu_engine, "_BLOCK", block)
+    cols = chip_smoke.lineitem_sf1(seed=9, n=200_000)
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    chip_smoke.lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+    try:
+        for name in chip_smoke.PROBE_QUERIES:
+            (dag, region, ranges, ts), chunk, stats = chip_smoke._capture_task(db, chip_smoke.SQL_QUERIES[name])
+            run_once, sync = gpu_engine.device_probe_fn(db.store, dag, region, ranges, ts)
+            before = gs.LAUNCHES
+            outs = [run_once() for _ in range(8)]
+            sync(outs[-1])
+            assert chip_smoke._same_chunk(run_once.chunk(outs[-1]), chunk), name
+            k1_programs = len(outs[-1]) if name == "band" else 0
+            assert gs.LAUNCHES - before == 8 * k1_programs, (name, stats)
+    finally:
+        db.stop_background()
+
+
+@pytest.mark.gpu
+def test_cold_program_on_card_charges_its_first_call_once(monkeypatch):
+    """A program new to the process: its first call on the card (ending in
+    a synchronize) charges the cop task's ``compile_ms`` and the histogram
+    once over two concurrent region tasks; the warm rerun charges 0."""
+    _need_card()
+    import tidb_tpu_torch
+    from tidb_tpu_torch.executor.load import bulk_load
+    from tidb_tpu_torch.kv.tablecodec import record_key
+    from tidb_tpu_torch.ops import dag_kernel
+    from tidb_tpu_torch.utils import metrics
+
+    monkeypatch.setattr(dag_kernel, "_COMPILE_CACHE", {})
+    cols = chip_smoke.lineitem_sf1(seed=10, n=200_000)
+    db = tidb_tpu_torch.open(region_split_keys=1 << 62, device="cuda")
+    chip_smoke.lineitem_sql(db, bulk_load, record_key, cols, parts=2)
+    try:
+        s = db.session()
+        for name, sql in chip_smoke.COLD_QUERIES.items():
+            built, n0 = len(dag_kernel._COMPILE_CACHE), metrics.COP_COMPILE_SECONDS.count
+            rows = s.query(sql)
+            assert s.exec_summary.compile_ms > 0 and s.exec_summary.engines == {"gpu": 2}, name
+            assert metrics.COP_COMPILE_SECONDS.count - n0 == len(dag_kernel._COMPILE_CACHE) - built >= 1, name
+            assert chip_smoke.sql_rows(name, rows) == chip_smoke.sql_oracle(name, cols)
+            s.query(sql)
+            assert s.exec_summary.compile_ms == 0, name
+    finally:
+        db.stop_background()

@@ -8,8 +8,9 @@ harness CI feeds from).
 
 Every lane opens its databases and stores on ``--device`` (``DEVICE``;
 default ``cuda``): with no card a lane raises at its first device task and
-never runs on the CPU unasked. The scaling lanes' widths are virtual shards
-of the one device (``parallel/mesh.FORCE_NDEV``).
+never runs on the CPU unasked. The scaling lanes run one shard per card up
+to the card count on a machine with several cards, and virtual shards of
+the one card otherwise (``_scaling_curve``).
 
 Two metric kinds: throughput benches record ``ops_per_sec`` (higher is
 better); benches whose registered name ends in ``_ms`` record ``ms``
@@ -30,6 +31,10 @@ _BENCHES: dict[str, Callable[[], float]] = {}
 # the device every lane's databases and stores run their device work on
 # ("cuda", "cuda:N" or "cpu"); main() sets it from --device
 DEVICE = "cuda"
+
+# the last curve of each scaling lane: {name: {"cards", "gate",
+# "rows_per_s": {width: rows/s}}}, written before the lane's gates
+SCALING_CURVES: dict[str, dict] = {}
 
 
 def _on_device(store):
@@ -943,18 +948,24 @@ def bench_balancer_converge() -> float:
 
 def _scaling_curve(name: str, build, query: str, rows: int, expect_staged: bool = False):
     """Shared harness of the scaling-curve lanes: run ``query`` at every
-    mesh width ndev ∈ {1, 2, 4, 8} — virtual shards of the one device
-    (``mesh.FORCE_NDEV``) — and HARD-GATE the curve. Gates (RuntimeError,
-    never assert — python -O):
+    mesh width ndev ∈ {1, 2, 4, 8} that fits the devices and HARD-GATE the
+    curve. The devices are ``mesh.available_devices(DEVICE)``, each handle
+    one card (every card a ``cuda`` store meshes; logical devices stand in
+    for cards in the tests). Gates (RuntimeError, never assert — python -O):
 
-    - the widths share one device, so per-chip flatness is unmeasurable:
-      TOTAL rows/s at the widest mesh ≥ 0.1 × the 1-shard figure — catches
-      superlinear padding/exchange pathologies one device can see (the
-      per-chip gate needs distinct cards);
+    - several cards: the widths are ``d ≤`` the card count (``FORCE_NDEV``
+      cuts the card list), and rows/s/chip at every width ≥ 0.5 × the
+      1-chip figure;
+    - one card: ``mesh.FORCE_DEVICES`` is pinned to its handle and the
+      widths are virtual shards of it, so per-chip flatness is
+      unmeasurable: TOTAL rows/s at the widest mesh ≥ 0.1 × the 1-shard
+      figure — catches superlinear padding/exchange pathologies one device
+      can see;
     - ``expect_staged``: the query must run the staged pipeline (stage
       count ≥ 2) and move ZERO intermediate bytes through the host
       (tidb_tpu_mpp_intermediate_host_bytes_total must not grow).
 
+    The curve lands in ``SCALING_CURVES[name]`` before the gates judge it.
     Returns rows/s/chip at the widest mesh (the --check trend metric)."""
     import time as _t
 
@@ -962,10 +973,14 @@ def _scaling_curve(name: str, build, query: str, rows: int, expect_staged: bool 
     from tidb_tpu_torch.utils import metrics as _m
 
     db, session_setup = build()
-    ndevs = [1, 2, 4, 8]
+    cards = _mesh.available_devices(DEVICE)
+    per_chip = len(cards) > 1
+    ndevs = [d for d in (1, 2, 4, 8) if d <= len(cards)] if per_chip else [1, 2, 4, 8]
     curve: dict[int, float] = {}
     host_bytes0 = _m.MPP_HOST_INTERMEDIATE.total()
+    old_devices = _mesh.FORCE_DEVICES
     try:
+        _mesh.FORCE_DEVICES = cards
         for nd in ndevs:
             _mesh.FORCE_NDEV = nd
             s = db.session()
@@ -986,6 +1001,8 @@ def _scaling_curve(name: str, build, query: str, rows: int, expect_staged: bool 
                     )
     finally:
         _mesh.FORCE_NDEV = None
+        _mesh.FORCE_DEVICES = old_devices
+    SCALING_CURVES[name] = {"cards": len(cards), "gate": "per-chip" if per_chip else "total", "rows_per_s": curve}
     if expect_staged:
         moved = _m.MPP_HOST_INTERMEDIATE.total() - host_bytes0
         if moved:
@@ -994,11 +1011,20 @@ def _scaling_curve(name: str, build, query: str, rows: int, expect_staged: bool 
                 "through the host (must be zero)"
             )
     widest = ndevs[-1]
-    if curve[widest] < 0.1 * curve[1]:
-        raise RuntimeError(
-            f"{name}: total throughput collapsed going wide: "
-            + ", ".join(f"ndev={d}: {curve[d]:,.0f} rows/s" for d in ndevs)
-        )
+    if len(ndevs) >= 2:
+        if not per_chip:
+            if curve[widest] < 0.1 * curve[1]:
+                raise RuntimeError(
+                    f"{name}: total throughput collapsed going wide: "
+                    + ", ".join(f"ndev={d}: {curve[d]:,.0f} rows/s" for d in ndevs)
+                )
+        else:
+            for d in ndevs[1:]:
+                if curve[d] / d < 0.5 * curve[1]:
+                    raise RuntimeError(
+                        f"{name}: rows/s/chip degraded at ndev={d}: "
+                        f"{curve[d] / d:,.0f} vs {curve[1]:,.0f} at 1 chip"
+                    )
     return curve[widest] / widest
 
 

@@ -240,7 +240,8 @@ SEAMS: dict[str, frozenset] = {
     # graftfuzz's device session is gpu (an unknown engine name plans on the
     # host, so a tpu session would hold host against host); every DB opens
     # on the device the caller names (the card unless cpu); the mesh width
-    # is the case's own over virtual shards; the device sessions' engines,
+    # is the case's own over virtual shards of one card (the mesh's devices
+    # pinned to it, on a machine of any card count); the device sessions' engines,
     # degraded tasks and gathers are tallied; a repro's tpu session replays
     # as gpu
     "tools/fuzz/runner.py": frozenset(
@@ -282,16 +283,18 @@ SEAMS: dict[str, frozenset] = {
     "bench/benchdb.py": frozenset({"<doc>", "main"}),
     # every lane opens its databases and stores on DEVICE (--device; the
     # fuzz lane's runner too); the gpu engine's block and engine name; the
-    # scaling widths are virtual shards of the one device
+    # scaling widths are one shard per card up to the card count under the
+    # per-chip gate on several cards, virtual shards of the one card (pinned)
+    # under the total gate otherwise, the curve kept in SCALING_CURVES
     "bench/benchdaily.py": frozenset(
         {
-            "<doc>", "DEVICE", "_delta_bench_env", "_on_device", "_region_move_measure", "_scaling_curve",
-            "_warm_count_best", "bench_balancer_converge", "bench_bulk_load", "bench_cluster_snapshot",
-            "bench_freshness_lag", "bench_host_agg", "bench_incremental_load", "bench_inspection_sweep",
-            "bench_keyviz_sweep", "bench_mpp_program_reuse", "bench_owner_failover", "bench_point_get",
-            "bench_q17_subquery_mpp", "bench_q3_join_mpp", "bench_qps_point_select", "bench_qps_point_select_cold",
-            "bench_qps_q1_concurrent", "bench_scaling_q1", "bench_scaling_q17", "bench_scaling_q3",
-            "bench_shard_probe_overhead", "main",
+            "<doc>", "DEVICE", "SCALING_CURVES", "_delta_bench_env", "_on_device", "_region_move_measure",
+            "_scaling_curve", "_warm_count_best", "bench_balancer_converge", "bench_bulk_load",
+            "bench_cluster_snapshot", "bench_freshness_lag", "bench_host_agg", "bench_incremental_load",
+            "bench_inspection_sweep", "bench_keyviz_sweep", "bench_mpp_program_reuse", "bench_owner_failover",
+            "bench_point_get", "bench_q17_subquery_mpp", "bench_q3_join_mpp", "bench_qps_point_select",
+            "bench_qps_point_select_cold", "bench_qps_q1_concurrent", "bench_scaling_q1", "bench_scaling_q17",
+            "bench_scaling_q3", "bench_shard_probe_overhead", "main",
         }
     ),
 }

@@ -45,6 +45,10 @@ Block results concatenate without a merge: aggregations run in partial
 mode (the root merges groups across tasks and blocks), TopN and LIMIT tasks
 return per-block candidates the root re-sorts and cuts.
 
+:func:`device_probe_fn` hands out one task's programs and device inputs
+as production routes them, for timing on the card without the host round
+trip (bench.py's chip probe).
+
 Overflow protocol: if the program reports more groups than its static cap,
 rerun with a 4x larger cap. ``execute_region`` has no host fallback: a DAG
 shape the port does not carry raises ``UnsupportedForDevice``, and
@@ -545,14 +549,18 @@ def _to_host(packed):
     return _d2h(packed), None
 
 
+def _meta_rows(packed_list: list) -> np.ndarray:
+    """``[count, ngroups]`` of every program output in one copy off the card."""
+    return _d2h(torch.stack([(p[0] if isinstance(p, tuple) else p)[0, :2] for p in packed_list]))
+
+
 def _probe_slice_rows(packed_list: list, kernel):
     """Large rows-kind buffers (capacity = the padded block) are mostly
     empty after selection: read every program's meta row in one copy, then
     slice each buffer to its bucketed live width so only live rows move.
     → (counts, sliced buffers)."""
     tup = isinstance(packed_list[0], tuple)
-    ibufs = [p[0] if tup else p for p in packed_list]
-    metas = _d2h(torch.stack([b[0, :2] for b in ibufs]))
+    metas = _meta_rows(packed_list)
     sliced = []
     for p, m in zip(packed_list, metas):
         w = min(kernel.out_n, bucket_size(max(2, int(m[0]))))
@@ -828,3 +836,97 @@ def string_slot_for_output(dag: dagpb.DAGRequest, offset: int):
     if src is None:
         return None
     return scan.columns[src].column_id
+
+
+def device_probe_fn(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRange], read_ts: int):
+    """(run_once, sync) over the program and device inputs production
+    dispatch uses for this task, routed as ``execute_region`` routes it:
+    one program over every block (``_should_fuse_agg``), one program per
+    block, or one program over the region held as one array, with the same
+    agg cap, ``full_scan`` proof and device-cache entries. ``run_once()``
+    only enqueues the programs and returns their packed outputs (a list, in
+    block order); ``sync(outs)`` copies one element of the last output off
+    the card. Dispatching ``run_once`` K times and syncing once amortizes
+    the host↔device round trip out of a timing (bench.py's ``chip_time``),
+    as far as the program itself does not sync: a ``.item()`` inside it
+    waits for the card on every run. The program is fetched with
+    ``get_kernel``: a program production already ran is warm, and a cold
+    one is charged once by its first-call build probe, never again here.
+
+    A task production would not run this way is refused with ValueError,
+    never timed: a descending scan or more than ``MAX_RANGES`` ranges (the
+    host engine's), a window (its blocks fuse differently), a LIMIT-last
+    task over several blocks (production pages through the blocks and
+    stops early), and an aggregation whose groups overflow the default
+    cap (production reruns a 4x larger program), read from the meta rows
+    as production reads them (``_meta_rows``).
+
+    As in the reference, the probe reads the region's merged column entry
+    (``ColumnCache.get``), not production's pinned base with a delta
+    operand (``get_split``): with changes pending it times the program
+    over base ⊕ delta folded, the delta program's work is not probed.
+    ``run_once.chunk(outs)`` decodes a run's outputs into the task's
+    ``Chunk`` (blocks concatenated in handle order)."""
+    scan = dag.executors[0]
+    if scan.desc or len(ranges) > MAX_RANGES:
+        raise ValueError("probe unsupported: task would take the host fallback")
+    if _has_window(dag):
+        raise ValueError("probe unsupported: windowed tasks fuse blocks differently")
+    dev = store_device(store)
+    schema = RowSchema(scan.storage_schema)
+    slots = [c.column_id for c in scan.columns if not c.is_handle]
+    cache = cache_for(store)
+    entry = cache.get(region, scan.table_id, schema, slots, read_ts)
+    view = RegionView(region.region_id, scan.table_id, entry, cache, cacheable=entry.complete)
+    bound = Binder(cache, scan.table_id, scan.columns, entry).bind_dag(dag)
+    rarr = np.zeros((MAX_RANGES, 2), dtype=np.int64)
+    for i, kr in enumerate(ranges):
+        rarr[i] = tablecodec.range_to_handles(kr, scan.table_id)
+    fs = _covers_all(rarr, entry)
+    agg_complete = any(
+        ex.tp in (dagpb.AGGREGATION, dagpb.STREAM_AGG) and ex.agg_mode == dagpb.AGG_COMPLETE
+        for ex in dag.executors[1:]
+    )
+
+    if _should_fuse_agg(dag, entry):
+        handles_blocks, cols_blocks, nvalids, nb = _fused_block_inputs(view, scan, dev)
+        kernel = get_kernel(bound, _BLOCK, min(_DEFAULT_AGG_CAP, nb * _BLOCK), nb=nb, full_scan=fs)
+
+        def run_once():
+            return [kernel.fn(handles_blocks, cols_blocks, rarr, nvalids)]
+
+    elif entry.n > _BLOCK and not agg_complete:
+        if dag.executors[-1].tp == dagpb.LIMIT:
+            raise ValueError("probe unsupported: LIMIT-last blocked tasks page lazily")
+        bounds = _block_bounds(entry.n)
+        kernel = get_kernel(bound, _BLOCK, _DEFAULT_AGG_CAP, full_scan=fs)
+        inputs = [_device_inputs(view, scan, bi, lo, hi, _BLOCK, dev) for bi, (lo, hi) in enumerate(bounds)]
+
+        def run_once():
+            return [kernel.fn(h, cols, rarr, hi - lo) for (h, cols), (lo, hi) in zip(inputs, bounds)]
+
+    else:
+        n_pad = bucket_size(max(entry.n, 1))
+        hd, cols_dev = _device_inputs(view, scan, "s", 0, entry.n, n_pad, dev)
+        agg_cap = min(_DEFAULT_AGG_CAP, n_pad) if kernel_needs_agg(bound) else _DEFAULT_AGG_CAP
+        kernel = get_kernel(bound, n_pad, agg_cap, full_scan=fs)
+
+        def run_once():
+            return [kernel.fn(hd, cols_dev, rarr, entry.n)]
+
+    if kernel.kind == "agg" and (_meta_rows(run_once())[:, 1] > kernel.agg_cap).any():
+        raise ValueError("probe unsupported: agg cap overflow (production re-runs bigger)")
+
+    def sync(outs):
+        last = outs[-1]
+        (last[0] if isinstance(last, tuple) else last)[:1, :1].cpu()
+
+    def chunk(outs) -> Chunk:
+        parts = []
+        for p in outs:
+            buf, fbuf = _to_host(p)
+            parts.append(_chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, cache, scan))
+        return _concat_chunks(parts)
+
+    run_once.chunk = chunk
+    return run_once, sync

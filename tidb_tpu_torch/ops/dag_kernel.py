@@ -54,6 +54,7 @@ Routes ported, chosen by the reference's rule and constants:
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Callable
@@ -255,15 +256,62 @@ def get_kernel(
     delta_cap: int = 0,
 ) -> CompiledKernel:
     """``full_scan``: the caller proved every row is inside the requested
-    ranges, so the program skips the handle range mask."""
+    ranges, so the program skips the handle range mask. A newly built
+    program carries the first-call build probe (``_arm_compile_probe``)."""
     key = (dag.fingerprint(), n_pad, agg_cap, nb, full_scan, delta_cap)
     with _CACHE_MU:
         k = _COMPILE_CACHE.get(key)
     if k is None:
         k = _build(dag, n_pad, agg_cap, nb, full_scan, delta_cap)
+        _arm_compile_probe(k)
         with _CACHE_MU:
             _COMPILE_CACHE[key] = k
     return k
+
+
+def _arm_compile_probe(k: CompiledKernel) -> None:
+    """Attribute a new program's cold cost, keyed like the program cache,
+    so "cold" means one thing to the metric and to dispatch. PyTorch runs
+    eagerly and compiles nothing ahead: here "compile" is the first call of
+    a freshly built program, with the lazy loading of each CUDA module the
+    call reaches for the first time (torch's kernels, the int8 GEMM's
+    setup) and, when first reached, K1's nvcc build and load
+    (``native.cuda``). The first call ends with ``torch.cuda.synchronize``
+    on the output's device, so its wall holds that work and not only the
+    launches; the sync is part of the cold cost, warm calls pay nothing.
+    The wall goes under a ``jit-compile`` trace span into the active cop
+    task's ``compile_ms`` and into ``COP_COMPILE_SECONDS``. Exactly one
+    caller claims it (a cold fan-out over several regions enters here on
+    every worker); the probe then unhooks itself, so warm calls run the
+    bare program."""
+    inner = k.fn
+    claim = threading.Lock()
+    state = {"claimed": False}
+
+    def first_call(*args, **kwargs):
+        with claim:
+            mine = not state["claimed"]
+            state["claimed"] = True
+        if not mine:
+            return inner(*args, **kwargs)
+        from tidb_tpu_torch.utils import execdetails as _ed
+        from tidb_tpu_torch.utils import metrics as _m
+
+        t0 = time.perf_counter()
+        with _ed.trace_span("jit-compile"):
+            out = inner(*args, **kwargs)
+            dev = (out[0] if isinstance(out, tuple) else out).device
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        k.fn = inner  # warm path: no wrapper left behind
+        det = _ed.current_cop()
+        if det is not None:
+            det.compile_ms += dt * 1000.0
+        _m.COP_COMPILE_SECONDS.observe(dt)
+        return out
+
+    k.fn = first_call
 
 
 def _bcast(d, n: int, dev) -> torch.Tensor:

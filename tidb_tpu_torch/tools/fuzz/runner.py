@@ -197,20 +197,23 @@ def _tlp_round(dev, host, q: Query, pred: str, phase: str, engines=("gpu", "host
 def _forced_ndev(mpp: bool, ndev: int):
     """Pin the MPP mesh width for one case/repro (0 = every device) — the
     campaign's width and its repro replays MUST agree, so both run through
-    this one pin. The shards are virtual, so the width is the case's own."""
+    this one pin. A forced width is virtual shards of one card: the mesh's
+    devices are pinned to ``DEVICE``'s handle (``mesh.FORCE_DEVICES``), so
+    a case and its replay run one layout on a machine of any card count."""
     from contextlib import contextmanager
 
     @contextmanager
     def ctx():
         from tidb_tpu_torch.parallel import mesh as _mesh
 
-        old = _mesh.FORCE_NDEV
+        old = _mesh.FORCE_NDEV, _mesh.FORCE_DEVICES
         if mpp and ndev:
             _mesh.FORCE_NDEV = int(ndev)
+            _mesh.FORCE_DEVICES = [_mesh.handle(DEVICE)]
         try:
             yield
         finally:
-            _mesh.FORCE_NDEV = old
+            _mesh.FORCE_NDEV, _mesh.FORCE_DEVICES = old
 
     return ctx()
 
