@@ -978,3 +978,39 @@ def test_cold_program_on_card_charges_its_first_call_once(monkeypatch):
             assert s.exec_summary.compile_ms == 0, name
     finally:
         db.stop_background()
+
+
+@pytest.mark.gpu
+def test_window_spans_map_onto_the_profilers_clock():
+    """The window recorder's clock anchors put a host span on the clock
+    ``torch.profiler`` stamps device events on: a span around a ~10 ms
+    sleep kernel and the blocking copy after it holds the kernel's
+    profiled interval, within 0.2 ms at each end."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from tidb_tpu_torch.utils import tracing
+
+    x = torch.ones(1 << 10, device="cuda")
+    torch.cuda._sleep(1000)
+    x.sum().cpu()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec = tracing.start_window()
+        try:
+            with rec.span("sleep-and-copy"):
+                torch.cuda._sleep(20_000_000)  # clock cycles: ~10 ms
+                x.sum().cpu()
+        finally:
+            win = tracing.stop_window()
+    (span,) = win.spans
+    kernels = [
+        (e.start_ns(), e.start_ns() + e.duration_ns(), e.name())
+        for e in prof.profiler.kineto_results.events()
+        if e.device_type() == torch.autograd.DeviceType.CUDA
+    ]
+    start, end, name = max(kernels, key=lambda k: k[1] - k[0])
+    assert end - start > 1_000_000, name
+    lo, hi = win.wall_ns(span.start_ns), win.wall_ns(span.end_ns)
+    print(json.dumps({"span_ns": [lo, hi], "kernel_ns": [start, end], "kernel": name,
+                      "lead_ms": (start - lo) / 1e6, "tail_ms": (hi - end) / 1e6}))
+    assert lo - 200_000 <= start and end <= hi + 200_000

@@ -178,9 +178,15 @@ SEAMS: dict[str, frozenset] = {
     # the engine name: StoreType.GPU in place of TPU
     "kv/kv.py": frozenset({"StoreType"}),
     # open_db: the remote-backed store carries the caller's device; the
-    # privilege bootstrap runs under one lock (concurrent first logins)
+    # privilege bootstrap runs under one lock (concurrent first logins);
+    # execute opens the statement's root span on the window
+    # (tracing.start_window) around the reference's body (now _execute_sql),
+    # and span records on the window with no statement tracer
     "session/session.py": frozenset(
-        {"DEFAULT_SYSVARS", "Session._plan_select", "open_db", "_PRIV_BOOTSTRAP_MU", "DB.ensure_priv_bootstrap"}
+        {
+            "DEFAULT_SYSVARS", "Session._plan_select", "open_db", "_PRIV_BOOTSTRAP_MU", "DB.ensure_priv_bootstrap",
+            "<imports>", "Session.execute", "Session._execute_sql", "Session.span",
+        }
     ),
     # window pushdown gated on StoreType.GPU
     "planner/optimizer.py": frozenset({"_demote_ci_order", "_pick_engine", "_try_push_window"}),
@@ -205,8 +211,25 @@ SEAMS: dict[str, frozenset] = {
             "_truncate", "_tsdiff_months", "_xor",
         }
     ),
-    # the engine registry; no device failure degrades to the host
-    "copr/client.py": frozenset({"CopClient.send", "_engines", "run_task_resilient"}),
+    # the engine registry; no device failure degrades to the host; send
+    # records each task's spans on the window with no statement tracer
+    # (contextlib no longer needed: the shared null span)
+    "copr/client.py": frozenset({"<imports>", "CopClient.send", "_engines", "run_task_resilient"}),
+    # the window: a process-wide Tracer between start_window and
+    # stop_window, with two clock anchors; every Span carries process-wide
+    # ids, its thread, perf_counter_ns times and thread CPU ns, and a
+    # statement tracer's spans go to a recording window too; Phases,
+    # consecutive spans of one thread
+    "utils/tracing.py": frozenset(
+        {
+            "<doc>", "<imports>", "NULL_SPAN", "Phases", "Phases.__init__", "Phases.close", "Phases.to", "Span",
+            "Tracer.span", "Window", "Window.wall_ns", "_SPAN_IDS", "_WINDOW", "_WINDOW_ANCHOR",
+            "_WINDOW_MU", "_clock_anchor", "start_window", "stop_window", "window",
+        }
+    ),
+    # trace_span records on the window with no task tracer and hands back
+    # the shared null span when nothing records
+    "utils/execdetails.py": frozenset({"<imports>", "trace_span"}),
     # a store-less cache for carried regions, and the GPU engine's LRUs
     "copr/colcache.py": frozenset(
         {"ColumnCache", "ColumnCache.__init__", "ColumnCache.add_region", "ColumnCache.ensure_sorted_dict", "ColumnCache.next_region_id"}
@@ -220,11 +243,14 @@ SEAMS: dict[str, frozenset] = {
     # program's lanes are torch tensors placed per worker, the input pool
     # keyed on that placement, the expression callbacks on each worker's
     # device, the outputs copied off once per worker; a shard's probe time
-    # is its worker's event-timed wall (no callback inside the program)
+    # is its worker's event-timed wall (no callback inside the program);
+    # execute opens the gather's mpp.gather span around the local mesh path
+    # (now _execute_local), which with _execute_attempt opens its phase
+    # spans (mpp.prepare, mpp.program, mpp.issue, mpp.drain, mpp.merge)
     "parallel/gather.py": frozenset(
         {
             "_agg_mpp_ok", "_chain_cond_ok", "_reader_mpp_ok", "_stage_eligible", "try_mpp_rewrite",
-            "MPPGatherExec.execute", "MPPGatherExec._execute_attempt", "_shard_probe",
+            "MPPGatherExec.execute", "MPPGatherExec._execute_local", "MPPGatherExec._execute_attempt", "_shard_probe",
         }
     ),
     # a tiny op and a synchronize on each handle's physical device

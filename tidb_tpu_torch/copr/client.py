@@ -15,7 +15,6 @@ so a single request cannot monopolize the shared workers.
 
 from __future__ import annotations
 
-import contextlib
 import os
 import threading
 import time
@@ -434,18 +433,21 @@ class CopClient:
         # the requesting thread (queue wait = submit → worker pickup)
         t_submit = time.perf_counter()
         tracer = _tracing.effective(req.tracer)
-        parent_span = tracer.current() if tracer is not None else None
+        # with no statement tracer, the tasks' spans go to the window
+        # (tracing.start_window) while one records
+        rec = tracer if tracer is not None else _tracing.window()
+        parent_span = rec.current() if rec is not None else None
 
         def run(task: CopTask) -> CopResult:
             det = _ed.CopExecDetails(task.region.region_id)
             det.queue_ms = (time.perf_counter() - t_submit) * 1000.0
             span = (
-                tracer.span(f"cop.r{task.region.region_id}", parent=parent_span)
-                if tracer is not None
-                else contextlib.nullcontext()
+                rec.span(f"cop.r{task.region.region_id}", parent=parent_span)
+                if rec is not None
+                else _tracing.NULL_SPAN
             )
             t0 = time.perf_counter()
-            with span, _ed.collecting(det, tracer=tracer):
+            with span, _ed.collecting(det, tracer=rec):
                 chunk = run_task_resilient(
                     bo,
                     run_engine,

@@ -55,6 +55,17 @@ shape the port does not carry raises ``UnsupportedForDevice``, and
 ``execute_dag`` answers that task on the host engine, recorded as the
 task's ``degraded`` reason. Nothing else falls back: a CUDA error or a
 kernel build or launch failure propagates.
+
+Phase spans (``execdetails.trace_span``: under ``TRACE``, a sampled
+statement, or the window of ``tracing.start_window``) split each
+task's ``device-exec`` into consecutive leaves: ``cop.snapshot`` (the
+column cache's entry and delta), ``cop.bind`` (binding, the range array),
+``cop.inputs`` (the device LRU lookups and any upload), ``cop.program``
+(the program cache; a build on a miss), ``cop.issue`` (the host enqueuing
+the program; a new program's first call, ``jit-compile``, nests here),
+``cop.sync`` (blocked until the card is done, and the copy off it) and
+``cop.decode`` (buffers → ``Chunk``). A regrow repeats program, issue and
+sync; on the per-block path inputs and issue alternate block by block.
 """
 
 from __future__ import annotations
@@ -351,11 +362,12 @@ def _execute_dag_device(store, dag: dagpb.DAGRequest, region, ranges: list[KeyRa
     # the base stays pinned across DML; committed changes ride as the
     # bounded delta operand the program folds in (get_split merges a delta
     # past the operand capacity into the base)
-    entry, delta = cache.get_split(region, scan.table_id, schema, slots, read_ts)
-    if delta is not None and delta.n and _has_window(dag):
-        # window ties break by row position: fold the delta into the base
-        # now; the merge keeps the clean blocks' device copies
-        entry, delta = cache.merge_now(region, scan.table_id, schema, slots, read_ts), None
+    with _ed.trace_span("cop.snapshot"):
+        entry, delta = cache.get_split(region, scan.table_id, schema, slots, read_ts)
+        if delta is not None and delta.n and _has_window(dag):
+            # window ties break by row position: fold the delta into the base
+            # now; the merge keeps the clean blocks' device copies
+            entry, delta = cache.merge_now(region, scan.table_id, schema, slots, read_ts), None
     view = RegionView(region.region_id, scan.table_id, entry, cache, cacheable=entry.complete, delta=delta)
     return execute_region(view, dag, ranges, warn, dev)
 
@@ -396,12 +408,13 @@ def execute_region(region: RegionView, dag: dagpb.DAGRequest, ranges: list[KeyRa
         det = _ed.current_cop()
         if det is not None:
             det.delta_rows += delta.n
-    binder_entry = entry if delta is None else _BinderView(entry, delta)
-    bound = Binder(region.cache, scan.table_id, scan.columns, binder_entry).bind_dag(dag)
-    # ranges → padded static array; rows outside every range are masked out
-    rarr = np.zeros((MAX_RANGES, 2), dtype=np.int64)
-    for i, kr in enumerate(ranges):
-        rarr[i] = tablecodec.range_to_handles(kr, scan.table_id)
+    with _ed.trace_span("cop.bind"):
+        binder_entry = entry if delta is None else _BinderView(entry, delta)
+        bound = Binder(region.cache, scan.table_id, scan.columns, binder_entry).bind_dag(dag)
+        # ranges → padded static array; rows outside every range are masked out
+        rarr = np.zeros((MAX_RANGES, 2), dtype=np.int64)
+        for i, kr in enumerate(ranges):
+            rarr[i] = tablecodec.range_to_handles(kr, scan.table_id)
     if has_window:
         _window_pack_guard(bound, entry.n)
         if entry.n > _BLOCK:
@@ -573,11 +586,14 @@ def _run_whole(get, run, agg_cap: int, cap_max: int, stats: dict):
     (at most ``cap_max``, the rows it reads) while its groups overflow.
     → (kernel, int buffer, float buffer)."""
     while True:
-        kernel = get(agg_cap)
-        packed = run(kernel)
-        if kernel.kind == "rows" and kernel.out_n > 65536:
-            _, (packed,) = _probe_slice_rows([packed], kernel)
-        buf, fbuf = _to_host(packed)
+        with _ed.trace_span("cop.program"):
+            kernel = get(agg_cap)
+        with _ed.trace_span("cop.issue"):
+            packed = run(kernel)
+        with _ed.trace_span("cop.sync"):
+            if kernel.kind == "rows" and kernel.out_n > 65536:
+                _, (packed,) = _probe_slice_rows([packed], kernel)
+            buf, fbuf = _to_host(packed)
         stats["routes"] = kernel.routes
         if int(buf[0, 1]) > kernel.agg_cap:
             if agg_cap >= cap_max:
@@ -598,17 +614,19 @@ def _exec_single(region: RegionView, dag, bound, scan, rarr, device: torch.devic
     agg_cap = min(_DEFAULT_AGG_CAP, n_pad + dcap) if kernel_needs_agg(bound) else _DEFAULT_AGG_CAP
     fs = _covers_all(rarr, entry, delta)
     stats["path"] = "single"
-
-    def run(kernel):
+    with _ed.trace_span("cop.inputs"):
         handles_dev, cols_dev = _device_inputs(region, scan, "s", 0, entry.n, n_pad, device)
         dargs = () if delta is None else _delta_args(region, scan, device, 0, delta.n)
-        return kernel.fn(handles_dev, cols_dev, rarr, entry.n, *dargs)
-
     kernel, buf, fbuf = _run_whole(
-        lambda cap: get_kernel(bound, n_pad, cap, full_scan=fs, delta_cap=dcap), run, agg_cap, n_pad + dcap, stats
+        lambda cap: get_kernel(bound, n_pad, cap, full_scan=fs, delta_cap=dcap),
+        lambda kernel: kernel.fn(handles_dev, cols_dev, rarr, entry.n, *dargs),
+        agg_cap,
+        n_pad + dcap,
+        stats,
     )
-    _emit_kernel_warnings(buf, kernel, warn)
-    return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
+    with _ed.trace_span("cop.decode"):
+        _emit_kernel_warnings(buf, kernel, warn)
+        return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
 
 
 def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
@@ -616,9 +634,10 @@ def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch
     one program over every block, one dispatch, no merge of per-block
     partials."""
     entry, delta = region.entry, region.delta
-    handles_blocks, cols_blocks, nvalids, nb = _fused_block_inputs(region, scan, device)
+    with _ed.trace_span("cop.inputs"):
+        handles_blocks, cols_blocks, nvalids, nb = _fused_block_inputs(region, scan, device)
+        dargs = () if delta is None else _delta_args(region, scan, device, 0, delta.n)
     dcap = _delta_cap() if delta is not None else 0
-    dargs = () if delta is None else _delta_args(region, scan, device, 0, delta.n)
     n_total = nb * _BLOCK + dcap
     agg_cap = min(_DEFAULT_AGG_CAP, n_total)
     fs = _covers_all(rarr, entry, delta)
@@ -630,8 +649,9 @@ def _exec_fused_blocks(region: RegionView, dag, bound, scan, rarr, device: torch
         stats,
     )
     stats["path"] = "blockwise dot" if kernel.blockwise else "fused"
-    _emit_kernel_warnings(buf, kernel, warn)
-    return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
+    with _ed.trace_span("cop.decode"):
+        _emit_kernel_warnings(buf, kernel, warn)
+        return _chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, region.cache, scan)
 
 
 def _exec_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.device, warn, stats: dict) -> Chunk:
@@ -654,14 +674,17 @@ def _exec_blocks(region: RegionView, dag, bound, scan, rarr, device: torch.devic
     agg_cap = _DEFAULT_AGG_CAP
     fs = _covers_all(rarr, entry, delta)
     while True:
-        kernel = get_kernel(bound, _BLOCK, agg_cap, full_scan=fs, delta_cap=dcap)
+        with _ed.trace_span("cop.program"):
+            kernel = get_kernel(bound, _BLOCK, agg_cap, full_scan=fs, delta_cap=dcap)
         stats["routes"] = kernel.routes
 
         def run_block(bi: int):
             lo, hi = bounds[bi]
-            handles_dev, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
-            dargs = () if delta is None else _delta_args(region, scan, device, dcuts[bi], dcuts[bi + 1])
-            return kernel.fn(handles_dev, cols_dev, rarr, hi - lo, *dargs)
+            with _ed.trace_span("cop.inputs"):
+                handles_dev, cols_dev = _device_inputs(region, scan, bi, lo, hi, _BLOCK, device)
+                dargs = () if delta is None else _delta_args(region, scan, device, dcuts[bi], dcuts[bi + 1])
+            with _ed.trace_span("cop.issue"):
+                return kernel.fn(handles_dev, cols_dev, rarr, hi - lo, *dargs)
 
         if limit_last:
             out = _blocks_paged_limit(run_block, len(bounds), kernel, dag, region.cache, scan, warn)
@@ -682,22 +705,28 @@ def _blocks_stacked(run_block, nb: int, kernel, dag, cache, scan, warn=None):
     chunks = []
     if kernel.kind == "rows" and kernel.out_n > 65536:
         # rows-kind: counts first (one small copy), then live slices only
-        counts, gets = _probe_slice_rows(packed, kernel)
+        with _ed.trace_span("cop.sync"):
+            counts, gets = _probe_slice_rows(packed, kernel)
         for cnt, got in zip(counts, gets):
-            buf, fbuf = _to_host(got)
-            _emit_kernel_warnings(buf, kernel, warn)
-            chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
-        return _concat_chunks(chunks)
-    bi_all = _d2h(torch.stack([p[0] if tup else p for p in packed]))
-    bf_all = _d2h(torch.stack([p[1] for p in packed])) if tup else None
+            with _ed.trace_span("cop.sync"):
+                buf, fbuf = _to_host(got)
+            with _ed.trace_span("cop.decode"):
+                _emit_kernel_warnings(buf, kernel, warn)
+                chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
+        with _ed.trace_span("cop.decode"):
+            return _concat_chunks(chunks)
+    with _ed.trace_span("cop.sync"):
+        bi_all = _d2h(torch.stack([p[0] if tup else p for p in packed]))
+        bf_all = _d2h(torch.stack([p[1] for p in packed])) if tup else None
     if kernel.kind == "agg" and any(int(b[0, 1]) > kernel.agg_cap for b in bi_all):
         return None
-    for b in range(nb):
-        buf = bi_all[b]
-        fbuf = bf_all[b] if bf_all is not None else None
-        _emit_kernel_warnings(buf, kernel, warn)
-        chunks.append(_chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, cache, scan))
-    return _concat_chunks(chunks)
+    with _ed.trace_span("cop.decode"):
+        for b in range(nb):
+            buf = bi_all[b]
+            fbuf = bf_all[b] if bf_all is not None else None
+            _emit_kernel_warnings(buf, kernel, warn)
+            chunks.append(_chunk_from_bufs(buf, fbuf, int(buf[0, 0]), kernel, dag, cache, scan))
+        return _concat_chunks(chunks)
 
 
 def _blocks_paged_limit(run_block, nb: int, kernel, dag, cache, scan, warn=None):
@@ -714,16 +743,20 @@ def _blocks_paged_limit(run_block, nb: int, kernel, dag, cache, scan, warn=None)
         batch = list(range(bi, min(bi + window, nb)))
         packed = [run_block(i) for i in batch]
         if kernel.out_n > 65536:  # LIMIT-last DAGs are rows-kind
-            _counts, packed = _probe_slice_rows(packed, kernel)
+            with _ed.trace_span("cop.sync"):
+                _counts, packed = _probe_slice_rows(packed, kernel)
         for p in packed:
-            buf, fbuf = _to_host(p)
+            with _ed.trace_span("cop.sync"):
+                buf, fbuf = _to_host(p)
             cnt = int(buf[0, 0])
-            _emit_kernel_warnings(buf, kernel, warn)
-            chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
+            with _ed.trace_span("cop.decode"):
+                _emit_kernel_warnings(buf, kernel, warn)
+                chunks.append(_chunk_from_bufs(buf, fbuf, cnt, kernel, dag, cache, scan))
             got += cnt
         bi += len(batch)
         window = min(window * 2, 8)
-    return _concat_chunks(chunks)
+    with _ed.trace_span("cop.decode"):
+        return _concat_chunks(chunks)
 
 
 def _concat_chunks(chunks: list[Chunk]) -> Chunk:

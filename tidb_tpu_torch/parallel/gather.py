@@ -1448,6 +1448,23 @@ class MPPGatherExec:
                         trace_id=getattr(self.session.tracer, "trace_id", None),
                     )
                 self._hybrid = True
+        from tidb_tpu_torch.utils import tracing as _tracing
+
+        # the gather's phases: consecutive spans under ``mpp.gather``
+        # (mpp.prepare: the mesh, then the join, stage and agg specs;
+        # mpp-inputs; mpp.program; mpp.issue and mpp.drain under
+        # mpp-pipeline[Ndev]; mpp.merge); a grow-and-retry or a device
+        # retry repeats them
+        self._phases = _tracing.Phases(self.session.span)
+        with self.session.span("mpp.gather"):
+            try:
+                return self._execute_local(store)
+            finally:
+                self._phases.close()
+
+    def _execute_local(self, store):
+        """The gather on this process's devices, retried over the
+        survivors of a device failure."""
         from tidb_tpu_torch.copr.gpu_engine import store_device
         from tidb_tpu_torch.parallel import make_mesh
         from tidb_tpu_torch.parallel import mesh as _mesh_mod
@@ -1468,6 +1485,7 @@ class MPPGatherExec:
         no_progress = 0
         self._compiles = 0
         while True:
+            self._phases.to("mpp.prepare")
             # one shard per live device the store owns: every visible card
             # for a store on ``cuda``, ``cuda:N`` alone, or the CPU (with no
             # card store_device raises: never the CPU). FORCE_NDEV cuts the
@@ -1853,6 +1871,8 @@ class MPPGatherExec:
         # dominant phases of a gather get their own spans. A STAGED reader
         # materializes its stage readers' RAW lanes (per-column pooled like
         # any plain scan) — the subplan's aggregate never touches the host.
+        phases = self._phases
+        phases.close()
         with self.session.span("mpp-inputs"):
             sides = [
                 [dev_side(sr) for sr in stage_parts[ri][0]]
@@ -1860,6 +1880,7 @@ class MPPGatherExec:
                 else dev_side(r)
                 for ri, r in enumerate(p.readers)
             ]
+        phases.to("mpp.prepare")  # the join, stage and agg specs
         stats = self.session._db.stats
 
         def _stage_cap(sub, probe_n: int) -> int:
@@ -2255,6 +2276,7 @@ class MPPGatherExec:
                 )
                 agg_kb.append((0, 1))
         while True:
+            phases.to("mpp.program")  # the program key, the cache lookup or build
             spec = (
                 DistAggSpec(
                     n_keys=nk,
@@ -2342,28 +2364,31 @@ class MPPGatherExec:
             else:
                 _met.MPP_PROGRAM_CACHE.inc(result="hit")
                 fn, warn_sink = cached
+            phases.close()
             with self.session.span(f"mpp-pipeline[{ndev}dev]"), _MESH_EXEC_LOCK:
                 shard_obs: list = []
                 walls: list = []
-                outs = fn(*all_lanes, walls=walls)
+                with self.session.span("mpp.issue"):  # the host enqueuing the program
+                    outs = fn(*all_lanes, walls=walls)
                 # ONE device→host copy per worker for every output lane (one
                 # buffer, counted as D2H bytes) — and blocking inside the
                 # lock keeps the program's device work drained before the
                 # next one
-                arrs = to_host(outs, copy=_d2h)
-                if PROBES_ENABLED:
-                    # the per-shard probe on the host, after the program,
-                    # from each shard's live rows and exchanged bytes and its
-                    # worker's stream time
-                    rows, xbytes = arrs.pop()
-                    _SHARD_OBS["sink"] = shard_obs
-                    try:
-                        for first, k, timer in walls:
-                            wall_ms = timer.ms
-                            for i in range(first, first + k):
-                                _shard_probe(i, rows[i], xbytes[i], wall_ms)
-                    finally:
-                        _SHARD_OBS["sink"] = None
+                with self.session.span("mpp.drain"):
+                    arrs = to_host(outs, copy=_d2h)
+                    if PROBES_ENABLED:
+                        # the per-shard probe on the host, after the program,
+                        # from each shard's live rows and exchanged bytes and its
+                        # worker's stream time
+                        rows, xbytes = arrs.pop()
+                        _SHARD_OBS["sink"] = shard_obs
+                        try:
+                            for first, k, timer in walls:
+                                wall_ms = timer.ms
+                                for i in range(first, first + k):
+                                    _shard_probe(i, rows[i], xbytes[i], wall_ms)
+                        finally:
+                            _SHARD_OBS["sink"] = None
                 # grow-and-retry attempts overwrite: the SUCCESSFUL run wins
                 self._shard_obs = sorted(shard_obs)
             wtotal = int(arrs.pop())  # the warn-count slot (always present)
@@ -2408,9 +2433,10 @@ class MPPGatherExec:
                         st.spec.group_cap *= 4
                         for s in st.spec.joins:
                             s.out_cap *= 4
-        if agg is not None:
-            return self._merge(arrs[:-2], agg)
-        return self._rows_chunk(arrs[:-2])
+        with self.session.span("mpp.merge"):
+            if agg is not None:
+                return self._merge(arrs[:-2], agg)
+            return self._rows_chunk(arrs[:-2])
 
     def _initial_group_cap(self, n_left_rows: int) -> int:
         """Static per-shard group capacity: NDV-product estimate with a

@@ -24,6 +24,7 @@ from tidb_tpu_torch.planner.optimizer import optimize
 from tidb_tpu_torch.planner.plans import PlanError, explain_plan
 from tidb_tpu_torch.utils import eventlog as _ev
 from tidb_tpu_torch.utils import sysvar_int
+from tidb_tpu_torch.utils import tracing as _tracing
 from tidb_tpu_torch.utils.chunk import Chunk
 
 _PRIV_BOOTSTRAP_MU = threading.RLock()
@@ -399,11 +400,10 @@ class Session:
 
     # -- tracing (ref: util/tracing StartRegionEx call sites) ----------------
     def span(self, name: str):
-        if self.tracer is not None:
-            return self.tracer.span(name)
-        import contextlib
-
-        return contextlib.nullcontext()
+        # no statement tracer: a span on the window while one records
+        # (tracing.start_window), else the shared null context
+        tr = self.tracer if self.tracer is not None else _tracing.window()
+        return _tracing.NULL_SPAN if tr is None else tr.span(name)
 
     def _sample_tracer(self):
         """The per-statement sampling coin (ref: Dapper §4 uniform
@@ -566,6 +566,14 @@ class Session:
         )
 
     def execute(self, sql: str) -> Result:
+        # the statement's root span while a window records
+        # (tracing.start_window): every span the statement opens, on any
+        # thread, carries this root's id
+        win = _tracing.window()
+        with win.span("statement") if win is not None else _tracing.NULL_SPAN:
+            return self._execute_sql(sql)
+
+    def _execute_sql(self, sql: str) -> Result:
         import time as _time
 
         from tidb_tpu_torch.utils import metrics as _m

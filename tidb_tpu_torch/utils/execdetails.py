@@ -29,8 +29,10 @@ import hashlib
 import math
 import threading
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+from tidb_tpu_torch.utils import tracing as _tracing
 
 
 @dataclass
@@ -348,10 +350,13 @@ def collecting(detail: "CopExecDetails | None", tracer=None):
 
 
 def trace_span(name: str):
-    """A span on the active task's tracer — nullcontext when tracing is off
-    (the zero-cost-when-off rule)."""
+    """A span on the active task's tracer, else on the window
+    (``tracing.start_window``); the shared ``tracing.NULL_SPAN`` when
+    neither records (the zero-cost-when-off rule)."""
     tr = current_tracer()
-    return tr.span(name) if tr is not None else nullcontext()
+    if tr is None:
+        tr = _tracing.window()
+    return _tracing.NULL_SPAN if tr is None else tr.span(name)
 
 
 # -- plan digest -------------------------------------------------------------

@@ -29,15 +29,42 @@ trace whose statement crossed the slow-log threshold, so the interesting
 outliers survive ring rotation (the slow log cross-links them by trace id).
 Unsampled statements never construct a tracer: the ``Request.tracer is
 None`` zero-cost rule is untouched.
+
+The window (port): ``TRACE`` and sampling each keep one statement's tree; a
+profiler run or a benchmark window needs every statement's spans over a
+stretch of time, on a clock the device trace can be placed against.
+``start_window()`` makes a process-wide :class:`Tracer`, the window, that
+the span seams (``Session.span``, ``execdetails.trace_span``, the cop
+client's task spans) record into whenever no statement tracer is in effect;
+a statement tracer's spans go to the window too, under the window's open
+span of their thread (``Session.execute`` opens each statement's root span,
+``statement``, there). ``stop_window()`` stops it and returns
+:class:`Window`: the finished spans and two ``(perf_counter_ns, time_ns)``
+anchors read at start and at stop, which ``Window.wall_ns`` uses to put a
+span time on ``time_ns``, the clock ``torch.profiler`` stamps device events
+on, linear between them so the drift between the clocks is corrected. Off is
+the default: a seam then reads one module global and hands back the shared
+``NULL_SPAN``, with no clock read and no allocation. Spans stay in memory
+until ``stop_window()``.
+
+Each :class:`Span` carries, besides its ``TRACE`` fields: ``span_id``,
+``parent_id`` (0 for a root) and ``root_id`` (its statement's root), unique
+across the process so a window holds spans of several tracers; ``thread``,
+the recording thread's ident; ``start_ns``/``end_ns`` on
+``time.perf_counter_ns``; ``cpu_ns``, the thread's CPU time over the span
+(``time.thread_time_ns``, read inside the wall readings). Where the thread
+clock ticks (gVisor's does every 10 ms) a short span can read a tick more
+CPU than wall: only sums over many spans hold there.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 import uuid
 from collections import OrderedDict, deque
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 
@@ -50,6 +77,16 @@ class Span:
     seq: int = 0
     # "" = recorded in this process; else the remote store that recorded it
     node: str = ""
+    # process-wide ids (0 on a span merged from a remote store) and the
+    # recording thread; perf_counter_ns at open and close, and the thread's
+    # CPU ns over the span
+    span_id: int = 0
+    parent_id: int = 0
+    root_id: int = 0
+    thread: int = 0
+    start_ns: int = 0
+    end_ns: int = 0
+    cpu_ns: int = 0
 
 
 @dataclass(frozen=True)
@@ -100,8 +137,23 @@ class Tracer:
         if parent is None and st:
             parent = st[-1]
         depth = parent.depth + 1 if parent is not None else 0
-        start = time.perf_counter()
-        sp = Span(name, start - self._t0, 0.0, depth)
+        win = _WINDOW
+        if win is self:
+            win = None
+        # a statement tracer's top span hangs under the window's open span
+        # of this thread (the statement's root), so the window holds one tree
+        up = parent if parent is not None or win is None else win.current()
+        sid = next(_SPAN_IDS)
+        start = time.perf_counter_ns()
+        cpu0 = time.thread_time_ns()
+        sp = Span(
+            name, start / 1e9 - self._t0, 0.0, depth,
+            span_id=sid,
+            parent_id=up.span_id if up is not None else 0,
+            root_id=up.root_id if up is not None else sid,
+            thread=threading.get_ident(),
+            start_ns=start,
+        )
         with self._mu:
             sp.seq = self._seq
             self._seq += 1
@@ -110,8 +162,15 @@ class Tracer:
         try:
             yield sp
         finally:
+            cpu1 = time.thread_time_ns()
+            end = time.perf_counter_ns()
             st.pop()
-            sp.duration_s = time.perf_counter() - start
+            sp.duration_s = (end - start) / 1e9
+            sp.cpu_ns = cpu1 - cpu0
+            sp.end_ns = end  # last: a span with end_ns set is finished
+            if win is not None:
+                with win._mu:
+                    win.spans.append(sp)
 
     # -- wire ----------------------------------------------------------------
     def context(self) -> TraceContext:
@@ -261,3 +320,98 @@ class TraceReservoir:
         with self._mu:
             self._ring.clear()
             self._slow.clear()
+
+
+# -- the window ----------------------------------------------------------------
+
+# what a span seam hands back while nothing records
+NULL_SPAN = nullcontext()
+
+# span ids, unique across every tracer of the process (next() holds the GIL)
+_SPAN_IDS = itertools.count(1)
+
+_WINDOW: "Tracer | None" = None
+_WINDOW_MU = threading.Lock()
+_WINDOW_ANCHOR = (0, 0)
+
+
+def _clock_anchor() -> tuple[int, int]:
+    """(perf_counter_ns, time_ns) read together: the wall reading sits
+    between two perf readings and takes their midpoint."""
+    p0 = time.perf_counter_ns()
+    w = time.time_ns()
+    p1 = time.perf_counter_ns()
+    return ((p0 + p1) // 2, w)
+
+
+@dataclass
+class Window:
+    """What ``stop_window()`` hands back: the finished spans and the two
+    clock anchors, ``(perf_counter_ns, time_ns)`` at start and at stop."""
+
+    spans: list
+    anchors: tuple
+
+    def wall_ns(self, perf_ns: int) -> int:
+        """A ``perf_counter_ns`` reading on the wall clock (``time_ns``, the
+        clock ``torch.profiler`` stamps events on), linear between the two
+        anchors, so the drift between the clocks over the window is
+        corrected."""
+        (p0, w0), (p1, w1) = self.anchors
+        rate = (w1 - w0) / (p1 - p0) if p1 > p0 else 1.0
+        return w0 + round((perf_ns - p0) * rate)
+
+
+def start_window() -> Tracer:
+    """Start recording every span of the process → the window's tracer;
+    RuntimeError if a window is already recording."""
+    global _WINDOW, _WINDOW_ANCHOR
+    with _WINDOW_MU:
+        if _WINDOW is not None:
+            raise RuntimeError("a window is already recording")
+        _WINDOW_ANCHOR = _clock_anchor()
+        _WINDOW = Tracer()
+        return _WINDOW
+
+
+def stop_window() -> Window:
+    """Stop recording → the spans finished inside the window and its clock
+    anchors. A span still open when the window stops is left out."""
+    global _WINDOW
+    with _WINDOW_MU:
+        win, _WINDOW = _WINDOW, None
+        if win is None:
+            raise RuntimeError("no window is recording")
+        end = _clock_anchor()
+        with win._mu:
+            spans = [sp for sp in win.spans if sp.end_ns]
+        return Window(spans, (_WINDOW_ANCHOR, end))
+
+
+def window() -> "Tracer | None":
+    """The recording window's tracer, or None while none records."""
+    return _WINDOW
+
+
+class Phases:
+    """Consecutive spans of one thread for code whose phases do not sit in
+    one block each: ``to(name)`` ends the open phase and opens ``name``
+    through ``open_span`` (a span seam, such as ``Session.span``);
+    ``close()`` ends the open phase. Phases never overlap."""
+
+    __slots__ = ("_open", "_cm")
+
+    def __init__(self, open_span):
+        self._open = open_span
+        self._cm = None
+
+    def to(self, name: str) -> None:
+        self.close()
+        cm = self._open(name)
+        cm.__enter__()
+        self._cm = cm
+
+    def close(self) -> None:
+        cm, self._cm = self._cm, None
+        if cm is not None:
+            cm.__exit__(None, None, None)
